@@ -1,0 +1,84 @@
+"""Weighted gradient combination (paper Eq. 2-3), in PyTorch.
+
+    g_k   = lambda_k * grad_k,  lambda_k = b_k / sum_i b_i
+    x_t+1 = x_t - eta * sum_k g_k
+
+Gradients are flat ``dict[str, Tensor]`` keyed like the parameters.  The
+masked in-graph ``weighted_psum`` of the reference belongs to the measured
+(multi-device) backend and is not part of this module yet.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Sequence
+
+import torch
+
+Grads = dict[str, torch.Tensor]
+
+
+def tree_sqnorm(tree: Grads) -> torch.Tensor:
+    """Squared L2 norm of a gradient dict, |g|^2 = sum over leaves of sum(x^2),
+    accumulated in fp32 on the leaves' device."""
+    out = None
+    for leaf in tree.values():
+        term = leaf.float().square().sum()
+        out = term if out is None else out + term
+    return torch.zeros((), dtype=torch.float32) if out is None else out
+
+
+def combine_weighted(grads: Sequence[Grads], batches: Sequence[int]) -> Grads:
+    """Weighted average of per-worker gradient dicts with lambda_k weights."""
+    if len(grads) != len(batches):
+        raise ValueError("one gradient dict per worker required")
+    total = float(sum(batches))
+    if total <= 0:
+        raise ValueError("global batch must be positive")
+    lams = [b / total for b in batches]
+    out = {}
+    for name in grads[0]:
+        acc = lams[0] * grads[0][name]
+        for lam, g in zip(lams[1:], grads[1:]):
+            acc = acc + lam * g[name]
+        out[name] = acc
+    return out
+
+
+def combine_weighted_with_sqnorm(grads: Sequence[Grads],
+                                 batches: Sequence[int]):
+    """`combine_weighted` plus the combined gradient's squared norm."""
+    g = combine_weighted(grads, batches)
+    return g, tree_sqnorm(g)
+
+
+def accumulate_microbatch_grads(grad_fn: Callable, params, microbatches: dict,
+                                masks: torch.Tensor):
+    """Gradient accumulation over stacked ``(n_steps, m, ...)`` microbatches.
+
+    ``grad_fn(params, batch, mask) -> ((loss_sum, w_sum, aux), grads)`` with
+    grads of the weighted SUM loss (Eq. 2-3 contract); ``microbatches`` is a
+    dict whose tensors have leading dims ``(n_steps, m)``; ``masks`` is
+    ``(n_steps, m)``.  Returns device-resident SUMS
+    ``(grad_sums, loss_sum, weight_sum, aux_weighted_sum)``: the caller
+    divides by the weight sum once.  The sums stay on the device, so the
+    loop never waits on the host.
+    """
+    g_acc = None
+    dev = masks.device
+    l_acc = torch.zeros((), dtype=torch.float32, device=dev)
+    w_acc = torch.zeros((), dtype=torch.float32, device=dev)
+    a_acc = torch.zeros((), dtype=torch.float32, device=dev)
+    for i in range(masks.shape[0]):
+        batch = {key: x[i] for key, x in microbatches.items()}
+        (loss_sum, w_sum, aux), grads = grad_fn(params, batch, masks[i])
+        if g_acc is None:
+            g_acc = {name: g.clone() for name, g in grads.items()}
+        else:
+            for name, g in grads.items():
+                g_acc[name].add_(g)
+        l_acc = l_acc + loss_sum
+        w_acc = w_acc + w_sum
+        a_acc = a_acc + aux * w_sum
+    if g_acc is None:
+        g_acc = {name: torch.zeros_like(p) for name, p in params.items()}
+    return g_acc, l_acc, w_acc, a_acc

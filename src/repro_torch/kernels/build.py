@@ -1,0 +1,64 @@
+"""Build the port's CUDA sources into shared libraries and load them.
+
+Each ``.cu`` file under a kernel's ``csrc/`` has a plain C interface; it is
+compiled by ``nvcc`` for ``sm_90a`` into ``build/kernels/`` at the root of
+the checkout (named by a hash of the source and flags, so an edited source
+is rebuilt) at its first use, and loaded with ``ctypes``.  Nothing here runs
+when a module is imported: the CPU tests import every module without nvcc.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+BUILD_LOG: dict[str, str] = {}  # library name -> nvcc/ptxas report
+
+
+def nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME and os.path.exists(os.path.join(CUDA_HOME, "bin", "nvcc")):
+        return os.path.join(CUDA_HOME, "bin", "nvcc")
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                       "toolkit (set CUDA_HOME or put nvcc on PATH)")
+
+
+def build(source: Path, name: str) -> Path:
+    """Compile ``source`` (if its hashed library is missing); returns the path."""
+    source = Path(source)
+    digest = hashlib.sha256(source.read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    lib = BUILD_DIR / f"{name}-{digest}.so"
+    if lib.exists():
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+    proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {source} (exit {proc.returncode}):"
+                           f"\n{proc.stdout}\n{proc.stderr}")
+    BUILD_LOG[name] = proc.stdout + proc.stderr
+    os.replace(tmp, lib)
+    return lib
+
+
+def load(source: Path, name: str) -> ctypes.CDLL:
+    """The loaded library for ``source`` (built on first use, then cached)."""
+    if name not in _LIBS:
+        _LIBS[name] = ctypes.CDLL(str(build(source, name)))
+    return _LIBS[name]

@@ -36,6 +36,10 @@ def pytest_configure(config):
         "markers",
         "subprocess: spawns fresh interpreters (8-fake-device runners); "
         "runs in its own CI leg, excluded from -m tier1")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU (the port's CUDA kernels); skips without "
+        "one")
 
 
 def pytest_collection_modifyitems(config, items):

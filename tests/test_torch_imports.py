@@ -1,0 +1,118 @@
+"""The port stands alone: no module of ``src/repro_torch/`` (nor
+``chip_smoke.py``) imports jax or the reference package, and its entry points
+refuse to fall back to the CPU silently."""
+
+import ast
+import pathlib
+
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _imported_roots(path: pathlib.Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_neither_jax_nor_reference(path):
+    bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_scan_sees_the_whole_port():
+    names = {p.relative_to(ROOT / "src" / "repro_torch").as_posix()
+             for p in PORT_FILES[:-1]}
+    for must in ("kernels/flash_attention/kernel.py", "train/loop.py",
+                 "api/backend.py", "models/convert.py"):
+        assert must in names
+
+
+@pytest.fixture
+def no_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the no-GPU refusal does not "
+                    "apply")
+
+
+def _lm_parts(device):
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataPipeline
+    from repro_torch.models import reduced
+
+    cfg = reduced(get_config("gemma-2b"))
+    return cfg, DataPipeline(cfg, seq_len=8, num_workers=2, device=device)
+
+
+def _experiment(backend):
+    from repro_torch.api import (ClusterSpec, Experiment, TrainConfig,
+                                 lm_workload)
+    from repro_torch.optim import adam
+
+    cfg, pipe = _lm_parts("cpu")
+    return Experiment(
+        workload=lm_workload(cfg, pipe),
+        cluster=ClusterSpec.hlevel(39, 2.0, 2, workload="transformer",
+                                   backend=backend),
+        optimizer=adam(1e-3),
+        config=TrainConfig(b0=2, microbatch=2, max_steps=1))
+
+
+def test_entry_points_raise_without_gpu(no_gpu):
+    from repro_torch.api import SimBackend
+    from repro_torch.device import resolve_device
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device(None)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        _lm_parts(None)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        _experiment(None).session()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        _experiment(SimBackend()).session()
+
+
+def test_params_from_jax_follows_the_device_rule(no_gpu):
+    from repro_torch.models import init_lm, params_from_jax, params_to_jax
+
+    cfg, _ = _lm_parts("cpu")
+    tree = params_to_jax(init_lm(torch.Generator().manual_seed(0), cfg), cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        params_from_jax(tree, cfg)
+    params = params_from_jax(tree, cfg, device="cpu")
+    assert all(p.device.type == "cpu" for p in params.values())
+
+
+def test_entry_points_run_on_cpu_when_asked(no_gpu):
+    from repro_torch.api import SimBackend
+
+    session = _experiment(SimBackend(device="cpu")).session()
+    assert all(p.device.type == "cpu" for p in session.params.values())
+    rec = session.step()
+    assert torch.isfinite(torch.tensor(rec.loss))
+
+
+def test_kernel_wrappers_take_plain_version_only_for_cpu_tensors():
+    from repro_torch.kernels.flash_attention import LAUNCHES, flash_fwd
+
+    before = dict(LAUNCHES)
+    q = torch.zeros(1, 128, 2, 32)
+    k = torch.zeros(1, 128, 1, 32)
+    out, lse = flash_fwd(q, k, k)
+    assert out.shape == q.shape and lse.shape == (1, 2, 128)
+    assert LAUNCHES == before    # the plain version is not a launch
+    with pytest.raises(ValueError, match="CUDA"):
+        from repro_torch.kernels.flash_attention.kernel import _check
+
+        _check("flash_fwd", q, k, k)
