@@ -7,21 +7,34 @@ Needs one CUDA card, the CUDA toolkit (nvcc) and this checkout's ``src/``.
 Phases, each of which fails the run (nonzero exit) when it goes wrong:
 
   1. device and build: the card's name and power limit; the flash-attention
-     kernels compiled by nvcc for sm_90a from
-     ``src/repro_torch/kernels/flash_attention/csrc/``;
+     and SSD kernels compiled by nvcc for sm_90a from
+     ``src/repro_torch/kernels/{flash_attention,ssd_scan}/csrc/`` (one nvcc
+     per source, started together);
   2. every kernel against its plain PyTorch version on the card, at the
      training shapes (B=2, S=T=1024, H=8, Hkv=1, D=256, fp32, causal, with
      num_valid 1 and 2) plus small window/softcap, S<T and non-causal cases;
      padded rows must be exact zeros; kernel and plain version against a
      float64 attention at the training shapes; then kernel, plain and
-     library timings (SDPA's memory-efficient forward and backward);
-  3. a small-input check that the LM loss and its gradients through the
-     kernels equal those of the plain attention path, on the card;
+     library timings (SDPA's memory-efficient forward and backward); the
+     SSD forward and backward kernels against their plain versions at the
+     mamba2-1.3b cell's shapes (B=2, nc=32, cl=64, H=64, P=64, N=128) and
+     at a smaller one (cl 32), the differentiable SSD scan through the
+     kernels and the plain fp32 scan against a float64 scan, then kernel and
+     plain timings (no single PyTorch call computes the SSD function);
+  3. small-input checks that the LM loss and its gradients through the
+     kernels equal those of the plain path, on the card: reduced gemma-2b
+     (attention) and reduced mamba2-1.3b (SSD, chunk 8);
   4. the main path: ``Experiment(...).session().run()`` at gemma-2b's full
      widths (2 layers), seq 1024, three heterogeneous workers, STEPS BSP steps;
      every loss finite, and every kernel's launch count equal to
      layers x microbatches run; the last step runs under torch.profiler
-     (device time by kernel, idle share).
+     (device time by kernel, idle share);
+  5. the ssm path: the same loop at mamba2-1.3b's full widths (4 layers),
+     seq 2048, with the SSD kernel pair's launch counts equal to layers x
+     microbatches and both kernels in the profiled step's device kernels.
+
+Each main path runs with every kernel's launch count set to 0 just before
+it and read just after.
 
 The last three lines of standard output are the ``kernels`` JSON line, the
 card's name and power limit, and ``{"ok": true, "device": {...}}``.  Longer
@@ -46,8 +59,10 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 PEAKS = {"PCIe": (51e12, 2.0e12), "NVL": (60e12, 3.9e12), "SXM": (67e12, 3.35e12)}
 FWD_TOL = 1e-4          # abs and rel: fp32, other summation order over 1024 keys
 BWD_TOL = 1e-3          # relative to the tensor's max |value|, same reason
-MODEL_TOL = 1e-4        # loss rel and grads rel-to-max, kernel vs plain attention
-STEPS = 5               # BSP steps of the main path; the last one is profiled
+MODEL_TOL = 1e-4        # loss rel and grads rel-to-max, kernel vs plain path
+SSD_FWD_TOL = 1e-4      # abs and rel: fp32, other summation order (<= 128 terms)
+SSD_BWD_TOL = 1e-4      # relative to the tensor's max |value|, same reason
+STEPS = 5               # BSP steps of each main path; the last one is profiled
 
 
 def log(*a):
@@ -298,17 +313,161 @@ def time_kernels(peak_flops: float, peak_bw: float, report: dict) -> dict:
     return times
 
 
+# ------------------------------------------------------- phase 2, SSD scan
+
+# (name, B, nc, cl, H, P, N): the mamba2-1.3b cell (seq 2048 in chunks of 64)
+# and tests/test_kernels.py::SSD_CASES[1] (seq 128, chunk 32)
+SSD_CASES = [("cell", 2, 32, 64, 64, 64, 128), ("chunk32", 1, 4, 32, 2, 32, 16)]
+
+
+def ssd_inputs(case, dev, seed, dtype=None):
+    """x, a, b, c in the kernels' (B,nc,cl,H,...) layout; a = -|z| / 10, the
+    reference tests' decay scale."""
+    import torch
+
+    _, b, nc, cl, h, p, n = case
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((b, nc, cl, h, p), generator=g, device=dev)
+    a = -torch.randn((b, nc, cl, h), generator=g, device=dev).abs() * 0.1
+    bm = torch.randn((b, nc, cl, h, n), generator=g, device=dev)
+    cm = torch.randn((b, nc, cl, h, n), generator=g, device=dev)
+    dy = torch.randn((b, nc, cl, h, p), generator=g, device=dev)
+    ds = torch.randn((b, nc, h, p, n), generator=g, device=dev)
+    return x, a, bm, cm, dy, ds
+
+
+def check_ssd_kernels(report: dict) -> dict:
+    """ssd_fwd / ssd_bwd against their plain versions on the same inputs."""
+    import torch
+    from repro_torch.kernels.ssd_scan import kernel as K
+
+    dev = torch.device("cuda")
+    errs = {"ssd_fwd": 0.0, "ssd_bwd": 0.0}
+    for case in SSD_CASES:
+        x, a, bm, cm, dy, ds = ssd_inputs(case, dev, seed=len(case[0]))
+        got = dict(zip(("y", "state"), K.ssd_intra_chunk(x, a, bm, cm)))
+        want = dict(zip(("y", "state"), K.ssd_intra_chunk_plain(x, a, bm, cm)))
+        names = ("dx", "da", "db", "dc")
+        got.update(zip(names, K.ssd_intra_chunk_bwd(x, a, bm, cm, dy, ds)))
+        want.update(zip(names, K.ssd_intra_chunk_bwd_plain(x, a, bm, cm, dy,
+                                                           ds)))
+        torch.cuda.synchronize()
+        res = {}
+        for name, ref in want.items():
+            err = (got[name] - ref).abs().max().item()
+            scale = ref.abs().max().item()
+            if name in ("y", "state"):
+                ok = torch.allclose(got[name], ref, atol=SSD_FWD_TOL,
+                                    rtol=SSD_FWD_TOL)
+                errs["ssd_fwd"] = max(errs["ssd_fwd"], err)
+            else:
+                ok = err <= SSD_BWD_TOL * max(scale, 1e-30)
+                errs["ssd_bwd"] = max(errs["ssd_bwd"], err)
+            res[name] = {"max_abs_err": err, "ref_max": scale, "ok": ok}
+        log(f"  ssd case {case[0]} {case[1:]}: " + ", ".join(
+            f"{k} err {v['max_abs_err']:.3g}" for k, v in res.items()))
+        report["ssd_cases"][case[0]] = res
+        bad = [k for k, v in res.items() if not v["ok"]]
+        if bad:
+            raise AssertionError(f"ssd case {case[0]} failed on {bad}: {res}")
+    return errs
+
+
+def check_ssd_fp64() -> dict:
+    """The differentiable scan through the kernel pair (``ops.ssd``, fp32)
+    and the plain fp32 ``ssd_chunked`` against a float64 ``ssd_chunked``
+    (autograd for the gradients), at the cell's shapes."""
+    import torch
+    from repro_torch.kernels.ssd_scan import ssd, ssd_chunked
+
+    dev = torch.device("cuda")
+    _, b, nc, cl, h, p, n = SSD_CASES[0]
+    x, a, bm, cm, _, _ = ssd_inputs(SSD_CASES[0], dev, seed=64)
+    flat = [t.reshape(b, nc * cl, *t.shape[3:]) for t in (x, a, bm, cm)]
+    g = torch.Generator(device=dev).manual_seed(65)
+    gy = torch.randn(flat[0].shape, generator=g, device=dev)
+    gs = torch.randn((b, h, p, n), generator=g, device=dev)
+    names = ("y", "state", "dx", "da", "db", "dc")
+
+    def run(fn, dtype):
+        leaves = [t.to(dtype).requires_grad_() for t in flat]
+        y, st = fn(*leaves)
+        loss = (y * gy.to(dtype)).sum() + (st * gs.to(dtype)).sum()
+        grads = torch.autograd.grad(loss, leaves)
+        return dict(zip(names, (y.detach(), st.detach(), *grads)))
+
+    ref = run(lambda *v: ssd_chunked(*v, cl), torch.float64)
+    got = {"kernel": run(lambda *v: ssd(*v, chunk=cl), torch.float32),
+           "plain": run(lambda *v: ssd_chunked(*v, cl), torch.float32)}
+    res = {}
+    for name, r in ref.items():
+        scale = r.abs().max().item()
+        res[name] = {
+            label: (got[label][name].double() - r).abs().max().item()
+            for label in got}
+        res[name]["ref_max"] = scale
+        tol = SSD_FWD_TOL if name in ("y", "state") else SSD_BWD_TOL
+        if res[name]["kernel"] > tol * scale:
+            raise AssertionError(f"ssd {name} off the float64 scan: {res}")
+    return res
+
+
+def time_ssd_kernels(peak_flops: float, peak_bw: float) -> dict:
+    """Kernel and plain times at the cell's shapes, with the bound.
+
+    Operations: the products the function needs, the score products over
+    the lower triangle (cl (cl + 1) / 2 pairs) only.  Forward: C B^T and
+    Sc X on the triangle, X^T (B o w) in full.  Backward: C B^T (recomputed),
+    dY X^T, Sc^T dY, dG B and dG^T C on the triangle, (B o w) dS^T and X dS
+    in full.  Bytes: each input read once, each output written once."""
+    import torch
+    from repro_torch.kernels.ssd_scan import kernel as K
+
+    dev = torch.device("cuda")
+    _, b, nc, cl, h, p, n = SSD_CASES[0]
+    x, a, bm, cm, dy, ds = ssd_inputs(SSD_CASES[0], dev, seed=0)
+    tri, blocks, f4 = cl * (cl + 1) // 2, b * nc * h, 4
+    xb, ab, nb, sb = (x.numel() * f4, a.numel() * f4, bm.numel() * f4,
+                      ds.numel() * f4)
+    work = {
+        "ssd_fwd": (blocks * (2 * tri * (n + p) + 2 * cl * p * n),
+                    2 * xb + ab + 2 * nb + sb),
+        "ssd_bwd": (blocks * (2 * tri * (3 * n + 2 * p) + 4 * cl * p * n),
+                    2 * (xb + ab + 2 * nb) + xb + sb),
+    }
+    calls = {
+        "ssd_fwd": (lambda: K.ssd_intra_chunk(x, a, bm, cm),
+                    lambda: K.ssd_intra_chunk_plain(x, a, bm, cm)),
+        "ssd_bwd": (lambda: K.ssd_intra_chunk_bwd(x, a, bm, cm, dy, ds),
+                    lambda: K.ssd_intra_chunk_bwd_plain(x, a, bm, cm, dy,
+                                                        ds)),
+    }
+    times = {}
+    for name, (kern, plain) in calls.items():
+        flops, nbytes = work[name]
+        t_ops, t_mem = flops / peak_flops * 1e3, nbytes / peak_bw * 1e3
+        times[name] = {
+            "ms": time_ms(kern, 20), "plain_ms": time_ms(plain, 5),
+            "library_ms": None,
+            "bound_ms": max(t_ops, t_mem),
+            "bound_by": "operations" if t_ops >= t_mem else "bytes",
+            "flops": flops, "bytes": nbytes,
+        }
+    return times
+
+
 # ------------------------------------------------------------------ phase 3
 
 
-def check_model_path() -> dict:
-    """LM loss + grads with the kernels vs the plain attention path."""
+def check_model_path(arch: str) -> dict:
+    """LM loss + grads with the kernels vs the plain path (attention or SSD
+    scan), reduced config, seq 128, one loss-masked row."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import init_lm, lm_loss, reduced
 
     dev = torch.device("cuda")
-    cfg = reduced(get_config("gemma-2b"))
+    cfg = reduced(get_config(arch))
     params = init_lm(torch.Generator(device=dev).manual_seed(0), cfg)
     g = torch.Generator(device=dev).manual_seed(1)
     tokens = torch.randint(0, cfg.vocab_size, (4, 128), generator=g,
@@ -318,33 +477,63 @@ def check_model_path() -> dict:
     mask = torch.tensor([1.0, 1.0, 1.0, 0.0], device=dev)
     nv = torch.tensor(3, dtype=torch.int32, device=dev)
     res = {}
+    reset_all_launches()
     for use_kernel in (True, False):
         leaves = {k_: p.detach().requires_grad_() for k_, p in params.items()}
         ls, _, _ = lm_loss(leaves, cfg.with_(use_pallas=use_kernel), tokens,
                            targets, mask, num_valid=nv if use_kernel else None)
         grads = torch.autograd.grad(ls, list(leaves.values()))
         res[use_kernel] = (ls.item(), grads)
+    launched = {k: v for k, v in all_launches().items() if v}
     (lk, gk), (lp, gp) = res[True], res[False]
     loss_rel = abs(lk - lp) / abs(lp)
     grad_rel = max(((a - b_).abs().max() / b_.abs().max().clamp_min(1e-30))
                    .item() for a, b_ in zip(gk, gp))
-    out = {"loss_kernel": lk, "loss_plain": lp, "loss_rel_err": loss_rel,
-           "grad_rel_err": grad_rel, "tol": MODEL_TOL}
+    out = {"arch": arch, "loss_kernel": lk, "loss_plain": lp,
+           "loss_rel_err": loss_rel, "grad_rel_err": grad_rel,
+           "tol": MODEL_TOL, "launches": launched}
     if not (math.isfinite(lk) and loss_rel <= MODEL_TOL
-            and grad_rel <= MODEL_TOL):
+            and grad_rel <= MODEL_TOL and launched):
         raise AssertionError(f"kernel path disagrees with plain path: {out}")
     return out
 
 
-def main_path() -> dict:
+def all_launches() -> dict:
+    from repro_torch.kernels import flash_attention, ssd_scan
+
+    return {**flash_attention.LAUNCHES, **ssd_scan.LAUNCHES}
+
+
+def reset_all_launches() -> None:
+    from repro_torch.kernels import flash_attention, ssd_scan
+
+    flash_attention.reset_launches()
+    ssd_scan.reset_launches()
+
+
+# (arch, layers, seq, the path's kernels, profiler name fragment per kernel)
+PATHS = {
+    "gemma": ("gemma-2b", 2, 1024, {"flash_fwd": "::fwd_kernel<",
+                                    "flash_bwd_dq": "::dq_kernel<",
+                                    "flash_bwd_dkv": "::dkv_kernel<"}),
+    "mamba2": ("mamba2-1.3b", 4, 2048, {"ssd_fwd": "ssd_fwd_kernel",
+                                        "ssd_bwd": "ssd_bwd_kernel"}),
+}
+
+
+def main_path(path: str) -> dict:
+    """One heterogeneous Experiment at the arch's full widths (depth cut),
+    STEPS BSP steps, three h-level workers; every launch count is set to 0
+    just before the run and read just after."""
     import torch
     from repro_torch.api import (ClusterSpec, Experiment, Hook, TrainConfig,
                                  lm_workload)
     from repro_torch.configs import get_config
     from repro_torch.core import ControllerConfig, plan_microbatches
     from repro_torch.data import DataPipeline
-    from repro_torch.kernels.flash_attention import LAUNCHES, reset_launches
     from repro_torch.optim import adam
+
+    arch, layers, seq, own = PATHS[path]
 
     class StepClock(Hook):
         """Per-step wall ms (host clock around synchronized steps), and
@@ -371,13 +560,13 @@ def main_path() -> dict:
                 self.prof.__enter__()
             elif rec.step == self.profile_step and self.prof is not None:
                 self.prof.__exit__(None, None, None)
-                self.profile = profile_summary(self.prof, wall * 1e6)
+                self.profile = profile_summary(self.prof, wall * 1e6, own)
             self.t = time.perf_counter()
 
-    cfg = get_config("gemma-2b", num_layers=2)
+    cfg = get_config(arch, num_layers=layers)
     microbatch = 2
     experiment = Experiment(
-        workload=lm_workload(cfg, DataPipeline(cfg, seq_len=1024,
+        workload=lm_workload(cfg, DataPipeline(cfg, seq_len=seq,
                                                num_workers=3),
                              aux_weight=0.01, use_kernel=True),
         cluster=ClusterSpec.hlevel(39, 6.0, 3, workload="transformer",
@@ -388,40 +577,57 @@ def main_path() -> dict:
                            controller=ControllerConfig(kind="p")),
     )
     clock = StepClock(profile_step=STEPS - 1)
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     session = experiment.session(hooks=[clock])
     n_params = sum(p.numel() for p in session.params.values())
     initial = list(session.batches)
-    reset_launches()
+    reset_all_launches()
     out = session.run()
-    counts = dict(LAUNCHES)
+    counts = all_launches()
     hist = out["history"]
     pre = [initial] + [r.batches for r in hist[:-1]]
-    micro = sum(plan_microbatches(b_, microbatch).n_steps
-                for bs in pre for b_ in bs)
-    want = cfg.num_layers * micro
+    per_step = [cfg.num_layers * sum(plan_microbatches(b_, microbatch).n_steps
+                                     for b_ in bs) for bs in pre]
+    want = sum(per_step)
+    micro = want // cfg.num_layers
     losses = [r.loss for r in hist]
     for r, ms in zip(hist, clock.ms):
         log(f"  step {r.step} wall {ms:.1f} ms  loss {r.loss:.4f}  "
             f"batches {r.batches}  sim_time {r.sim_time:.4f}  "
             f"adjusted {r.adjusted}")
-    res = {"params": n_params, "initial_batches": initial,
+    res = {"arch": arch, "layers": layers, "seq": seq, "params": n_params,
+           "initial_batches": initial,
            "losses": losses, "batches": [r.batches for r in hist],
            "sim_time": [r.sim_time for r in hist],
            "step_wall_ms": clock.ms, "microbatches": micro,
            "launches": counts, "expected_launches": want,
+           "launches_per_step": per_step,
            "max_memory_allocated": torch.cuda.max_memory_allocated(),
            "profile": clock.profile}
+    del session, experiment, out
+    torch.cuda.empty_cache()
     if len(hist) != STEPS or not all(math.isfinite(x) for x in losses):
-        raise AssertionError(f"main path: bad losses {losses}")
-    if any(c != want or c <= 0 for c in counts.values()):
-        raise AssertionError(f"main path launches {counts}, want {want} each "
-                             f"({cfg.num_layers} layers x {micro} microbatches)")
+        raise AssertionError(f"{path} path: bad losses {losses}")
+    wrong = {k: c for k, c in counts.items()
+             if c != (want if k in own else 0)}
+    if wrong or want <= 0:
+        raise AssertionError(
+            f"{path} path launches {counts}: want {want} for each of "
+            f"{list(own)} ({cfg.num_layers} layers x {micro} microbatches), "
+            "0 for the others")
+    prof = clock.profile
+    if prof and prof["device_busy_us"]:
+        missing = [k for k, us in prof["kernels_us"].items() if not us > 0]
+        if missing:
+            raise AssertionError(f"{path} path: {missing} absent from the "
+                                 f"profiled step's device kernels: {prof}")
     return res
 
 
-def profile_summary(prof, wall_us: float, top: int = 8) -> dict:
-    """Device time by kernel (self time, us) over one profiled step."""
+def profile_summary(prof, wall_us: float, own: dict, top: int = 8) -> dict:
+    """Device time by kernel (self time, us) over one profiled step;
+    ``kernels_us`` sums the path's own kernels by name fragment."""
     kernels = {}
     for ev in prof.events():
         if getattr(ev, "device_type", None) is None or \
@@ -430,15 +636,32 @@ def profile_summary(prof, wall_us: float, top: int = 8) -> dict:
         kernels[ev.name] = kernels.get(ev.name, 0.0) + ev.device_time_total
     busy = sum(kernels.values())
     ranked = sorted(kernels.items(), key=lambda kv: -kv[1])
-    flash = sum(t for n, t in kernels.items()
-                if any(k in n for k in ("fwd_kernel", "dq_kernel",
-                                        "dkv_kernel")))
+    mine = {k: sum(t for n, t in kernels.items() if frag in n)
+            for k, frag in own.items()}
     gemm = sum(t for n, t in kernels.items()
                if "gemm" in n.lower() or "sgemm" in n.lower())
     return {"step_wall_us": wall_us, "device_busy_us": busy,
             "idle_share": (1 - busy / wall_us) if busy else None,
-            "flash_kernels_us": flash, "gemm_us": gemm,
+            "kernels_us": mine, "gemm_us": gemm,
             "top": [(n[:90], t) for n, t in ranked[:top]]}
+
+
+def log_path(mp: dict) -> None:
+    pr = mp["profile"]
+    if pr and pr["device_busy_us"]:
+        log(f"  profiled step: wall {pr['step_wall_us'] / 1e3:.1f} ms, device "
+            f"busy {pr['device_busy_us'] / 1e3:.1f} ms (idle share "
+            f"{pr['idle_share']:.3f}); gemm {pr['gemm_us'] / 1e3:.1f} ms, "
+            "own kernels " + ", ".join(
+                f"{k} {us / 1e3:.1f} ms" for k, us in pr["kernels_us"].items()))
+        for name, us in pr["top"]:
+            log(f"    {us / 1e3:8.2f} ms  {name}")
+    else:
+        log("  profiled step: no device time recorded (not measured)")
+    log(f"  params {mp['params']}, microbatches {mp['microbatches']}, "
+        f"launches {mp['launches']} (per step and kernel "
+        f"{mp['launches_per_step']}), max_memory_allocated "
+        f"{mp['max_memory_allocated'] / 2**30:.2f} GiB")
 
 
 # --------------------------------------------------------------------- main
@@ -456,8 +679,11 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.join(ROOT, "src"))
+    from concurrent.futures import ThreadPoolExecutor
+
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import kernel as K
+    from repro_torch.kernels.ssd_scan import kernel as KS
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -472,11 +698,15 @@ def main() -> int:
         f"; peaks ({peak_name}): {peak_flops / 1e12:.0f} TFLOP/s fp32, "
         f"{peak_bw / 1e12:.2f} TB/s")
     t0 = time.perf_counter()
-    lib = build.build(K.SOURCE, "flash_attention")
-    log(f"    built {os.path.relpath(lib, ROOT)} in "
-        f"{time.perf_counter() - t0:.1f} s")
-    report = {"gpu": smi, "build_log": build.BUILD_LOG.get("flash_attention"),
-              "cases": {}}
+    sources = {"flash_attention": K.SOURCE, "ssd_scan": KS.SOURCE}
+    with ThreadPoolExecutor(len(sources)) as pool:
+        libs = dict(zip(sources, pool.map(lambda kv: build.build(kv[1], kv[0]),
+                                          sources.items())))
+    log("    built " + ", ".join(os.path.relpath(lib, ROOT)
+                                 for lib in libs.values())
+        + f" in {time.perf_counter() - t0:.1f} s (in parallel)")
+    report = {"gpu": smi, "build_log": dict(build.BUILD_LOG), "cases": {},
+              "ssd_cases": {}}
 
     # 2. kernels against plain versions, then timings
     log("[2] kernels vs plain versions "
@@ -488,56 +718,72 @@ def main() -> int:
         f"{r['kernel_equals_plain']}" for n, r in report["fp64"].items()))
     times = time_kernels(peak_flops, peak_bw, report)
     log(f"  library vs kernel max abs err: {report['library_vs_kernel']}")
+    log(f"  SSD kernels vs plain versions (fwd allclose {SSD_FWD_TOL}; bwd max"
+        f" err <= {SSD_BWD_TOL} x max|ref|)")
+    errs.update(check_ssd_kernels(report))
+    report["ssd_fp64"] = check_ssd_fp64()
+    log(f"  SSD scan vs float64 (kernel / plain max abs err; tol "
+        f"{SSD_FWD_TOL} / {SSD_BWD_TOL} x max|ref|): " + ", ".join(
+            f"{n} {r['kernel']:.3g} / {r['plain']:.3g} (max {r['ref_max']:.3g})"
+            for n, r in report["ssd_fp64"].items()))
+    times.update(time_ssd_kernels(peak_flops, peak_bw))
     for name, tm in times.items():
+        lib_ms = ("none" if tm["library_ms"] is None
+                  else f"{tm['library_ms']:.3f} ms")
         log(f"  {name}: kernel {tm['ms']:.3f} ms, plain {tm['plain_ms']:.3f} "
-            f"ms, library {tm['library_ms']:.3f} ms, bound "
-            f"{tm['bound_ms']:.4f} ms ({tm['bound_by']})")
+            f"ms, library {lib_ms}, bound {tm['bound_ms']:.4f} ms "
+            f"({tm['bound_by']})")
     torch.cuda.empty_cache()
 
-    # 3. small-input model check, then the main path
-    log("[3] LM loss + grads, kernels vs plain attention (reduced gemma-2b)")
-    report["model_check"] = check_model_path()
-    log(f"  {report['model_check']}")
-    log(f"[4] main path: gemma-2b widths, 2 layers, seq 1024, "
-        f"{STEPS} BSP steps")
-    report["main_path"] = main_path()
-    mp = report["main_path"]
-    pr = mp["profile"]
-    if pr and pr["device_busy_us"]:
-        log(f"  profiled step: wall {pr['step_wall_us'] / 1e3:.1f} ms, device "
-            f"busy {pr['device_busy_us'] / 1e3:.1f} ms (idle share "
-            f"{pr['idle_share']:.3f}); gemm {pr['gemm_us'] / 1e3:.1f} ms, "
-            f"flash kernels {pr['flash_kernels_us'] / 1e3:.1f} ms")
-        for name, us in pr["top"]:
-            log(f"    {us / 1e3:8.2f} ms  {name}")
-    else:
-        log("  profiled step: no device time recorded (not measured)")
-    log(f"  params {mp['params']}, microbatches {mp['microbatches']}, "
-        f"launches {mp['launches']}, max_memory_allocated "
-        f"{mp['max_memory_allocated'] / 2**30:.2f} GiB")
+    # 3. small-input model checks, then the main paths
+    report["model_check"] = {}
+    for arch in ("gemma-2b", "mamba2-1.3b"):
+        log(f"[3] LM loss + grads, kernels vs plain path (reduced {arch})")
+        report["model_check"][arch] = check_model_path(arch)
+        log(f"  {report['model_check'][arch]}")
+    report["paths"] = {}
+    for step_no, path in ((4, "gemma"), (5, "mamba2")):
+        arch, layers, seq, _ = PATHS[path]
+        log(f"[{step_no}] main path: {arch} widths, {layers} layers, seq "
+            f"{seq}, {STEPS} BSP steps")
+        report["paths"][path] = main_path(path)
+        log_path(report["paths"][path])
 
-    source = os.path.relpath(K.SOURCE, ROOT)
     replaces = {
         "flash_fwd": "src/repro/kernels/flash_attention/kernel.py:280",
         "flash_bwd_dq": "src/repro/kernels/flash_attention/kernel.py:359",
         "flash_bwd_dkv": "src/repro/kernels/flash_attention/kernel.py:399",
+        "ssd_fwd": "src/repro/kernels/ssd_scan/kernel.py:29",
+        "ssd_bwd": "src/repro/kernels/ssd_scan/kernel.py:29",
     }
+    library_call = {
+        "flash_fwd": "scaled_dot_product_attention",
+        "flash_bwd_dq": "_scaled_dot_product_efficient_attention_backward"
+                        " (dq, dk and dv in one call)",
+        "flash_bwd_dkv": "_scaled_dot_product_efficient_attention_backward"
+                         " (dq, dk and dv in one call)",
+        "ssd_fwd": None, "ssd_bwd": None,
+    }
+    tols = {"flash_fwd": FWD_TOL, "flash_bwd_dq": BWD_TOL,
+            "flash_bwd_dkv": BWD_TOL, "ssd_fwd": SSD_FWD_TOL,
+            "ssd_bwd": SSD_BWD_TOL}
     kernels = []
-    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
-        tm = times[name]
-        kernels.append({
-            "name": name, "route": "cuda", "source": source,
-            "replaces": replaces[name],
-            "launches": mp["launches"][name],
-            "max_abs_err": errs[name],
-            "tol": FWD_TOL if name == "flash_fwd" else BWD_TOL,
-            "ms": tm["ms"], "kernel_ms": tm["ms"], "plain_ms": tm["plain_ms"],
-            "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],
-            "library_ms": tm["library_ms"],
-            "library_call": "scaled_dot_product_attention" if name ==
-            "flash_fwd" else "_scaled_dot_product_efficient_attention_backward"
-                             " (dq, dk and dv in one call)",
-        })
+    for path in PATHS:
+        source = os.path.relpath(
+            K.SOURCE if path == "gemma" else KS.SOURCE, ROOT)
+        for name in PATHS[path][3]:
+            tm = times[name]
+            kernels.append({
+                "name": name, "route": "cuda", "source": source,
+                "replaces": replaces[name],
+                "launches": report["paths"][path]["launches"][name],
+                "max_abs_err": errs[name], "tol": tols[name],
+                "ms": tm["ms"], "kernel_ms": tm["ms"],
+                "plain_ms": tm["plain_ms"],
+                "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],
+                "library_ms": tm["library_ms"],
+                "library_call": library_call[name],
+            })
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:

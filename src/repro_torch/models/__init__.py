@@ -1,13 +1,18 @@
 from repro_torch.models.config import ModelConfig, reduced
 from repro_torch.models.convert import params_from_jax, params_to_jax
-from repro_torch.models.transformer import apply_lm, init_lm, lm_loss
+from repro_torch.models.ssm import ssd_block, ssd_chunked
+from repro_torch.models.transformer import (apply_lm, block_pattern, init_lm,
+                                            lm_loss)
 
 __all__ = [
     "ModelConfig",
     "apply_lm",
+    "block_pattern",
     "init_lm",
     "lm_loss",
     "params_from_jax",
     "params_to_jax",
     "reduced",
+    "ssd_block",
+    "ssd_chunked",
 ]

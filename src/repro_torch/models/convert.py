@@ -5,7 +5,9 @@ The reference (``repro.models.transformer.init_lm``) stacks the repeated
 blocks along a leading layer axis under ``params["groups"]["b0"]`` and stores
 linear weights as ``w`` of shape (d_in, d_out).  The port keeps one
 ``layers.{i}.`` entry per layer and PyTorch's ``weight`` of shape
-(d_out, d_in).  Both directions are exact: no arithmetic touches a value.
+(d_out, d_in).  Only leaves named ``w`` are transposed: the ssm family's
+``ssd/conv_w`` keeps the reference's (K, C) layout, which ``ssd_block``
+reads as it is.  Both directions are exact: no arithmetic touches a value.
 """
 
 from __future__ import annotations

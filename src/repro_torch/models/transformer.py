@@ -1,9 +1,10 @@
-"""Decoder-only LM, dense family (the reference's ``models/transformer.py``).
+"""Decoder-only LM, dense and ssm families (the reference's
+``models/transformer.py``).
 
 The reference stacks the layers' parameters and scans over them; PyTorch
 runs eagerly, so the layers are a Python loop over ``layers.{i}.*`` entries
-of a flat parameter dict.  MoE, SSM, hybrid and VLM families, and the
-KV-cache decode path, are later slices of the port.
+of a flat parameter dict.  Hybrid, MoE, MLA, encdec and VLM families, and
+the cache decode path, are later slices of the port.
 """
 
 from __future__ import annotations
@@ -11,33 +12,59 @@ from __future__ import annotations
 import torch
 
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as S
 from repro_torch.models.config import ModelConfig
 
 Params = L.Params
 
+_LATER = {
+    "hybrid": "slice 2: hybrid family + the RG-LRU kernel",
+    "moe": "slice 7: MoE / MLA / encdec / vlm",
+    "encdec": "slice 7: MoE / MLA / encdec / vlm",
+    "vlm": "slice 7: MoE / MLA / encdec / vlm",
+}
+
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for what this slice of the port does not run."""
-    if cfg.family != "dense" or cfg.attention != "gqa":
+    if cfg.family in _LATER:
         raise NotImplementedError(
-            f"family {cfg.family!r} / attention {cfg.attention!r} is not "
-            "ported yet: only the dense GQA family is (ROADMAP queue 1)")
+            f"family {cfg.family!r} is not ported yet (ROADMAP queue 1, "
+            f"{_LATER[cfg.family]}); ported: dense GQA and ssm")
+    if cfg.family == "dense" and cfg.attention != "gqa":
+        raise NotImplementedError(
+            f"attention {cfg.attention!r} is not ported yet (ROADMAP queue 1, "
+            f"{_LATER['moe']}); ported: dense GQA and ssm")
     if cfg.remat:
         raise NotImplementedError(
             "activation checkpointing (remat) is not ported yet (ROADMAP "
             "queue 1, launch slice)")
 
 
-def init_block(gen, cfg: ModelConfig) -> Params:
+def block_pattern(cfg: ModelConfig) -> tuple[str, ...]:
+    """Kinds of the repeating block group ('attn' | 'ssd')."""
+    return ("ssd",) if cfg.family == "ssm" else ("attn",)
+
+
+def init_block(gen, cfg: ModelConfig, kind: str) -> Params:
     p = L.prefixed("norm1", L.init_norm(cfg, gen.device))
+    if kind == "ssd":  # mamba2 blocks have no separate MLP
+        p.update(L.prefixed("ssd", S.init_ssd(gen, cfg)))
+        return p
     p.update(L.prefixed("attn", L.init_gqa(gen, cfg)))
     p.update(L.prefixed("norm2", L.init_norm(cfg, gen.device)))
     p.update(L.prefixed("mlp", L.init_mlp(gen, cfg)))
     return p
 
 
-def apply_block(p: Params, x, cfg: ModelConfig, positions, num_valid=None):
+def apply_block(p: Params, x, cfg: ModelConfig, kind: str, positions,
+                num_valid=None):
+    """One block; ``num_valid`` reaches the attention kernels only (ssd
+    blocks ignore it, as in the reference)."""
     h = L.apply_norm(L.sub(p, "norm1"), x, cfg)
+    if kind == "ssd":
+        out, _ = S.ssd_block(L.sub(p, "ssd"), h, cfg)
+        return x + out
     x = x + L.gqa_attention(L.sub(p, "attn"), h, cfg, positions=positions,
                             window=cfg.window, softcap=cfg.attn_softcap,
                             num_valid=num_valid)
@@ -49,9 +76,11 @@ def init_lm(gen: torch.Generator, cfg: ModelConfig) -> Params:
     """Random parameters on ``gen``'s device, drawn from ``gen``."""
     cfg.validate()
     check_supported(cfg)
+    pattern = block_pattern(cfg)
     params = L.prefixed("embed", L.init_embedding(gen, cfg))
     for i in range(cfg.num_layers):
-        params.update(L.prefixed(f"layers.{i}", init_block(gen, cfg)))
+        params.update(L.prefixed(f"layers.{i}", init_block(
+            gen, cfg, pattern[i % len(pattern)])))
     params.update(L.prefixed("final_norm", L.init_norm(cfg, gen.device)))
     if not cfg.tie_embeddings:
         params.update(L.prefixed("lm_head", L.init_linear(
@@ -67,13 +96,14 @@ def apply_lm(params: Params, cfg: ModelConfig, tokens, *, positions=None,
     threaded to the attention kernels.
     """
     check_supported(cfg)
+    pattern = block_pattern(cfg)
     s = tokens.shape[1]
     x = L.embed(L.sub(params, "embed"), tokens, cfg)
     if positions is None:
         positions = torch.arange(s, device=tokens.device)[None, :]
     for i in range(cfg.num_layers):
-        x = apply_block(L.sub(params, f"layers.{i}"), x, cfg, positions,
-                        num_valid)
+        x = apply_block(L.sub(params, f"layers.{i}"), x, cfg,
+                        pattern[i % len(pattern)], positions, num_valid)
     x = L.apply_norm(L.sub(params, "final_norm"), x, cfg)
     logits = L.unembed(L.sub(params, "embed"), L.sub(params, "lm_head"), x,
                        cfg)

@@ -35,7 +35,10 @@ def test_scan_sees_the_whole_port():
     names = {p.relative_to(ROOT / "src" / "repro_torch").as_posix()
              for p in PORT_FILES[:-1]}
     for must in ("kernels/flash_attention/kernel.py", "train/loop.py",
-                 "api/backend.py", "models/convert.py"):
+                 "api/backend.py", "models/convert.py",
+                 "kernels/ssd_scan/kernel.py", "kernels/ssd_scan/ops.py",
+                 "kernels/ssd_scan/ref.py", "models/ssm.py",
+                 "configs/mamba2_1_3b.py"):
         assert must in names
 
 
@@ -116,3 +119,25 @@ def test_kernel_wrappers_take_plain_version_only_for_cpu_tensors():
         from repro_torch.kernels.flash_attention.kernel import _check
 
         _check("flash_fwd", q, k, k)
+
+
+def test_unported_paths_of_the_ssm_slice_raise():
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_lm, reduced, ssd_block
+    from repro_torch.models.config import ModelConfig
+    from repro_torch.models.layers import sub
+
+    cfg = reduced(get_config("mamba2-1.3b"))
+    params = sub(init_lm(torch.Generator().manual_seed(0), cfg),
+                 "layers.0.ssd")
+    x = torch.zeros(1, 8, cfg.d_model)
+    with pytest.raises(NotImplementedError, match="slice 6"):
+        ssd_block(params, x, cfg, cache={"conv": None, "state": None})
+    with pytest.raises(NotImplementedError, match="not ported"):
+        get_config("recurrentgemma-9b")
+    hybrid = ModelConfig(name="hybrid", family="hybrid", num_layers=3,
+                         d_model=64, vocab_size=32, num_heads=2,
+                         num_kv_heads=1, head_dim=32, lru_width=64,
+                         block_pattern=("rec", "rec", "attn"))
+    with pytest.raises(NotImplementedError, match="RG-LRU"):
+        init_lm(torch.Generator().manual_seed(0), hybrid)
