@@ -6,24 +6,33 @@
 Needs one CUDA card, the CUDA toolkit (nvcc) and this checkout's ``src/``.
 Phases, each of which fails the run (nonzero exit) when it goes wrong:
 
-  1. device and build: the card's name and power limit; the flash-attention
-     and SSD kernels compiled by nvcc for sm_90a from
-     ``src/repro_torch/kernels/{flash_attention,ssd_scan}/csrc/`` (one nvcc
-     per source, started together);
+  1. device and build: the card's name and power limit; the flash-attention,
+     SSD and RG-LRU kernels compiled by nvcc for sm_90a from
+     ``src/repro_torch/kernels/{flash_attention,ssd_scan,rglru_scan}/csrc/``
+     (one nvcc per source, started together);
   2. every kernel against its plain PyTorch version on the card, at the
      training shapes (B=2, S=T=1024, H=8, Hkv=1, D=256, fp32, causal, with
-     num_valid 1 and 2) plus small window/softcap, S<T and non-causal cases;
-     padded rows must be exact zeros; kernel and plain version against a
-     float64 attention at the training shapes; then kernel, plain and
-     library timings (SDPA's memory-efficient forward and backward); the
-     SSD forward and backward kernels against their plain versions at the
-     mamba2-1.3b cell's shapes (B=2, nc=32, cl=64, H=64, P=64, N=128) and
-     at a smaller one (cl 32), the differentiable SSD scan through the
-     kernels and the plain fp32 scan against a float64 scan, then kernel and
-     plain timings (no single PyTorch call computes the SSD function);
+     num_valid 1 and 2) plus small window/softcap, S<T and non-causal cases,
+     the recurrentgemma local blocks' shapes on the hybrid path (B=2,
+     S=T=2048, H=16, Hkv=1, D=256, window 2048, num_valid 1 and 2) and where
+     the window bites (B=1, S=T=4096); padded rows must be exact zeros;
+     kernel and plain version against a float64 attention at the training
+     shapes; then kernel, plain and library timings (SDPA's
+     memory-efficient forward and backward); the SSD forward and backward
+     kernels against their plain versions at the mamba2-1.3b cell's shapes
+     (B=2, nc=32, cl=64, H=64, P=64, N=128) and at a smaller one (cl 32),
+     the differentiable SSD scan through the kernels and the plain fp32 scan
+     against a float64 scan, then kernel and plain timings (no single
+     PyTorch call computes the SSD function); the RG-LRU forward and
+     backward kernels against their plain versions at the recurrentgemma-9b
+     cell's shapes (B 1 and 2, L 2048, W 4096, with and without h0) and at
+     W 200, the scan through the kernel pair and the plain fp32 scan against
+     a float64 scan, then kernel and plain timings (no single PyTorch call
+     computes the RG-LRU scan);
   3. small-input checks that the LM loss and its gradients through the
      kernels equal those of the plain path, on the card: reduced gemma-2b
-     (attention) and reduced mamba2-1.3b (SSD, chunk 8);
+     (attention), reduced mamba2-1.3b (SSD, chunk 8) and reduced
+     recurrentgemma-9b (RG-LRU at lru_width 128, flash with window 8);
   4. the main path: ``Experiment(...).session().run()`` at gemma-2b's full
      widths (2 layers), seq 1024, three heterogeneous workers, STEPS BSP steps;
      every loss finite, and every kernel's launch count equal to
@@ -31,7 +40,11 @@ Phases, each of which fails the run (nonzero exit) when it goes wrong:
      (device time by kernel, idle share);
   5. the ssm path: the same loop at mamba2-1.3b's full widths (4 layers),
      seq 2048, with the SSD kernel pair's launch counts equal to layers x
-     microbatches and both kernels in the profiled step's device kernels.
+     microbatches and both kernels in the profiled step's device kernels;
+  6. the hybrid path: the same loop at recurrentgemma-9b's full widths (3
+     layers, one rec-rec-local group), seq 2048, with the RG-LRU pair's
+     launch counts equal to 2 rec layers x microbatches, the flash kernels'
+     to 1 local layer x microbatches, and all five in the profiled step.
 
 Each main path runs with every kernel's launch count set to 0 just before
 it and read just after.
@@ -62,7 +75,10 @@ BWD_TOL = 1e-3          # relative to the tensor's max |value|, same reason
 MODEL_TOL = 1e-4        # loss rel and grads rel-to-max, kernel vs plain path
 SSD_FWD_TOL = 1e-4      # abs and rel: fp32, other summation order (<= 128 terms)
 SSD_BWD_TOL = 1e-4      # relative to the tensor's max |value|, same reason
+RGLRU_FWD_TOL = 1e-5    # abs and rel: the reference's RG-LRU tolerance
+RGLRU_BWD_TOL = 1e-5    # relative to the tensor's max |value|
 STEPS = 5               # BSP steps of each main path; the last one is profiled
+MICROBATCH = 2          # rows per microbatch on every main path
 
 
 def log(*a):
@@ -108,6 +124,12 @@ CASES = [
     ("window-softcap", 2, 256, 256, 4, 2, 64, True, 64, 30.0, 1),
     ("s-lt-t", 1, 128, 256, 4, 1, 128, True, None, None, None),
     ("bidirectional", 1, 192, 192, 4, 4, 32, False, None, None, None),
+    # recurrentgemma-9b's local blocks as the hybrid main path runs them
+    # (microbatch 2, seq 2048, one row padded when a worker's batch is odd)
+    ("hybrid-nv1", 2, 2048, 2048, 16, 1, 256, True, 2048, None, 1),
+    ("hybrid-nv2", 2, 2048, 2048, 16, 1, 256, True, 2048, None, 2),
+    # and at a length where the window bites
+    ("local-window", 1, 4096, 4096, 16, 1, 256, True, 2048, None, None),
 ]
 
 
@@ -313,6 +335,63 @@ def time_kernels(peak_flops: float, peak_bw: float, report: dict) -> dict:
     return times
 
 
+# ------------------------------------------- phase 2, the scans' shared parts
+
+
+def check_case(label: str, got: dict, want: dict, fwd: tuple, tols: tuple,
+               kernels: tuple, errs: dict, cases: dict) -> None:
+    """Hold each kernel output in ``got`` to its plain version in ``want``
+    (None where neither computes it): the forward kernel's outputs (names
+    in ``fwd``) allclose at tols[0] abs and rel, the backward's within
+    tols[1] x max|plain|.  Records the case under ``cases[label]``, the
+    largest error of each of ``kernels`` (forward, backward) in ``errs``,
+    and raises on a miss."""
+    import torch
+
+    torch.cuda.synchronize()
+    res = {}
+    for name, ref in want.items():
+        if ref is None:
+            if got[name] is not None:
+                raise AssertionError(f"case {label}: {name} should be None")
+            continue
+        err = (got[name] - ref).abs().max().item()
+        scale = ref.abs().max().item()
+        kernel = kernels[0] if name in fwd else kernels[1]
+        if name in fwd:
+            ok = torch.allclose(got[name], ref, atol=tols[0], rtol=tols[0])
+        else:
+            ok = err <= tols[1] * max(scale, 1e-30)
+        errs[kernel] = max(errs.get(kernel, 0.0), err)
+        res[name] = {"max_abs_err": err, "ref_max": scale, "ok": ok,
+                     "equal": bool(torch.equal(got[name], ref))}
+    log(f"  case {label}: " + ", ".join(
+        f"{k} err {v['max_abs_err']:.3g}{' (equal)' if v['equal'] else ''}"
+        for k, v in res.items()))
+    cases[label] = res
+    bad = [k for k, v in res.items() if not v["ok"]]
+    if bad:
+        raise AssertionError(f"case {label} failed on {bad}: {res}")
+
+
+def time_plain_and_kernel(calls: dict, work: dict, peak_flops: float,
+                          peak_bw: float, plain_iters: int) -> dict:
+    """Kernel and plain times for kernels no single PyTorch call matches
+    (library none), with the bound from ``work[name] = (flops, bytes)``."""
+    times = {}
+    for name, (kern, plain) in calls.items():
+        flops, nbytes = work[name]
+        t_ops, t_mem = flops / peak_flops * 1e3, nbytes / peak_bw * 1e3
+        times[name] = {
+            "ms": time_ms(kern, 20), "plain_ms": time_ms(plain, plain_iters),
+            "library_ms": None,
+            "bound_ms": max(t_ops, t_mem),
+            "bound_by": "operations" if t_ops >= t_mem else "bytes",
+            "flops": flops, "bytes": nbytes,
+        }
+    return times
+
+
 # ------------------------------------------------------- phase 2, SSD scan
 
 # (name, B, nc, cl, H, P, N): the mamba2-1.3b cell (seq 2048 in chunks of 64)
@@ -342,7 +421,7 @@ def check_ssd_kernels(report: dict) -> dict:
     from repro_torch.kernels.ssd_scan import kernel as K
 
     dev = torch.device("cuda")
-    errs = {"ssd_fwd": 0.0, "ssd_bwd": 0.0}
+    errs = {}
     for case in SSD_CASES:
         x, a, bm, cm, dy, ds = ssd_inputs(case, dev, seed=len(case[0]))
         got = dict(zip(("y", "state"), K.ssd_intra_chunk(x, a, bm, cm)))
@@ -351,25 +430,9 @@ def check_ssd_kernels(report: dict) -> dict:
         got.update(zip(names, K.ssd_intra_chunk_bwd(x, a, bm, cm, dy, ds)))
         want.update(zip(names, K.ssd_intra_chunk_bwd_plain(x, a, bm, cm, dy,
                                                            ds)))
-        torch.cuda.synchronize()
-        res = {}
-        for name, ref in want.items():
-            err = (got[name] - ref).abs().max().item()
-            scale = ref.abs().max().item()
-            if name in ("y", "state"):
-                ok = torch.allclose(got[name], ref, atol=SSD_FWD_TOL,
-                                    rtol=SSD_FWD_TOL)
-                errs["ssd_fwd"] = max(errs["ssd_fwd"], err)
-            else:
-                ok = err <= SSD_BWD_TOL * max(scale, 1e-30)
-                errs["ssd_bwd"] = max(errs["ssd_bwd"], err)
-            res[name] = {"max_abs_err": err, "ref_max": scale, "ok": ok}
-        log(f"  ssd case {case[0]} {case[1:]}: " + ", ".join(
-            f"{k} err {v['max_abs_err']:.3g}" for k, v in res.items()))
-        report["ssd_cases"][case[0]] = res
-        bad = [k for k, v in res.items() if not v["ok"]]
-        if bad:
-            raise AssertionError(f"ssd case {case[0]} failed on {bad}: {res}")
+        check_case(f"ssd {case[0]} {case[1:]}", got, want, ("y", "state"),
+                   (SSD_FWD_TOL, SSD_BWD_TOL), ("ssd_fwd", "ssd_bwd"), errs,
+                   report["ssd_cases"])
     return errs
 
 
@@ -442,26 +505,125 @@ def time_ssd_kernels(peak_flops: float, peak_bw: float) -> dict:
                     lambda: K.ssd_intra_chunk_bwd_plain(x, a, bm, cm, dy,
                                                         ds)),
     }
-    times = {}
-    for name, (kern, plain) in calls.items():
-        flops, nbytes = work[name]
-        t_ops, t_mem = flops / peak_flops * 1e3, nbytes / peak_bw * 1e3
-        times[name] = {
-            "ms": time_ms(kern, 20), "plain_ms": time_ms(plain, 5),
-            "library_ms": None,
-            "bound_ms": max(t_ops, t_mem),
-            "bound_by": "operations" if t_ops >= t_mem else "bytes",
-            "flops": flops, "bytes": nbytes,
-        }
-    return times
+    return time_plain_and_kernel(calls, work, peak_flops, peak_bw, 5)
+
+
+# ----------------------------------------------------- phase 2, RG-LRU scan
+
+# (name, B, L, W, h0): the recurrentgemma-9b cell (lru_width 4096, seq 2048;
+# the main path runs B 2 without h0), B 1, and a W that is no multiple of 128
+RGLRU_CASES = [("cell", 2, 2048, 4096, False),
+               ("cell-h0", 2, 2048, 4096, True),
+               ("b1-h0", 1, 2048, 4096, True), ("w200", 2, 100, 200, True)]
+
+
+def rglru_inputs(case, dev, seed):
+    """a = sigmoid(z) (the reference tests' gates), bx, h0 (or None), dh,
+    dhT standard normal."""
+    import torch
+
+    _, b, l, w, with_h0 = case
+    g = torch.Generator(device=dev).manual_seed(seed)
+    a = torch.sigmoid(torch.randn((b, l, w), generator=g, device=dev))
+    bx, h0, dh, dh_t = (torch.randn(shape, generator=g, device=dev) for shape
+                        in ((b, l, w), (b, w), (b, l, w), (b, w)))
+    return a, bx, (h0 if with_h0 else None), dh, dh_t
+
+
+def check_rglru_kernels(report: dict) -> dict:
+    """rglru_fwd / rglru_bwd against their plain versions on the same
+    inputs (they round alike, so bit-equality is reported too)."""
+    import torch
+    from repro_torch.kernels.rglru_scan import kernel as K
+
+    dev = torch.device("cuda")
+    errs = {}
+    for case in RGLRU_CASES:
+        a, bx, h0, dh, dh_t = rglru_inputs(case, dev, seed=len(case[0]))
+        got = dict(zip(("h", "hT"), K.rglru_linear_scan(a, bx, h0)))
+        want = dict(zip(("h", "hT"), K.rglru_linear_scan_plain(a, bx, h0)))
+        names = ("da", "dbx", "dh0")
+        got.update(zip(names, K.rglru_linear_scan_bwd(a, got["h"], h0, dh,
+                                                      dh_t)))
+        want.update(zip(names, K.rglru_linear_scan_bwd_plain(
+            a, want["h"], h0, dh, dh_t)))
+        check_case(f"rglru {case[0]} {case[1:]}", got, want, ("h", "hT"),
+                   (RGLRU_FWD_TOL, RGLRU_BWD_TOL), ("rglru_fwd", "rglru_bwd"),
+                   errs, report["rglru_cases"])
+    return errs
+
+
+def check_rglru_fp64() -> dict:
+    """The scan through the kernel pair (``ops.rglru``, fp32) and the plain
+    fp32 versions against the doubling ``rglru_scan`` in float64 (autograd
+    for the gradients), at the cell's shapes with h0."""
+    import torch
+    from repro_torch.kernels.rglru_scan import kernel as K
+    from repro_torch.kernels.rglru_scan import rglru, rglru_scan
+
+    dev = torch.device("cuda")
+    a, bx, h0, dh, dh_t = rglru_inputs(RGLRU_CASES[1], dev, seed=64)
+    names = ("h", "hT", "da", "dbx", "dh0")
+
+    def run(fn, dtype):
+        leaves = [t.to(dtype).requires_grad_() for t in (a, bx, h0)]
+        h, h_t = fn(*leaves)
+        loss = (h * dh.to(dtype)).sum() + (h_t * dh_t.to(dtype)).sum()
+        grads = torch.autograd.grad(loss, leaves)
+        return dict(zip(names, (h.detach(), h_t.detach(), *grads)))
+
+    def scan(aa, bb, hh):
+        h = rglru_scan(aa, bb, initial=hh)
+        return h, h[:, -1]
+
+    ref = run(scan, torch.float64)
+    h_p, h_t_p = K.rglru_linear_scan_plain(a, bx, h0)
+    plain = dict(zip(names, (h_p, h_t_p, *K.rglru_linear_scan_bwd_plain(
+        a, h_p, h0, dh, dh_t))))
+    got = {"kernel": run(rglru, torch.float32), "plain": plain}
+    res = {}
+    for name, r in ref.items():
+        scale = r.abs().max().item()
+        res[name] = {label: (got[label][name].double() - r).abs().max().item()
+                     for label in got}
+        res[name]["ref_max"] = scale
+        tol = RGLRU_FWD_TOL if name in ("h", "hT") else RGLRU_BWD_TOL
+        if res[name]["kernel"] > tol * scale:
+            raise AssertionError(f"rglru {name} off the float64 scan: {res}")
+    return res
+
+
+def time_rglru_kernels(peak_flops: float, peak_bw: float) -> dict:
+    """Kernel and plain times at the main path's shapes (B 2, L 2048, W
+    4096, no h0), with the bound.  Bytes: each input read once, each output
+    written once (forward: a, bx in, h, hT out; backward: a, h, dh, dhT in,
+    da, dbx out).  Operations: a multiply and an add per element forward,
+    an add and two multiplies backward."""
+    import torch
+    from repro_torch.kernels.rglru_scan import kernel as K
+
+    dev = torch.device("cuda")
+    a, bx, h0, dh, dh_t = rglru_inputs(RGLRU_CASES[0], dev, seed=0)
+    h, _ = K.rglru_linear_scan(a, bx, h0)
+    f4, n, row = 4, a.numel(), dh_t.numel()
+    work = {"rglru_fwd": (2 * n, (3 * n + row) * f4),
+            "rglru_bwd": (3 * n, (5 * n + row) * f4)}
+    calls = {
+        "rglru_fwd": (lambda: K.rglru_linear_scan(a, bx, h0),
+                      lambda: K.rglru_linear_scan_plain(a, bx, h0)),
+        "rglru_bwd": (lambda: K.rglru_linear_scan_bwd(a, h, h0, dh, dh_t),
+                      lambda: K.rglru_linear_scan_bwd_plain(a, h, h0, dh,
+                                                            dh_t)),
+    }
+    return time_plain_and_kernel(calls, work, peak_flops, peak_bw, 3)
 
 
 # ------------------------------------------------------------------ phase 3
 
 
 def check_model_path(arch: str) -> dict:
-    """LM loss + grads with the kernels vs the plain path (attention or SSD
-    scan), reduced config, seq 128, one loss-masked row."""
+    """LM loss + grads with the kernels vs the plain path (attention, SSD
+    or RG-LRU scan), reduced config, seq 128, one loss-masked row."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import init_lm, lm_loss, reduced
@@ -498,26 +660,36 @@ def check_model_path(arch: str) -> dict:
     return out
 
 
-def all_launches() -> dict:
-    from repro_torch.kernels import flash_attention, ssd_scan
+def kernel_modules():
+    from repro_torch.kernels import flash_attention, rglru_scan, ssd_scan
 
-    return {**flash_attention.LAUNCHES, **ssd_scan.LAUNCHES}
+    return flash_attention, ssd_scan, rglru_scan
+
+
+def all_launches() -> dict:
+    return {k: v for mod in kernel_modules() for k, v in mod.LAUNCHES.items()}
 
 
 def reset_all_launches() -> None:
-    from repro_torch.kernels import flash_attention, ssd_scan
-
-    flash_attention.reset_launches()
-    ssd_scan.reset_launches()
+    for mod in kernel_modules():
+        mod.reset_launches()
 
 
-# (arch, layers, seq, the path's kernels, profiler name fragment per kernel)
+FLASH = {"flash_fwd": "::fwd_kernel<", "flash_bwd_dq": "::dq_kernel<",
+         "flash_bwd_dkv": "::dkv_kernel<"}
+# path -> (arch, layers, seq, the path's kernels: name -> (profiler name
+# fragment, layers of the path that launch it once per microbatch)); each
+# kernel's table entry reads the first path listing it
 PATHS = {
-    "gemma": ("gemma-2b", 2, 1024, {"flash_fwd": "::fwd_kernel<",
-                                    "flash_bwd_dq": "::dq_kernel<",
-                                    "flash_bwd_dkv": "::dkv_kernel<"}),
-    "mamba2": ("mamba2-1.3b", 4, 2048, {"ssd_fwd": "ssd_fwd_kernel",
-                                        "ssd_bwd": "ssd_bwd_kernel"}),
+    "gemma": ("gemma-2b", 2, 1024,
+              {k: (frag, 2) for k, frag in FLASH.items()}),
+    "mamba2": ("mamba2-1.3b", 4, 2048,
+               {"ssd_fwd": ("ssd_fwd_kernel", 4),
+                "ssd_bwd": ("ssd_bwd_kernel", 4)}),
+    "recurrentgemma": ("recurrentgemma-9b", 3, 2048,
+                       {"rglru_fwd": ("rglru_fwd_kernel", 2),
+                        "rglru_bwd": ("rglru_bwd_kernel", 2),
+                        **{k: (frag, 1) for k, frag in FLASH.items()}}),
 }
 
 
@@ -534,6 +706,7 @@ def main_path(path: str) -> dict:
     from repro_torch.optim import adam
 
     arch, layers, seq, own = PATHS[path]
+    frags = {k: frag for k, (frag, _) in own.items()}
 
     class StepClock(Hook):
         """Per-step wall ms (host clock around synchronized steps), and
@@ -560,11 +733,10 @@ def main_path(path: str) -> dict:
                 self.prof.__enter__()
             elif rec.step == self.profile_step and self.prof is not None:
                 self.prof.__exit__(None, None, None)
-                self.profile = profile_summary(self.prof, wall * 1e6, own)
+                self.profile = profile_summary(self.prof, wall * 1e6, frags)
             self.t = time.perf_counter()
 
     cfg = get_config(arch, num_layers=layers)
-    microbatch = 2
     experiment = Experiment(
         workload=lm_workload(cfg, DataPipeline(cfg, seq_len=seq,
                                                num_workers=3),
@@ -572,7 +744,7 @@ def main_path(path: str) -> dict:
         cluster=ClusterSpec.hlevel(39, 6.0, 3, workload="transformer",
                                    seed=0),
         optimizer=adam(1e-3),
-        config=TrainConfig(b0=4, microbatch=microbatch, batching="dynamic",
+        config=TrainConfig(b0=4, microbatch=MICROBATCH, batching="dynamic",
                            sync="bsp", max_steps=STEPS,
                            controller=ControllerConfig(kind="p")),
     )
@@ -587,10 +759,10 @@ def main_path(path: str) -> dict:
     counts = all_launches()
     hist = out["history"]
     pre = [initial] + [r.batches for r in hist[:-1]]
-    per_step = [cfg.num_layers * sum(plan_microbatches(b_, microbatch).n_steps
-                                     for b_ in bs) for bs in pre]
-    want = sum(per_step)
-    micro = want // cfg.num_layers
+    per_step = [sum(plan_microbatches(b_, MICROBATCH).n_steps for b_ in bs)
+                for bs in pre]
+    micro = sum(per_step)
+    want = {k: n_layers * micro for k, (_, n_layers) in own.items()}
     losses = [r.loss for r in hist]
     for r, ms in zip(hist, clock.ms):
         log(f"  step {r.step} wall {ms:.1f} ms  loss {r.loss:.4f}  "
@@ -602,20 +774,18 @@ def main_path(path: str) -> dict:
            "sim_time": [r.sim_time for r in hist],
            "step_wall_ms": clock.ms, "microbatches": micro,
            "launches": counts, "expected_launches": want,
-           "launches_per_step": per_step,
+           "microbatches_per_step": per_step,
            "max_memory_allocated": torch.cuda.max_memory_allocated(),
            "profile": clock.profile}
     del session, experiment, out
     torch.cuda.empty_cache()
     if len(hist) != STEPS or not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"{path} path: bad losses {losses}")
-    wrong = {k: c for k, c in counts.items()
-             if c != (want if k in own else 0)}
-    if wrong or want <= 0:
+    wrong = {k: c for k, c in counts.items() if c != want.get(k, 0)}
+    if wrong or micro <= 0:
         raise AssertionError(
-            f"{path} path launches {counts}: want {want} for each of "
-            f"{list(own)} ({cfg.num_layers} layers x {micro} microbatches), "
-            "0 for the others")
+            f"{path} path launches {counts}: want {want} (layers launching "
+            f"each x {micro} microbatches), 0 for the others")
     prof = clock.profile
     if prof and prof["device_busy_us"]:
         missing = [k for k, us in prof["kernels_us"].items() if not us > 0]
@@ -658,10 +828,10 @@ def log_path(mp: dict) -> None:
             log(f"    {us / 1e3:8.2f} ms  {name}")
     else:
         log("  profiled step: no device time recorded (not measured)")
-    log(f"  params {mp['params']}, microbatches {mp['microbatches']}, "
-        f"launches {mp['launches']} (per step and kernel "
-        f"{mp['launches_per_step']}), max_memory_allocated "
-        f"{mp['max_memory_allocated'] / 2**30:.2f} GiB")
+    log(f"  params {mp['params']}, microbatches {mp['microbatches']} (per "
+        f"step {mp['microbatches_per_step']}), launches "
+        f"{ {k: v for k, v in mp['launches'].items() if v} }, "
+        f"max_memory_allocated {mp['max_memory_allocated'] / 2**30:.2f} GiB")
 
 
 # --------------------------------------------------------------------- main
@@ -683,6 +853,7 @@ def main() -> int:
 
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import kernel as K
+    from repro_torch.kernels.rglru_scan import kernel as KR
     from repro_torch.kernels.ssd_scan import kernel as KS
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -698,7 +869,8 @@ def main() -> int:
         f"; peaks ({peak_name}): {peak_flops / 1e12:.0f} TFLOP/s fp32, "
         f"{peak_bw / 1e12:.2f} TB/s")
     t0 = time.perf_counter()
-    sources = {"flash_attention": K.SOURCE, "ssd_scan": KS.SOURCE}
+    sources = {"flash_attention": K.SOURCE, "ssd_scan": KS.SOURCE,
+               "rglru_scan": KR.SOURCE}
     with ThreadPoolExecutor(len(sources)) as pool:
         libs = dict(zip(sources, pool.map(lambda kv: build.build(kv[1], kv[0]),
                                           sources.items())))
@@ -706,7 +878,7 @@ def main() -> int:
                                  for lib in libs.values())
         + f" in {time.perf_counter() - t0:.1f} s (in parallel)")
     report = {"gpu": smi, "build_log": dict(build.BUILD_LOG), "cases": {},
-              "ssd_cases": {}}
+              "ssd_cases": {}, "rglru_cases": {}}
 
     # 2. kernels against plain versions, then timings
     log("[2] kernels vs plain versions "
@@ -727,6 +899,15 @@ def main() -> int:
             f"{n} {r['kernel']:.3g} / {r['plain']:.3g} (max {r['ref_max']:.3g})"
             for n, r in report["ssd_fp64"].items()))
     times.update(time_ssd_kernels(peak_flops, peak_bw))
+    log(f"  RG-LRU kernels vs plain versions (fwd allclose {RGLRU_FWD_TOL}; "
+        f"bwd max err <= {RGLRU_BWD_TOL} x max|ref|)")
+    errs.update(check_rglru_kernels(report))
+    report["rglru_fp64"] = check_rglru_fp64()
+    log(f"  RG-LRU scan vs float64 (kernel / plain max abs err; tol "
+        f"{RGLRU_FWD_TOL} / {RGLRU_BWD_TOL} x max|ref|): " + ", ".join(
+            f"{n} {r['kernel']:.3g} / {r['plain']:.3g} (max {r['ref_max']:.3g})"
+            for n, r in report["rglru_fp64"].items()))
+    times.update(time_rglru_kernels(peak_flops, peak_bw))
     for name, tm in times.items():
         lib_ms = ("none" if tm["library_ms"] is None
                   else f"{tm['library_ms']:.3f} ms")
@@ -737,15 +918,15 @@ def main() -> int:
 
     # 3. small-input model checks, then the main paths
     report["model_check"] = {}
-    for arch in ("gemma-2b", "mamba2-1.3b"):
+    for arch in ("gemma-2b", "mamba2-1.3b", "recurrentgemma-9b"):
         log(f"[3] LM loss + grads, kernels vs plain path (reduced {arch})")
         report["model_check"][arch] = check_model_path(arch)
         log(f"  {report['model_check'][arch]}")
     report["paths"] = {}
-    for step_no, path in ((4, "gemma"), (5, "mamba2")):
+    for step_no, path in enumerate(PATHS, start=4):
         arch, layers, seq, _ = PATHS[path]
         log(f"[{step_no}] main path: {arch} widths, {layers} layers, seq "
-            f"{seq}, {STEPS} BSP steps")
+            f"{seq}, microbatch {MICROBATCH}, {STEPS} BSP steps")
         report["paths"][path] = main_path(path)
         log_path(report["paths"][path])
 
@@ -755,6 +936,8 @@ def main() -> int:
         "flash_bwd_dkv": "src/repro/kernels/flash_attention/kernel.py:399",
         "ssd_fwd": "src/repro/kernels/ssd_scan/kernel.py:29",
         "ssd_bwd": "src/repro/kernels/ssd_scan/kernel.py:29",
+        "rglru_fwd": "src/repro/kernels/rglru_scan/kernel.py:22",
+        "rglru_bwd": "src/repro/kernels/rglru_scan/kernel.py:22",
     }
     library_call = {
         "flash_fwd": "scaled_dot_product_attention",
@@ -762,28 +945,29 @@ def main() -> int:
                         " (dq, dk and dv in one call)",
         "flash_bwd_dkv": "_scaled_dot_product_efficient_attention_backward"
                          " (dq, dk and dv in one call)",
-        "ssd_fwd": None, "ssd_bwd": None,
+        "ssd_fwd": None, "ssd_bwd": None, "rglru_fwd": None, "rglru_bwd": None,
     }
     tols = {"flash_fwd": FWD_TOL, "flash_bwd_dq": BWD_TOL,
             "flash_bwd_dkv": BWD_TOL, "ssd_fwd": SSD_FWD_TOL,
-            "ssd_bwd": SSD_BWD_TOL}
+            "ssd_bwd": SSD_BWD_TOL, "rglru_fwd": RGLRU_FWD_TOL,
+            "rglru_bwd": RGLRU_BWD_TOL}
+    sources = {"flash": K.SOURCE, "ssd": KS.SOURCE, "rglru": KR.SOURCE}
     kernels = []
-    for path in PATHS:
-        source = os.path.relpath(
-            K.SOURCE if path == "gemma" else KS.SOURCE, ROOT)
-        for name in PATHS[path][3]:
-            tm = times[name]
-            kernels.append({
-                "name": name, "route": "cuda", "source": source,
-                "replaces": replaces[name],
-                "launches": report["paths"][path]["launches"][name],
-                "max_abs_err": errs[name], "tol": tols[name],
-                "ms": tm["ms"], "kernel_ms": tm["ms"],
-                "plain_ms": tm["plain_ms"],
-                "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],
-                "library_ms": tm["library_ms"],
-                "library_call": library_call[name],
-            })
+    for name in replaces:
+        path = next(p for p in PATHS if name in PATHS[p][3])
+        tm = times[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": os.path.relpath(sources[name.split("_")[0]], ROOT),
+            "replaces": replaces[name],
+            "launches": report["paths"][path]["launches"][name],
+            "max_abs_err": errs[name], "tol": tols[name],
+            "ms": tm["ms"], "kernel_ms": tm["ms"],
+            "plain_ms": tm["plain_ms"],
+            "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],
+            "library_ms": tm["library_ms"],
+            "library_call": library_call[name],
+        })
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:

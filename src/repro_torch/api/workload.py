@@ -59,20 +59,22 @@ def sum_loss_adapter(loss_fn: Callable, aux_weight: float = 0.0) -> Callable:
 
 def lm_workload(model_cfg, pipe, *, aux_weight: float = 0.0,
                 use_kernel: bool = False) -> Workload:
-    """Decoder-only LM training (dense or ssm family) from a model config +
-    ``DataPipeline``.
+    """Decoder-only LM training (dense, ssm or hybrid family) from a model
+    config + ``DataPipeline``.
 
-    ``use_kernel=True`` sets ``use_pallas``.  In the dense family it routes
-    attention through the flash kernels and derives their ``num_valid`` on
-    the device from the very mask the trainer built when it padded the
-    batch: rows the loss masks out are exactly the rows the kernels skip
-    (valid rows form a prefix).  In the ssm family it routes the SSD scan's
-    intra-chunk part through the SSD kernel pair, forward and backward.
-    This differs from the reference on purpose: its SSD kernel path has no
-    VJP, so its ``use_kernel=True`` raises under training; the port trains
-    the same function through its kernels.  ``aux_weight`` scales an
-    auxiliary loss by the weight sum; the dense and ssm families' aux is
-    zero.
+    ``use_kernel=True`` sets ``use_pallas``.  In the dense family, and in
+    the hybrid family's local-attention blocks, it routes attention through
+    the flash kernels and derives their ``num_valid`` on the device from the
+    very mask the trainer built when it padded the batch: rows the loss
+    masks out are exactly the rows the kernels skip (valid rows form a
+    prefix).  In the ssm family it routes the SSD scan's intra-chunk part
+    through the SSD kernel pair, and in the hybrid family's recurrent
+    blocks the RG-LRU scan through the RG-LRU kernel pair, forward and
+    backward.  This differs from the reference on purpose: its SSD and
+    RG-LRU kernel paths have no VJP, so its ``use_kernel=True`` cannot
+    train those families; the port trains the same functions through its
+    kernels.  ``aux_weight`` scales an auxiliary loss by the weight sum;
+    the dense, ssm and hybrid families' aux is zero.
     """
     from repro_torch.models import init_lm, lm_loss
 

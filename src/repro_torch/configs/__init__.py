@@ -22,7 +22,7 @@ ARCHITECTURES = [
     "deepseek-v2-236b",
 ]
 
-PORTED = ("gemma-2b", "mamba2-1.3b")
+PORTED = ("gemma-2b", "mamba2-1.3b", "recurrentgemma-9b")
 
 _MODULES = {a: a.replace("-", "_").replace(".", "_") for a in ARCHITECTURES}
 
@@ -32,8 +32,8 @@ def get_config(arch: str, **overrides):
         raise KeyError(f"unknown arch {arch!r}; known: {ARCHITECTURES}")
     if arch not in PORTED:
         raise NotImplementedError(
-            f"{arch!r} is not ported yet (ROADMAP queue 1: hybrid, "
-            f"MoE / MLA / encdec slices); ported: {list(PORTED)}")
+            f"{arch!r} is not ported yet (ROADMAP queue 1: MoE / MLA / "
+            f"encdec / vlm slice); ported: {list(PORTED)}")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch]}")
     cfg = mod.config()
     return cfg.with_(**overrides) if overrides else cfg

@@ -1,5 +1,6 @@
 from repro_torch.models.config import ModelConfig, reduced
 from repro_torch.models.convert import params_from_jax, params_to_jax
+from repro_torch.models.recurrent import apply_rglru, recurrent_block
 from repro_torch.models.ssm import ssd_block, ssd_chunked
 from repro_torch.models.transformer import (apply_lm, block_pattern, init_lm,
                                             lm_loss)
@@ -7,11 +8,13 @@ from repro_torch.models.transformer import (apply_lm, block_pattern, init_lm,
 __all__ = [
     "ModelConfig",
     "apply_lm",
+    "apply_rglru",
     "block_pattern",
     "init_lm",
     "lm_loss",
     "params_from_jax",
     "params_to_jax",
+    "recurrent_block",
     "reduced",
     "ssd_block",
     "ssd_chunked",

@@ -69,7 +69,7 @@ class ModelConfig:
     # --- numerics / kernels
     dtype: str = "float32"                        # activation/compute dtype
     param_dtype: str = "float32"
-    use_pallas: bool = False                      # hand-written kernels (flash, SSD)
+    use_pallas: bool = False                      # hand-written kernels (flash, SSD, RG-LRU)
     remat: bool = False                           # activation checkpoint per block
     remat_policy: str = "full"                    # 'full' | 'dots' (save matmuls)
     scan_unroll: int = 1                          # lax.scan unroll (cost probes)

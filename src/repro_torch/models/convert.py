@@ -2,12 +2,16 @@
 back, through numpy.
 
 The reference (``repro.models.transformer.init_lm``) stacks the repeated
-blocks along a leading layer axis under ``params["groups"]["b0"]`` and stores
-linear weights as ``w`` of shape (d_in, d_out).  The port keeps one
-``layers.{i}.`` entry per layer and PyTorch's ``weight`` of shape
-(d_out, d_in).  Only leaves named ``w`` are transposed: the ssm family's
-``ssd/conv_w`` keeps the reference's (K, C) layout, which ``ssd_block``
-reads as it is.  Both directions are exact: no arithmetic touches a value.
+block groups along a leading axis: ``params["groups"]["b{j}"]`` holds block j
+of each of the ``n_groups = num_layers // period`` groups of the block
+pattern (period 1 for the dense and ssm families), and a hybrid model's
+remainder layers sit unstacked under ``params["tail"]["t{i}"]``.  Group g's
+block j is the port's ``layers.{g * period + j}``, tail block i its
+``layers.{n_groups * period + i}``.  The reference stores linear weights as
+``w`` of shape (d_in, d_out), the port PyTorch's ``weight`` of shape
+(d_out, d_in).  Only leaves named ``w`` are transposed: ``conv_w`` (ssm and
+rec blocks) keeps the reference's (K, C) layout and ``rglru/lam`` is a
+vector.  Both directions are exact: no arithmetic touches a value.
 """
 
 from __future__ import annotations
@@ -17,7 +21,7 @@ import torch
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import check_supported
+from repro_torch.models.transformer import block_pattern, check_supported
 
 _TO_TORCH = {"w": "weight", "b": "bias"}
 _TO_JAX = {v: k for k, v in _TO_TORCH.items()}
@@ -47,14 +51,20 @@ def params_from_jax(tree: dict, cfg: ModelConfig,
     ``device`` (the card unless the caller asks for the CPU)."""
     check_supported(cfg)
     device = resolve_device(device)
+    period, n_groups = _layout(cfg)
     out = {}
     for path, x in _flatten(tree).items():
         if path[0] == "groups":
-            if path[1] != "b0" or x.shape[0] != cfg.num_layers:
+            j = _index(path[1], "b", period)
+            if x.shape[0] != n_groups:
                 raise ValueError(f"unexpected stacked leaf {path} {x.shape}")
-            for i in range(cfg.num_layers):
-                name, t = _leaf_to_torch(path[2:], x[i])
-                out[f"layers.{i}.{name}"] = t
+            for g in range(n_groups):
+                name, t = _leaf_to_torch(path[2:], x[g])
+                out[f"layers.{g * period + j}.{name}"] = t
+        elif path[0] == "tail":
+            i = _index(path[1], "t", cfg.num_layers - n_groups * period)
+            name, t = _leaf_to_torch(path[2:], x)
+            out[f"layers.{n_groups * period + i}.{name}"] = t
         else:
             name, t = _leaf_to_torch(path, x)
             out[name] = t
@@ -64,8 +74,9 @@ def params_from_jax(tree: dict, cfg: ModelConfig,
 def params_to_jax(params: dict[str, torch.Tensor], cfg: ModelConfig) -> dict:
     """Flat port parameters -> the reference's nested pytree of numpy arrays."""
     check_supported(cfg)
+    period, n_groups = _layout(cfg)
     tree: dict = {}
-    layers: dict[tuple, list] = {}
+    stacked: dict[tuple, list] = {}
     for name, t in params.items():
         parts = name.split(".")
         x = t.detach().cpu().numpy()
@@ -73,16 +84,36 @@ def params_to_jax(params: dict[str, torch.Tensor], cfg: ModelConfig) -> dict:
             x = x.T
         parts[-1] = _TO_JAX.get(parts[-1], parts[-1])
         if parts[0] == "layers":
-            layers.setdefault(tuple(parts[2:]), [None] * cfg.num_layers)[
-                int(parts[1])] = x
-            continue
-        node = tree
-        for p in parts[:-1]:
-            node = node.setdefault(p, {})
-        node[parts[-1]] = np.ascontiguousarray(x)
-    for path, xs in layers.items():
-        node = tree.setdefault("groups", {}).setdefault("b0", {})
-        for p in path[:-1]:
-            node = node.setdefault(p, {})
-        node[path[-1]] = np.stack(xs)
+            i = int(parts[1])
+            if i < n_groups * period:
+                g, j = divmod(i, period)
+                stacked.setdefault(("groups", f"b{j}", *parts[2:]),
+                                   [None] * n_groups)[g] = x
+                continue
+            parts = ["tail", f"t{i - n_groups * period}", *parts[2:]]
+        _put(tree, parts, np.ascontiguousarray(x))
+    for path, xs in stacked.items():
+        _put(tree, path, np.stack(xs))
     return tree
+
+
+def _layout(cfg: ModelConfig) -> tuple[int, int]:
+    """(period of the block pattern, number of stacked groups)."""
+    period = len(block_pattern(cfg))
+    return period, cfg.num_layers // period
+
+
+def _index(key: str, letter: str, n: int) -> int:
+    """j of a ``b{j}`` / ``t{j}`` key, checked against ``n`` blocks."""
+    if not (key.startswith(letter) and key[1:].isdigit()
+            and int(key[1:]) < n):
+        raise ValueError(f"unexpected block key {key!r} (want {letter}0.."
+                         f"{letter}{n - 1})")
+    return int(key[1:])
+
+
+def _put(tree: dict, path, x) -> None:
+    node = tree
+    for p in path[:-1]:
+        node = node.setdefault(p, {})
+    node[path[-1]] = x

@@ -1,10 +1,12 @@
-"""Decoder-only LM, dense and ssm families (the reference's
+"""Decoder-only LM, dense, ssm and hybrid families (the reference's
 ``models/transformer.py``).
 
-The reference stacks the layers' parameters and scans over them; PyTorch
-runs eagerly, so the layers are a Python loop over ``layers.{i}.*`` entries
-of a flat parameter dict.  Hybrid, MoE, MLA, encdec and VLM families, and
-the cache decode path, are later slices of the port.
+The reference stacks the layers' parameters and scans over them (over
+groups of the block pattern for the hybrid family, with an unrolled tail);
+PyTorch runs eagerly, so the layers are a Python loop over ``layers.{i}.*``
+entries of a flat parameter dict, layer i of kind ``pattern[i % period]``.
+MoE, MLA, encdec and VLM families, and the cache decode path, are later
+slices of the port.
 """
 
 from __future__ import annotations
@@ -12,13 +14,13 @@ from __future__ import annotations
 import torch
 
 from repro_torch.models import layers as L
+from repro_torch.models import recurrent as R
 from repro_torch.models import ssm as S
 from repro_torch.models.config import ModelConfig
 
 Params = L.Params
 
 _LATER = {
-    "hybrid": "slice 2: hybrid family + the RG-LRU kernel",
     "moe": "slice 7: MoE / MLA / encdec / vlm",
     "encdec": "slice 7: MoE / MLA / encdec / vlm",
     "vlm": "slice 7: MoE / MLA / encdec / vlm",
@@ -30,11 +32,11 @@ def check_supported(cfg: ModelConfig) -> None:
     if cfg.family in _LATER:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (ROADMAP queue 1, "
-            f"{_LATER[cfg.family]}); ported: dense GQA and ssm")
-    if cfg.family == "dense" and cfg.attention != "gqa":
+            f"{_LATER[cfg.family]}); ported: dense GQA, ssm and hybrid")
+    if cfg.family in ("dense", "hybrid") and cfg.attention != "gqa":
         raise NotImplementedError(
             f"attention {cfg.attention!r} is not ported yet (ROADMAP queue 1, "
-            f"{_LATER['moe']}); ported: dense GQA and ssm")
+            f"{_LATER['moe']}); ported: dense GQA, ssm and hybrid")
     if cfg.remat:
         raise NotImplementedError(
             "activation checkpointing (remat) is not ported yet (ROADMAP "
@@ -42,8 +44,12 @@ def check_supported(cfg: ModelConfig) -> None:
 
 
 def block_pattern(cfg: ModelConfig) -> tuple[str, ...]:
-    """Kinds of the repeating block group ('attn' | 'ssd')."""
-    return ("ssd",) if cfg.family == "ssm" else ("attn",)
+    """Kinds of the repeating block group ('attn' | 'local' | 'rec' | 'ssd')."""
+    if cfg.family == "ssm":
+        return ("ssd",)
+    if cfg.family == "hybrid":
+        return tuple(cfg.block_pattern)
+    return ("attn",)
 
 
 def init_block(gen, cfg: ModelConfig, kind: str) -> Params:
@@ -51,7 +57,12 @@ def init_block(gen, cfg: ModelConfig, kind: str) -> Params:
     if kind == "ssd":  # mamba2 blocks have no separate MLP
         p.update(L.prefixed("ssd", S.init_ssd(gen, cfg)))
         return p
-    p.update(L.prefixed("attn", L.init_gqa(gen, cfg)))
+    if kind in ("attn", "local"):
+        p.update(L.prefixed("attn", L.init_gqa(gen, cfg)))
+    elif kind == "rec":
+        p.update(L.prefixed("rec", R.init_recurrent_block(gen, cfg)))
+    else:
+        raise ValueError(f"unknown block kind {kind}")
     p.update(L.prefixed("norm2", L.init_norm(cfg, gen.device)))
     p.update(L.prefixed("mlp", L.init_mlp(gen, cfg)))
     return p
@@ -59,15 +70,21 @@ def init_block(gen, cfg: ModelConfig, kind: str) -> Params:
 
 def apply_block(p: Params, x, cfg: ModelConfig, kind: str, positions,
                 num_valid=None):
-    """One block; ``num_valid`` reaches the attention kernels only (ssd
-    blocks ignore it, as in the reference)."""
+    """One block; ``num_valid`` reaches the attention kernels only (ssd and
+    rec blocks ignore it, as in the reference); local blocks attend over
+    ``cfg.local_window``."""
     h = L.apply_norm(L.sub(p, "norm1"), x, cfg)
     if kind == "ssd":
         out, _ = S.ssd_block(L.sub(p, "ssd"), h, cfg)
         return x + out
-    x = x + L.gqa_attention(L.sub(p, "attn"), h, cfg, positions=positions,
-                            window=cfg.window, softcap=cfg.attn_softcap,
-                            num_valid=num_valid)
+    if kind == "rec":
+        out, _ = R.recurrent_block(L.sub(p, "rec"), h, cfg)
+    else:
+        window = cfg.local_window if kind == "local" else cfg.window
+        out = L.gqa_attention(L.sub(p, "attn"), h, cfg, positions=positions,
+                              window=window, softcap=cfg.attn_softcap,
+                              num_valid=num_valid)
+    x = x + out
     return x + L.apply_mlp(L.sub(p, "mlp"),
                            L.apply_norm(L.sub(p, "norm2"), x, cfg), cfg)
 

@@ -38,7 +38,9 @@ def test_scan_sees_the_whole_port():
                  "api/backend.py", "models/convert.py",
                  "kernels/ssd_scan/kernel.py", "kernels/ssd_scan/ops.py",
                  "kernels/ssd_scan/ref.py", "models/ssm.py",
-                 "configs/mamba2_1_3b.py"):
+                 "configs/mamba2_1_3b.py", "kernels/rglru_scan/kernel.py",
+                 "kernels/rglru_scan/ops.py", "kernels/rglru_scan/ref.py",
+                 "models/recurrent.py", "configs/recurrentgemma_9b.py"):
         assert must in names
 
 
@@ -122,8 +124,11 @@ def test_kernel_wrappers_take_plain_version_only_for_cpu_tensors():
 
 
 def test_unported_paths_of_the_ssm_slice_raise():
+    """What stays unported after the ssm and hybrid slices raises, naming
+    its slice: the SSD and RG-LRU decode branches (slice 6), the unported
+    configs and the MoE family (slice 7)."""
     from repro_torch.configs import get_config
-    from repro_torch.models import init_lm, reduced, ssd_block
+    from repro_torch.models import init_lm, recurrent_block, reduced, ssd_block
     from repro_torch.models.config import ModelConfig
     from repro_torch.models.layers import sub
 
@@ -134,10 +139,16 @@ def test_unported_paths_of_the_ssm_slice_raise():
     with pytest.raises(NotImplementedError, match="slice 6"):
         ssd_block(params, x, cfg, cache={"conv": None, "state": None})
     with pytest.raises(NotImplementedError, match="not ported"):
-        get_config("recurrentgemma-9b")
-    hybrid = ModelConfig(name="hybrid", family="hybrid", num_layers=3,
-                         d_model=64, vocab_size=32, num_heads=2,
-                         num_kv_heads=1, head_dim=32, lru_width=64,
-                         block_pattern=("rec", "rec", "attn"))
-    with pytest.raises(NotImplementedError, match="RG-LRU"):
-        init_lm(torch.Generator().manual_seed(0), hybrid)
+        get_config("llama3-8b")
+    moe = ModelConfig(name="moe", family="moe", num_layers=2, d_model=64,
+                      vocab_size=32, num_heads=2, num_kv_heads=1,
+                      head_dim=32, mlp="moe", num_experts=4, moe_top_k=2,
+                      moe_d_ff=32)
+    with pytest.raises(NotImplementedError, match="slice 7"):
+        init_lm(torch.Generator().manual_seed(0), moe)
+    hybrid = reduced(get_config("recurrentgemma-9b"))
+    rec = sub(init_lm(torch.Generator().manual_seed(0), hybrid),
+              "layers.0.rec")
+    with pytest.raises(NotImplementedError, match="slice 6"):
+        recurrent_block(rec, torch.zeros(1, 8, hybrid.d_model), hybrid,
+                        cache={"conv": None, "h": None})
