@@ -15,10 +15,14 @@ Phases, each of which fails the run (nonzero exit) when it goes wrong:
      num_valid 1 and 2) plus small window/softcap, S<T and non-causal cases,
      the recurrentgemma local blocks' shapes on the hybrid path (B=2,
      S=T=2048, H=16, Hkv=1, D=256, window 2048, num_valid 1 and 2) and where
-     the window bites (B=1, S=T=4096); padded rows must be exact zeros;
+     the window bites (B=1, S=T=4096); padded rows must be exact zeros, and
+     a second flash_bwd_dkv launch must repeat the first bit for bit;
      kernel and plain version against a float64 attention at the training
      shapes; then kernel, plain and library timings (SDPA's
-     memory-efficient forward and backward); the SSD forward and backward
+     memory-efficient forward and backward) at the training shapes and at
+     the hybrid path's (B=2, S=T=2048, H=16, Hkv=1, D=256, window 2048),
+     with the fp32 bound and, for flash_fwd and flash_bwd_dkv (tensor
+     cores, 3xTF32), the 3xTF32 bound; the SSD forward and backward
      kernels against their plain versions at the mamba2-1.3b cell's shapes
      (B=2, nc=32, cl=64, H=64, P=64, N=128) and at a smaller one (cl 32),
      the differentiable SSD scan through the kernels and the plain fp32 scan
@@ -68,8 +72,10 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 # published dense peaks (NVIDIA data sheets): fp32 outside the tensor cores,
-# device-memory bandwidth; the SXM part is the default
-PEAKS = {"PCIe": (51e12, 2.0e12), "NVL": (60e12, 3.9e12), "SXM": (67e12, 3.35e12)}
+# device-memory bandwidth, TF32 on the tensor cores; the SXM part is the
+# default
+PEAKS = {"PCIe": (51e12, 2.0e12, 378e12), "NVL": (60e12, 3.9e12, 418e12),
+         "SXM": (67e12, 3.35e12, 495e12)}
 FWD_TOL = 1e-4          # abs and rel: fp32, other summation order over 1024 keys
 BWD_TOL = 1e-3          # relative to the tensor's max |value|, same reason
 MODEL_TOL = 1e-4        # loss rel and grads rel-to-max, kernel vs plain path
@@ -156,8 +162,10 @@ def check_kernels(report: dict) -> dict:
         dk, dv = K.flash_bwd_dkv(q, k, v, do, lse_p, delta, nvt, **kw)
         dk_p, dv_p = K.flash_bwd_dkv_plain(q, k, v, do, lse_p, delta, nvt,
                                            **kw)
+        dk2, dv2 = K.flash_bwd_dkv(q, k, v, do, lse_p, delta, nvt, **kw)
         torch.cuda.synchronize()
-        case = {}
+        case = {"dkv_repeats_bit_for_bit": bool(torch.equal(dk, dk2)
+                                                and torch.equal(dv, dv2))}
         for label, x, ref in (("out", out, out_p), ("lse", lse, lse_p)):
             err = (x - ref).abs().max().item()
             ok = torch.allclose(x, ref, atol=FWD_TOL, rtol=FWD_TOL)
@@ -176,12 +184,13 @@ def check_kernels(report: dict) -> dict:
             case["padded_rows_zero"] = all(bool((x == 0).all()) for x in pads)
         bad = [key for key, val in case.items()
                if (isinstance(val, dict) and not val["ok"])
-               or (key == "padded_rows_zero" and not val)]
+               or (isinstance(val, bool) and not val)]
         log(f"  case {name}: " + ", ".join(
             f"{key} err {val['max_abs_err']:.3g}" for key, val in case.items()
             if isinstance(val, dict))
             + (f", padded rows zero {case['padded_rows_zero']}"
-               if "padded_rows_zero" in case else ""))
+               if "padded_rows_zero" in case else "")
+            + f", dk/dv repeat bit for bit {case['dkv_repeats_bit_for_bit']}")
         report["cases"][name] = case
         if bad:
             raise AssertionError(f"kernel case {name} failed on {bad}: {case}")
@@ -247,30 +256,44 @@ def check_fp64() -> dict:
     return res
 
 
-def time_kernels(peak_flops: float, peak_bw: float, report: dict) -> dict:
-    """kernel / plain / library times at the main path's shapes (nv = B).
+# (label, B, S, T, H, Hkv, D, window): the gemma main path's attention and
+# recurrentgemma's local blocks on the hybrid path
+FLASH_TIMED = [("gemma", 2, 1024, 1024, 8, 1, 256, None),
+               ("hybrid", 2, 2048, 2048, 16, 1, 256, 2048)]
+
+
+def time_kernels(peak_flops: float, peak_bw: float, peak_tf32: float,
+                 report: dict, shape=FLASH_TIMED[0]) -> dict:
+    """kernel / plain / library times at one of ``FLASH_TIMED``'s shapes
+    (causal, nv = B), with the fp32 bound and, for the two kernels on the
+    tensor cores, the 3xTF32 bound (three TF32 products per fp32 one).
 
     The library is SDPA's memory-efficient attention in fp32 on (B,H,S,D)
-    tensors with the kv head repeated to H.  Its backward is one call that
-    computes dq, dk and dv together, so both backward kernels carry its time;
-    compare it with the sum of theirs.  Its dk/dv come per query head; summed
-    over each kv head's group they are checked against the kernels' here."""
+    tensors with the kv head repeated to H (the window, where given, does
+    not bite at these S, so causal SDPA computes the same function).  Its
+    backward is one call that computes dq, dk and dv together, so both
+    backward kernels carry its time; compare it with the sum of theirs.
+    Its dk/dv come per query head; summed over each kv head's group they
+    are checked against the kernels' here."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import kernel as K
     from repro_torch.kernels.flash_attention.ref import visible_mask
 
     dev = torch.device("cuda")
-    b, s, t, h, hkv, d = 2, 1024, 1024, 8, 1, 256
+    label, b, s, t, h, hkv, d, window = shape
+    if window is not None and window < t:
+        raise ValueError(f"{label}: a biting window has no SDPA yardstick")
     g = torch.Generator(device=dev).manual_seed(0)
     q = torch.randn((b, s, h, d), generator=g, device=dev)
     k = torch.randn((b, t, hkv, d), generator=g, device=dev)
     v = torch.randn((b, t, hkv, d), generator=g, device=dev)
     do = torch.randn((b, s, h, d), generator=g, device=dev)
     nv = torch.tensor(b, dtype=torch.int32, device=dev)
-    out, lse = K.flash_fwd(q, k, v, nv)
+    kw = dict(causal=True, window=window)
+    out, lse = K.flash_fwd(q, k, v, nv, **kw)
     delta = (do * out).sum(-1).transpose(1, 2).contiguous()
-    pairs = int(visible_mask(s, t, causal=True, window=None).sum())
+    pairs = int(visible_mask(s, t, causal=True, window=window).sum())
     f4 = 4  # bytes per fp32 value
     q_bytes, kv_bytes, row_bytes = b * s * h * d * f4, b * t * hkv * d * f4, \
         b * h * s * f4
@@ -282,6 +305,7 @@ def time_kernels(peak_flops: float, peak_bw: float, report: dict) -> dict:
         "flash_bwd_dkv": (8 * d * pairs * h * b,
                           2 * q_bytes + 4 * kv_bytes + 2 * row_bytes),
     }
+    on_tensor_cores = ("flash_fwd", "flash_bwd_dkv")
     rep = h // hkv
     qt = q.transpose(1, 2).contiguous()
     kt = k.transpose(1, 2).repeat_interleave(rep, dim=1).contiguous()
@@ -296,9 +320,9 @@ def time_kernels(peak_flops: float, peak_bw: float, report: dict) -> dict:
                        [True, True, True, False], True)
 
     dq_l, dk_l, dv_l, _ = lib_bwd()
-    dq, (dk, dv) = (K.flash_bwd_dq(q, k, v, do, lse, delta, nv),
-                    K.flash_bwd_dkv(q, k, v, do, lse, delta, nv))
-    report["library_vs_kernel"] = {
+    dq, (dk, dv) = (K.flash_bwd_dq(q, k, v, do, lse, delta, nv, **kw),
+                    K.flash_bwd_dkv(q, k, v, do, lse, delta, nv, **kw))
+    report.setdefault("library_vs_kernel", {})[label] = {
         "out": (out_l.transpose(1, 2) - out).abs().max().item(),
         "dq": (dq_l.transpose(1, 2) - dq).abs().max().item(),
         "dk": (dk_l.unflatten(1, (hkv, rep)).sum(2).transpose(1, 2)
@@ -306,17 +330,21 @@ def time_kernels(peak_flops: float, peak_bw: float, report: dict) -> dict:
         "dv": (dv_l.unflatten(1, (hkv, rep)).sum(2).transpose(1, 2)
                - dv).abs().max().item(),
     }
+    del dq_l, dk_l, dv_l
     calls = {
-        "flash_fwd": (lambda: K.flash_fwd(q, k, v, nv),
-                      lambda: K.flash_fwd_plain(q, k, v, nv),
+        "flash_fwd": (lambda: K.flash_fwd(q, k, v, nv, **kw),
+                      lambda: K.flash_fwd_plain(q, k, v, nv, **kw),
                       lambda: F.scaled_dot_product_attention(
                           qt, kt, vt, is_causal=True)),
-        "flash_bwd_dq": (lambda: K.flash_bwd_dq(q, k, v, do, lse, delta, nv),
+        "flash_bwd_dq": (lambda: K.flash_bwd_dq(q, k, v, do, lse, delta, nv,
+                                                **kw),
                          lambda: K.flash_bwd_dq_plain(q, k, v, do, lse, delta,
-                                                      nv), lib_bwd),
-        "flash_bwd_dkv": (lambda: K.flash_bwd_dkv(q, k, v, do, lse, delta, nv),
+                                                      nv, **kw), lib_bwd),
+        "flash_bwd_dkv": (lambda: K.flash_bwd_dkv(q, k, v, do, lse, delta, nv,
+                                                  **kw),
                           lambda: K.flash_bwd_dkv_plain(q, k, v, do, lse,
-                                                        delta, nv), lib_bwd),
+                                                        delta, nv, **kw),
+                          lib_bwd),
     }
     times, lib_ms = {}, {}  # the library backward is timed once, for both
     for name, (kern, plain, lib) in calls.items():
@@ -332,6 +360,9 @@ def time_kernels(peak_flops: float, peak_bw: float, report: dict) -> dict:
             "bound_by": "operations" if t_ops >= t_mem else "bytes",
             "flops": flops, "bytes": nbytes,
         }
+        if name in on_tensor_cores:
+            times[name]["tf32x3_bound_ms"] = max(
+                3 * flops / peak_tf32 * 1e3, t_mem)
     return times
 
 
@@ -675,20 +706,22 @@ def reset_all_launches() -> None:
         mod.reset_launches()
 
 
-FLASH = {"flash_fwd": "::fwd_kernel<", "flash_bwd_dq": "::dq_kernel<",
-         "flash_bwd_dkv": "::dkv_kernel<"}
+# kernel -> the profiler name fragment of each CUDA kernel its wrapper
+# launches (flash_bwd_dkv: the per-head kernel, then the group-sum)
+FLASH = {"flash_fwd": ("::fwd_kernel<",), "flash_bwd_dq": ("::dq_kernel<",),
+         "flash_bwd_dkv": ("::dkv_kernel<", "::dkv_sum_kernel(")}
 # path -> (arch, layers, seq, the path's kernels: name -> (profiler name
-# fragment, layers of the path that launch it once per microbatch)); each
+# fragments, layers of the path that launch it once per microbatch)); each
 # kernel's table entry reads the first path listing it
 PATHS = {
     "gemma": ("gemma-2b", 2, 1024,
               {k: (frag, 2) for k, frag in FLASH.items()}),
     "mamba2": ("mamba2-1.3b", 4, 2048,
-               {"ssd_fwd": ("ssd_fwd_kernel", 4),
-                "ssd_bwd": ("ssd_bwd_kernel", 4)}),
+               {"ssd_fwd": (("ssd_fwd_kernel",), 4),
+                "ssd_bwd": (("ssd_bwd_kernel",), 4)}),
     "recurrentgemma": ("recurrentgemma-9b", 3, 2048,
-                       {"rglru_fwd": ("rglru_fwd_kernel", 2),
-                        "rglru_bwd": ("rglru_bwd_kernel", 2),
+                       {"rglru_fwd": (("rglru_fwd_kernel",), 2),
+                        "rglru_bwd": (("rglru_bwd_kernel",), 2),
                         **{k: (frag, 1) for k, frag in FLASH.items()}}),
 }
 
@@ -788,7 +821,7 @@ def main_path(path: str) -> dict:
             f"each x {micro} microbatches), 0 for the others")
     prof = clock.profile
     if prof and prof["device_busy_us"]:
-        missing = [k for k, us in prof["kernels_us"].items() if not us > 0]
+        missing = [f for f, us in prof["fragments_us"].items() if not us > 0]
         if missing:
             raise AssertionError(f"{path} path: {missing} absent from the "
                                  f"profiled step's device kernels: {prof}")
@@ -797,7 +830,8 @@ def main_path(path: str) -> dict:
 
 def profile_summary(prof, wall_us: float, own: dict, top: int = 8) -> dict:
     """Device time by kernel (self time, us) over one profiled step;
-    ``kernels_us`` sums the path's own kernels by name fragment."""
+    ``fragments_us`` sums it by name fragment, ``kernels_us`` by wrapper
+    (the fragments in ``own[name]``)."""
     kernels = {}
     for ev in prof.events():
         if getattr(ev, "device_type", None) is None or \
@@ -806,13 +840,14 @@ def profile_summary(prof, wall_us: float, own: dict, top: int = 8) -> dict:
         kernels[ev.name] = kernels.get(ev.name, 0.0) + ev.device_time_total
     busy = sum(kernels.values())
     ranked = sorted(kernels.items(), key=lambda kv: -kv[1])
-    mine = {k: sum(t for n, t in kernels.items() if frag in n)
-            for k, frag in own.items()}
+    by_frag = {f: sum(t for n, t in kernels.items() if f in n)
+               for frags in own.values() for f in frags}
+    mine = {k: sum(by_frag[f] for f in frags) for k, frags in own.items()}
     gemm = sum(t for n, t in kernels.items()
                if "gemm" in n.lower() or "sgemm" in n.lower())
     return {"step_wall_us": wall_us, "device_busy_us": busy,
             "idle_share": (1 - busy / wall_us) if busy else None,
-            "kernels_us": mine, "gemm_us": gemm,
+            "kernels_us": mine, "fragments_us": by_frag, "gemm_us": gemm,
             "top": [(n[:90], t) for n, t in ranked[:top]]}
 
 
@@ -864,7 +899,7 @@ def main() -> int:
     # 1. device and build
     smi = gpu_line()
     kind = torch.cuda.get_device_name(0)
-    peak_name, (peak_flops, peak_bw) = peaks(kind)
+    peak_name, (peak_flops, peak_bw, peak_tf32) = peaks(kind)
     log(f"[1] gpu: {smi}; torch {torch.__version__}, cuda {torch.version.cuda}"
         f"; peaks ({peak_name}): {peak_flops / 1e12:.0f} TFLOP/s fp32, "
         f"{peak_bw / 1e12:.2f} TB/s")
@@ -888,8 +923,17 @@ def main() -> int:
     log("  vs float64 (kernel / plain max abs err, kernel == plain): " + ", ".join(
         f"{n} {r['kernel_err']:.3g} / {r['plain_err']:.3g} "
         f"{r['kernel_equals_plain']}" for n, r in report["fp64"].items()))
-    times = time_kernels(peak_flops, peak_bw, report)
+    times = time_kernels(peak_flops, peak_bw, peak_tf32, report)
+    report["hybrid_times"] = time_kernels(peak_flops, peak_bw, peak_tf32,
+                                          report, FLASH_TIMED[1])
+    torch.cuda.empty_cache()
     log(f"  library vs kernel max abs err: {report['library_vs_kernel']}")
+    for name, tm in report["hybrid_times"].items():
+        log(f"  {name} at the hybrid shapes {FLASH_TIMED[1][1:]}: kernel "
+            f"{tm['ms']:.3f} ms, plain {tm['plain_ms']:.3f} ms, library "
+            f"{tm['library_ms']:.3f} ms, bound {tm['bound_ms']:.4f} ms"
+            + (f", 3xTF32 bound {tm['tf32x3_bound_ms']:.4f} ms"
+               if "tf32x3_bound_ms" in tm else ""))
     log(f"  SSD kernels vs plain versions (fwd allclose {SSD_FWD_TOL}; bwd max"
         f" err <= {SSD_BWD_TOL} x max|ref|)")
     errs.update(check_ssd_kernels(report))
@@ -913,7 +957,9 @@ def main() -> int:
                   else f"{tm['library_ms']:.3f} ms")
         log(f"  {name}: kernel {tm['ms']:.3f} ms, plain {tm['plain_ms']:.3f} "
             f"ms, library {lib_ms}, bound {tm['bound_ms']:.4f} ms "
-            f"({tm['bound_by']})")
+            f"({tm['bound_by']})"
+            + (f", 3xTF32 bound {tm['tf32x3_bound_ms']:.4f} ms"
+               if "tf32x3_bound_ms" in tm else ""))
     torch.cuda.empty_cache()
 
     # 3. small-input model checks, then the main paths
@@ -967,6 +1013,10 @@ def main() -> int:
             "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],
             "library_ms": tm["library_ms"],
             "library_call": library_call[name],
+            **({"tf32x3_bound_ms": tm["tf32x3_bound_ms"]}
+               if "tf32x3_bound_ms" in tm else {}),
+            **({"hybrid_ms": report["hybrid_times"][name]["ms"]}
+               if name in report["hybrid_times"] else {}),
         })
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start

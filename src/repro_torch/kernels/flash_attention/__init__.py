@@ -1,6 +1,7 @@
 from repro_torch.kernels.flash_attention.kernel import (
     LAUNCHES,
     flash_bwd_dkv,
+    flash_bwd_dkv_heads_plain,
     flash_bwd_dkv_plain,
     flash_bwd_dq,
     flash_bwd_dq_plain,
@@ -16,6 +17,7 @@ __all__ = [
     "attention",
     "attention_ref",
     "flash_bwd_dkv",
+    "flash_bwd_dkv_heads_plain",
     "flash_bwd_dkv_plain",
     "flash_bwd_dq",
     "flash_bwd_dq_plain",

@@ -19,36 +19,61 @@
 //
 // What bounds it on an H100: at the training shapes (S = T = 1024, D = 256,
 // causal) each q tile meets up to 16 kv tiles, ~64 flops per byte moved from
-// device memory, so the bound is arithmetic: 67 TFLOP/s of fp32 outside the
-// tensor cores.  These first versions run on the CUDA cores and are limited
-// by shared-memory bandwidth in their inner products; tensor cores (TF32 or
-// bf16 wgmma) and TMA pipelining are the later step.
+// device memory, so the bound is arithmetic: 67 TFLOP/s of fp32 on the CUDA
+// cores (flash_bwd_dq), or three TF32 products per fp32 one at 495 TFLOP/s
+// on the tensor cores (flash_fwd, flash_bwd_dkv).  At D = 256 a block holds
+// ~200 KB of shared memory, above the 48 KB default, so every launch first
+// raises the kernel's dynamic shared-memory limit.
 //
-// Design.  The TPU kernel walks a sequential grid axis over kv blocks and
-// carries (m, l, acc) in VMEM scratch between grid steps.  Blocks on a GPU run
-// in no order, so each block here owns one output tile and loops over the
-// other axis itself, keeping its accumulators in registers:
-//   * 256 threads as a 16 x 16 grid (tx, ty); thread (tx, ty) owns score rows
-//     ty + 16 i and score columns tx + 16 j of a tile, and output columns
-//     tx + 16 k.  A row's 16 owners are 16 lanes of one warp, so row max and
-//     row sum are warp shuffles.
-//   * tiles live in shared memory with a row stride of D + 1 floats so that
-//     the column walks of the inner products hit distinct banks.  At D = 256
-//     a block holds ~210 KB, above the 48 KB default, so every launch first
-//     raises the block's dynamic shared-memory limit.
-//   * tiles that no visible (q, k) pair reaches are skipped
-//     (_tile_visible in the reference); num_valid-padded blocks exit at once.
-//   * the 128-lane head_dim padding of the TPU version is not carried over:
-//     D is a template parameter over {32, 64, 128, 256}.
+// The TPU kernel walks a sequential grid axis over kv blocks and carries
+// (m, l, acc) in VMEM scratch between grid steps.  Blocks on a GPU run in no
+// order, so each block here owns one output tile and loops over the other
+// axis itself, keeping its accumulators in registers.  Tiles that no visible
+// (q, k) pair reaches are skipped (_tile_visible in the reference);
+// num_valid-padded blocks write zeros and exit.  The 128-lane head_dim
+// padding of the TPU version is not carried over: D is a template parameter
+// over {32, 64, 128, 256}.
+//
+// flash_fwd and flash_bwd_dkv run their products on the tensor cores:
+//   * mma.sync m16n8k8 in TF32 with the 3xTF32 split (x = hi + lo, both
+//     TF32; a b ~ a_lo b_hi + a_hi b_lo + a_hi b_hi, accumulated in fp32),
+//     which keeps the products near fp32 accuracy where plain TF32 keeps
+//     ~11 bits (CUTLASS's OpMultiplyAddFastF32);
+//   * 8 warps a block; tiles in shared memory without padding, row stride D,
+//     column c of row r stored at c ^ (((r & 3) << 3) | (r & 4)): the A/B
+//     fragment loads that walk rows with the lane group (g) and those that
+//     walk columns with it both hit 32 distinct banks, and 16-byte chunks
+//     stay whole for cp.async and ldmatrix;
+//   * fragments whose 4-float rows lie whole in shared memory (A, and B
+//     taken from an [n][k] tile) come by ldmatrix, the others by 32-bit
+//     loads; the products over D keep four accumulator chains a tile (even
+//     and odd k steps, big and small terms) so the mma latency overlaps;
+//   * the next K/V tile (forward) or q/dO tile (dk/dv) is copied with
+//     cp.async into a second stage while the current one computes;
+//   * accumulator fragments are not A fragments ((g, 2t) against (g, t)), so
+//     P and dS go to the next product through a small shared tile.
+// flash_fwd: one block per (q tile of 64, head, batch row), longest causal
+// rows first; warp w owns rows 16 (w % 4) and half w / 4 of the score
+// columns and of the output columns; row max and sum are combined across
+// the two halves through shared memory.
+// flash_bwd_dkv: one block per (k tile of 32, query head, batch row), as the
+// reference's (B, H, nk, nq) grid, k tiles with the most visible q tiles
+// first; it writes per-query-head dk/dv partials (B,T,H,D) when H > Hkv, and
+// dkv_sum_kernel adds each kv head's group in a fixed order (no atomics, so
+// a run repeats bit for bit).
+// flash_bwd_dq runs on the CUDA cores from shared memory: a 16 x 16 thread
+// grid, one block per (q tile, head, batch row), tiles with a row stride of
+// D + 1 floats so that the column walks of its products hit distinct banks.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr float NEG_INF = -1e30f;
-constexpr int NT = 256;  // threads per block (16 x 16)
+constexpr int NT = 256;  // threads per block (16 x 16, or 8 warps)
 
 struct Geom {
   int B, S, T, H, Hkv;
@@ -82,20 +107,6 @@ __device__ __forceinline__ float soft(float s, float cap) {
   return cap > 0.f ? cap * tanhf(s / cap) : s;
 }
 
-__device__ __forceinline__ float row_max16(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-
-__device__ __forceinline__ float row_sum16(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
 // rows [row0, row0 + nrows) of head `head` of a (B, L, NH, D) tensor into a
 // shared tile with row stride `stride`; rows past L are zero-filled
 template <int D>
@@ -120,34 +131,227 @@ __device__ __forceinline__ void zero_rows(float* __restrict__ dst, int b,
   }
 }
 
+
+// ------------------------------------------------------ tensor-core helpers
+//
+// mma.sync m16n8k8 TF32 fragments (PTX ISA), lane = 4 g + t:
+//   A (16 x 8, [m][k]): a0 (g, t)   a1 (g+8, t)    a2 (g, t+4)   a3 (g+8, t+4)
+//   B (8 x 8,  [k][n]): b0 (t, g)   b1 (t+4, g)
+//   C (16 x 8, [m][n]): c0 (g, 2t)  c1 (g, 2t+1)   c2 (g+8, 2t)  c3 (g+8, 2t+1)
+
+__device__ __forceinline__ int lane_g() { return (threadIdx.x & 31) >> 2; }
+__device__ __forceinline__ int lane_t() { return threadIdx.x & 3; }
+
+// element (r, c) of a row-major tile with W columns (W a multiple of 32)
+template <int W>
+__device__ __forceinline__ int swz(int r, int c) {
+  return r * W + (c ^ (((r & 3) << 3) | (r & 4)));
+}
+
+// x = hi + lo to ~22 bits, both TF32: hi is x rounded to TF32 (half away
+// from zero, as cvt.rna), lo = x - hi exactly; the tensor cores read the top
+// 19 bits of a .tf32 operand, so lo's low 13 bits are cut there.  An integer
+// add, a mask and a subtraction: cvt.rna.tf32 runs at the conversion units'
+// rate and bounded both kernels when they split with it.
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// 3xTF32: small += a_lo b_hi + a_hi b_lo, big += a_hi b_hi (two chains
+// where one accumulator would serialise three dependent mma; the caller adds
+// them, or passes the same accumulator twice)
+__device__ __forceinline__ void mma3(float (&big)[4], float (&small)[4],
+                                     const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4],
+                                     const uint32_t (&bh)[2],
+                                     const uint32_t (&bl)[2]) {
+  mma_tf32(small, al, bh);
+  mma_tf32(small, ah, bl);
+  mma_tf32(big, ah, bh);
+}
+
+// ldmatrix of 8 x 8 b16 matrices = 8 x 4 fp32: lane l receives row l / 4,
+// column l % 4 of each; lanes 8 i .. 8 i + 7 give the row addresses of
+// matrix i (16-byte rows, which the swizzle keeps whole)
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const float* p) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const float* p) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(a));
+}
+
+// A fragment: rows m0.., columns k0.. of a swizzled [m][k] tile
+template <int W>
+__device__ __forceinline__ void load_a(const float* s, int m0, int k0,
+                                       uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+  const int l = threadIdx.x & 31, mat = l >> 3;
+  uint32_t r[4];
+  ldsm_x4(r, s + swz<W>(m0 + (l & 7) + 8 * (mat & 1), k0 + 4 * (mat >> 1)));
+#pragma unroll
+  for (int i = 0; i < 4; ++i) split(__uint_as_float(r[i]), hi[i], lo[i]);
+}
+
+// B fragment from a swizzled [n][k] tile (B is the tile transposed)
+template <int W>
+__device__ __forceinline__ void load_bt(const float* s, int n0, int k0,
+                                        uint32_t (&hi)[2], uint32_t (&lo)[2]) {
+  const int l = threadIdx.x & 31;
+  uint32_t r[2];
+  ldsm_x2(r, s + swz<W>(n0 + (l & 7), k0 + 4 * ((l >> 3) & 1)));
+#pragma unroll
+  for (int i = 0; i < 2; ++i) split(__uint_as_float(r[i]), hi[i], lo[i]);
+}
+
+// the B fragments of n tiles n0 and n0 + 8 from a swizzled [n][k] tile
+template <int W>
+__device__ __forceinline__ void load_bt2(const float* s, int n0, int k0,
+                                         uint32_t (&hi)[2][2],
+                                         uint32_t (&lo)[2][2]) {
+  const int l = threadIdx.x & 31, mat = l >> 3;
+  uint32_t r[4];
+  ldsm_x4(r, s + swz<W>(n0 + (l & 7) + 8 * (mat >> 1), k0 + 4 * (mat & 1)));
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    split(__uint_as_float(r[i]), hi[i >> 1][i & 1], lo[i >> 1][i & 1]);
+}
+
+// B fragment from a swizzled [k][n] tile
+template <int W>
+__device__ __forceinline__ void load_b(const float* s, int k0, int n0,
+                                       uint32_t (&hi)[2], uint32_t (&lo)[2]) {
+  const int g = lane_g(), t = lane_t();
+  split(s[swz<W>(k0 + t, n0 + g)], hi[0], lo[0]);
+  split(s[swz<W>(k0 + t + 4, n0 + g)], hi[1], lo[1]);
+}
+
+// cp.async: `bytes` of 16 (or 4) from global, the rest of the chunk zeroed
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           int bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(s),
+               "l"(src), "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          int bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(s),
+               "l"(src), "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;" ::);
+}
+
+__device__ __forceinline__ void cp_wait_all() {
+  asm volatile("cp.async.wait_group 0;" ::: "memory");
+}
+
+// rows [row0, row0 + R) of head `head` of a (B, L, NH, D) tensor into a
+// swizzled R x D tile, 16 bytes a thread; rows past L are zero-filled
+template <int D, int R>
+__device__ __forceinline__ void copy_tile(float* dst,
+                                          const float* __restrict__ src, int b,
+                                          int row0, int L, int NH, int head) {
+  constexpr int C4 = D / 4;
+  for (int i = threadIdx.x; i < R * C4; i += NT) {
+    const int r = i / C4, c = (i % C4) * 4, row = row0 + r;
+    const bool in = row < L;
+    const float* from =
+        in ? src + ((size_t)(b * L + row) * NH + head) * D + c : src;
+    cp_async16(dst + swz<D>(r, c), from, in ? 16 : 0);
+  }
+}
+
+// R entries of a (B, H, S) row statistic (lse, delta) from row0; 0 past S
+template <int R>
+__device__ __forceinline__ void copy_rows(float* dst,
+                                          const float* __restrict__ src,
+                                          size_t at, int row0, int S) {
+  for (int r = threadIdx.x; r < R; r += NT) {
+    const bool in = row0 + r < S;
+    cp_async4(dst + r, in ? src + at + row0 + r : src, in ? 4 : 0);
+  }
+}
+
+// first and last of `n` tiles of `len` rows along one axis (the keys when
+// ITER_KEYS, else the queries) that any visible pair reaches from the other
+// axis' tile [other0, other0 + other_len); the visible tiles are contiguous
+// (causal and window each cut one end)
+template <bool ITER_KEYS>
+__device__ __forceinline__ int2 visible_range(int n, int len, int other0,
+                                              int other_len, const Geom& g) {
+  const int shift = g.T - g.S;
+  int lo = n, hi = -1;
+  for (int i = 0; i < n; ++i) {
+    const bool vis =
+        ITER_KEYS ? tile_visible(other0 + shift, other0 + shift + other_len - 1,
+                            i * len, i * len + len - 1, g)
+             : tile_visible(i * len + shift, i * len + shift + len - 1,
+                            other0, other0 + other_len - 1, g);
+    if (vis) {
+      lo = min(lo, i);
+      hi = i;
+    }
+  }
+  return make_int2(lo, hi);
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
 // ------------------------------------------------------------------ forward
 
 template <int D>
 struct FwdCfg {
-  static constexpr int BQ = 64, BK = 64, DP = D + 1, PP = BK + 1;
+  static constexpr int BQ = 64, BK = 32;
+  // Q; two stages of K and V; P; the two column halves' row maxima and sums
   static constexpr size_t smem =
-      (size_t)(BQ * DP + BK * DP + BK * D + BQ * PP) * sizeof(float);
+      (size_t)(BQ * D + 4 * BK * D + BQ * BK + 4 * BQ) * sizeof(float);
 };
 
 template <int D>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(NT, 1)
     fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                const float* __restrict__ v, const int* __restrict__ nv_ptr,
                float* __restrict__ out, float* __restrict__ lse, Geom g) {
   using C = FwdCfg<D>;
-  constexpr int BQ = C::BQ, BK = C::BK, DP = C::DP, PP = C::PP;
-  constexpr int RQ = BQ / 16, CK = BK / 16, DK = D / 16;
-  extern __shared__ float smem[];
-  float* Qs = smem;            // BQ x DP
-  float* Ks = Qs + BQ * DP;    // BK x DP
-  float* Vs = Ks + BK * DP;    // BK x D
-  float* Ps = Vs + BK * D;     // BQ x PP
+  constexpr int BQ = C::BQ, BK = C::BK, NO = D / 16;  // O n-tiles a warp
+  extern __shared__ __align__(16) float tc_smem[];
+  float* Qs = tc_smem;            // BQ x D
+  float* Ks = Qs + BQ * D;        // 2 x BK x D
+  float* Vs = Ks + 2 * BK * D;    // 2 x BK x D
+  float* Ps = Vs + 2 * BK * D;    // BQ x BK
+  float* red = Ps + BQ * BK;      // max [2][BQ], then sum [2][BQ]
 
-  const int nq = gridDim.x;
-  const int iq = nq - 1 - blockIdx.x;  // longest causal rows first
-  const int h = blockIdx.y, b = blockIdx.z;
+  const int per = g.H * g.B, nq = (g.S + BQ - 1) / BQ;
+  const int iq = nq - 1 - (int)(blockIdx.x / per);  // longest rows first
+  const int h = (int)(blockIdx.x % per) % g.H, b = (int)(blockIdx.x % per) / g.H;
   const int kvh = h / (g.H / g.Hkv);
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const int row0 = iq * BQ;
 
   if (b >= num_valid_rows(nv_ptr, g.B)) {
@@ -157,96 +361,149 @@ __global__ void __launch_bounds__(NT)
     return;
   }
 
-  load_tile<D>(Qs, DP, q, b, row0, BQ, g.S, g.H, h);
-
-  float m[RQ], l[RQ], acc[RQ][DK];
-#pragma unroll
-  for (int i = 0; i < RQ; ++i) {
-    m[i] = NEG_INF;
-    l[i] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < DK; ++kk) acc[i][kk] = 0.f;
-  }
-
+  const int warp = threadIdx.x >> 5, gq = lane_g(), tq = lane_t();
+  const int wr = (warp & 3) * 16;  // this warp's 16 rows
+  const int wc = warp >> 2;        // its half of the S and of the O columns
   const int shift = g.T - g.S;
-  const int q_first = row0 + shift, q_last = q_first + BQ - 1;
-  const int nk = (g.T + BK - 1) / BK;
-  for (int ik = 0; ik < nk; ++ik) {
+  const int2 range =
+      visible_range<true>((g.T + BK - 1) / BK, BK, row0, BQ, g);
+
+  copy_tile<D, BQ>(Qs, q, b, row0, g.S, g.H, h);
+  if (range.x <= range.y) {
+    copy_tile<D, BK>(Ks, k, b, range.x * BK, g.T, g.Hkv, kvh);
+    copy_tile<D, BK>(Vs, v, b, range.x * BK, g.T, g.Hkv, kvh);
+  }
+  cp_commit();
+
+  float o[NO][4], m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < NO; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+
+  for (int ik = range.x; ik <= range.y; ++ik) {
+    const int stage = (ik - range.x) & 1;
+    cp_wait_all();
+    __syncthreads();  // this tile landed; the other stage's readers are done
+    if (ik < range.y) {
+      copy_tile<D, BK>(Ks + (stage ^ 1) * BK * D, k, b, (ik + 1) * BK, g.T,
+                       g.Hkv, kvh);
+      copy_tile<D, BK>(Vs + (stage ^ 1) * BK * D, v, b, (ik + 1) * BK, g.T,
+                       g.Hkv, kvh);
+    }
+    cp_commit();
+    const float* Kt = Ks + stage * BK * D;
+    const float* Vt = Vs + stage * BK * D;
     const int k_first = ik * BK;
-    if (!tile_visible(q_first, q_last, k_first, k_first + BK - 1, g)) continue;
-    __syncthreads();  // the previous tile's readers are done
-    load_tile<D>(Ks, DP, k, b, k_first, BK, g.T, g.Hkv, kvh);
-    load_tile<D>(Vs, D, v, b, k_first, BK, g.T, g.Hkv, kvh);
-    __syncthreads();
 
-    float sc[RQ][CK];
+    // S = Q K^T on rows wr.., columns wc * 16 + {0, 8}; four chains a
+    // tile (even / odd k step, big / small terms), added at the end
+    float acc[2][2][2][4];
 #pragma unroll
-    for (int i = 0; i < RQ; ++i)
-#pragma unroll
-      for (int j = 0; j < CK; ++j) sc[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float a[RQ], bk[CK];
-#pragma unroll
-      for (int i = 0; i < RQ; ++i) a[i] = Qs[(ty + 16 * i) * DP + d];
-#pragma unroll
-      for (int j = 0; j < CK; ++j) bk[j] = Ks[(tx + 16 * j) * DP + d];
-#pragma unroll
-      for (int i = 0; i < RQ; ++i)
-#pragma unroll
-        for (int j = 0; j < CK; ++j) sc[i][j] = fmaf(a[i], bk[j], sc[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < RQ; ++i) {
-      const int qpos = row0 + ty + 16 * i + shift;
-      float mx = NEG_INF;
-#pragma unroll
-      for (int j = 0; j < CK; ++j) {
-        float s = soft(sc[i][j] * g.sm_scale, g.softcap);
-        if (!pair_visible(qpos, k_first + tx + 16 * j, g)) s = NEG_INF;
-        sc[i][j] = s;
-        mx = fmaxf(mx, s);
-      }
-      const float m_cur = fmaxf(m[i], row_max16(mx));
-      const float alpha = expf(m[i] - m_cur);
-      float ps = 0.f;
-#pragma unroll
-      for (int j = 0; j < CK; ++j) {
-        const float p = expf(sc[i][j] - m_cur);
-        Ps[(ty + 16 * i) * PP + tx + 16 * j] = p;
-        ps += p;
-      }
-      l[i] = l[i] * alpha + row_sum16(ps);
-      m[i] = m_cur;
-#pragma unroll
-      for (int kk = 0; kk < DK; ++kk) acc[i][kk] *= alpha;
-    }
-    __syncthreads();
-
+    for (int i = 0; i < 32; ++i) (&acc[0][0][0][0])[i] = 0.f;
 #pragma unroll 2
-    for (int c = 0; c < BK; ++c) {
-      float vv[DK];
+    for (int k0 = 0; k0 < D; k0 += 16) {
 #pragma unroll
-      for (int kk = 0; kk < DK; ++kk) vv[kk] = Vs[c * D + tx + 16 * kk];
+      for (int par = 0; par < 2; ++par) {
+        uint32_t ah[4], al[4], bh[2][2], bl[2][2];
+        load_a<D>(Qs, wr, k0 + 8 * par, ah, al);
+        load_bt2<D>(Kt, wc * 16, k0 + 8 * par, bh, bl);
 #pragma unroll
-      for (int i = 0; i < RQ; ++i) {
-        const float p = Ps[(ty + 16 * i) * PP + c];
+        for (int j = 0; j < 2; ++j)
+          mma3(acc[par][0][j], acc[par][1][j], ah, al, bh[j], bl[j]);
+      }
+    }
+    float s[2][4];
 #pragma unroll
-        for (int kk = 0; kk < DK; ++kk) acc[i][kk] = fmaf(p, vv[kk], acc[i][kk]);
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        s[j][e] = (acc[0][0][j][e] + acc[1][0][j][e]) +
+                  (acc[0][1][j][e] + acc[1][1][j][e]);
+
+    // scale, softcap, mask; row maxima over both column halves
+    float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = wr + gq + 8 * (e >> 1);
+        const int c = wc * 16 + 8 * j + 2 * tq + (e & 1);
+        float x = soft(s[j][e] * g.sm_scale, g.softcap);
+        if (!pair_visible(row0 + r + shift, k_first + c, g)) x = NEG_INF;
+        s[j][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      mx[hh] = quad_max(mx[hh]);
+      if (tq == 0) red[wc * BQ + wr + gq + 8 * hh] = mx[hh];
+    }
+    __syncthreads();
+    float m_cur[2], ps[2] = {0.f, 0.f};
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int r = wr + gq + 8 * hh;
+      m_cur[hh] = fmaxf(m[hh], fmaxf(red[r], red[BQ + r]));
+    }
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = wr + gq + 8 * (e >> 1);
+        const int c = wc * 16 + 8 * j + 2 * tq + (e & 1);
+        const float p = expf(s[j][e] - m_cur[e >> 1]);
+        Ps[swz<BK>(r, c)] = p;
+        ps[e >> 1] += p;
+      }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      ps[hh] = quad_sum(ps[hh]);
+      if (tq == 0) red[(2 + wc) * BQ + wr + gq + 8 * hh] = ps[hh];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int r = wr + gq + 8 * hh;
+      const float alpha = expf(m[hh] - m_cur[hh]);
+      l[hh] = l[hh] * alpha + (red[2 * BQ + r] + red[3 * BQ + r]);
+      m[hh] = m_cur[hh];
+#pragma unroll
+      for (int j = 0; j < NO; ++j) {
+        o[j][2 * hh] *= alpha;
+        o[j][2 * hh + 1] *= alpha;
+      }
+    }
+
+    // O += P V on rows wr.., columns wc * D / 2 ..
+#pragma unroll
+    for (int k0 = 0; k0 < BK; k0 += 8) {
+      uint32_t ah[4], al[4];
+      load_a<BK>(Ps, wr, k0, ah, al);
+#pragma unroll
+      for (int j = 0; j < NO; ++j) {
+        uint32_t bh[2], bl[2];
+        load_b<D>(Vt, k0, wc * (D / 2) + 8 * j, bh, bl);
+        mma3(o[j], o[j], ah, al, bh, bl);
       }
     }
   }
+  cp_wait_all();
 
 #pragma unroll
-  for (int i = 0; i < RQ; ++i) {
-    const int s = row0 + ty + 16 * i;
-    if (s >= g.S) continue;
-    const float l_safe = fmaxf(l[i], 1e-20f);
-    float* o = out + ((size_t)(b * g.S + s) * g.H + h) * D;
+  for (int hh = 0; hh < 2; ++hh) {
+    const int s_row = row0 + wr + gq + 8 * hh;
+    if (s_row >= g.S) continue;
+    const float l_safe = fmaxf(l[hh], 1e-20f);
+    float* o_row = out + ((size_t)(b * g.S + s_row) * g.H + h) * D;
 #pragma unroll
-    for (int kk = 0; kk < DK; ++kk) o[tx + 16 * kk] = acc[i][kk] / l_safe;
-    if (tx == 0) lse[((size_t)b * g.H + h) * g.S + s] = m[i] + logf(l_safe);
+    for (int j = 0; j < NO; ++j) {
+      const int c = wc * (D / 2) + 8 * j + 2 * tq;
+      *reinterpret_cast<float2*>(o_row + c) =
+          make_float2(o[j][2 * hh] / l_safe, o[j][2 * hh + 1] / l_safe);
+    }
+    if (wc == 0 && tq == 0)
+      lse[((size_t)b * g.H + h) * g.S + s_row] = m[hh] + logf(l_safe);
   }
 }
 
@@ -408,115 +665,191 @@ __global__ void __launch_bounds__(NT)
   }
 }
 
+
 template <int D>
 struct DkvCfg {
-  static constexpr int BQ = 64, BK = 32, DP = D + 1, PP = BK + 1;
+  static constexpr int BK = 32, BQ = 32;
+  // K, V; two stages of Q, dO, lse and delta; P^T and dS^T
   static constexpr size_t smem =
-      (size_t)(2 * BK * DP + 2 * BQ * DP + 2 * BQ * PP + 2 * BQ) *
-      sizeof(float);
+      (size_t)(2 * BK * D + 4 * BQ * D + 4 * BQ + 2 * BK * BQ) * sizeof(float);
 };
 
-// one block per (b, kv head, k tile), looping over the kv head's `rep` query
-// heads and their q tiles: dk / dv come out already summed over the group
+// one block per (k tile, query head, batch row), looping over the visible q
+// tiles: dk / dv of this query head alone, written to head h of a
+// (B, T, H, D) tensor (the outputs themselves when H == Hkv, else the
+// partials that dkv_sum_kernel adds up)
 template <int D>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(NT, 1)
     dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                const float* __restrict__ v, const float* __restrict__ dout,
                const float* __restrict__ lse, const float* __restrict__ delta,
                const int* __restrict__ nv_ptr, float* __restrict__ dk,
                float* __restrict__ dv, Geom g) {
   using C = DkvCfg<D>;
-  constexpr int BQ = C::BQ, BK = C::BK, DP = C::DP, PP = C::PP;
-  constexpr int RQ = BQ / 16, CK = BK / 16, RK = BK / 16, DK = D / 16;
-  extern __shared__ float smem[];
-  float* Ks = smem;             // BK x DP
-  float* Vs = Ks + BK * DP;     // BK x DP
-  float* Qs = Vs + BK * DP;     // BQ x DP
-  float* dOs = Qs + BQ * DP;    // BQ x DP
-  float* Ps = dOs + BQ * DP;    // BQ x PP
-  float* dSs = Ps + BQ * PP;    // BQ x PP
-  float* lse_r = dSs + BQ * PP; // BQ
-  float* delta_r = lse_r + BQ;  // BQ
+  constexpr int BK = C::BK, BQ = C::BQ, NT2 = D / 32;  // dk/dv n-tiles a warp
+  extern __shared__ __align__(16) float tc_smem[];
+  float* Ks = tc_smem;             // BK x D
+  float* Vs = Ks + BK * D;         // BK x D
+  float* Qs = Vs + BK * D;         // 2 x BQ x D
+  float* dOs = Qs + 2 * BQ * D;    // 2 x BQ x D
+  float* rows = dOs + 2 * BQ * D;  // 2 x (lse BQ, delta BQ)
+  float* Pt = rows + 4 * BQ;       // BK x BQ
+  float* dSt = Pt + BK * BQ;       // BK x BQ
 
-  const int ik = blockIdx.x;
-  const int kvh = blockIdx.y, b = blockIdx.z;
-  const int rep = g.H / g.Hkv;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int per = g.H * g.B;
+  const int ik = (int)(blockIdx.x / per);  // causal: most q tiles first
+  const int h = (int)(blockIdx.x % per) % g.H, b = (int)(blockIdx.x % per) / g.H;
+  const int kvh = h / (g.H / g.Hkv);
   const int k_first = ik * BK;
 
   if (b >= num_valid_rows(nv_ptr, g.B)) {
-    zero_rows<D>(dk, b, k_first, BK, g.T, g.Hkv, kvh);
-    zero_rows<D>(dv, b, k_first, BK, g.T, g.Hkv, kvh);
+    zero_rows<D>(dk, b, k_first, BK, g.T, g.H, h);
+    zero_rows<D>(dv, b, k_first, BK, g.T, g.H, h);
     return;
   }
 
-  load_tile<D>(Ks, DP, k, b, k_first, BK, g.T, g.Hkv, kvh);
-  load_tile<D>(Vs, DP, v, b, k_first, BK, g.T, g.Hkv, kvh);
-
-  // thread (tx, ty) owns key rows ty + 16 i and head-dim columns tx + 16 kk
-  float dk_acc[RK][DK], dv_acc[RK][DK];
-#pragma unroll
-  for (int i = 0; i < RK; ++i)
-#pragma unroll
-    for (int kk = 0; kk < DK; ++kk) dk_acc[i][kk] = dv_acc[i][kk] = 0.f;
-
+  const int warp = threadIdx.x >> 5, gq = lane_g(), tq = lane_t();
+  const int m1 = (warp & 1) * 16;        // key rows of both phases
+  const int n1 = (warp >> 1) * 8;        // query columns of S^T and dP^T
+  const int c2 = (warp >> 1) * (D / 4);  // head-dim columns of dk and dv
   const int shift = g.T - g.S;
-  const int nq = (g.S + BQ - 1) / BQ;
-  for (int hh = kvh * rep; hh < (kvh + 1) * rep; ++hh) {
-    for (int iq = 0; iq < nq; ++iq) {
-      const int row0 = iq * BQ;
-      const int q_first = row0 + shift;
-      if (!tile_visible(q_first, q_first + BQ - 1, k_first, k_first + BK - 1,
-                        g))
-        continue;
-      __syncthreads();
-      load_tile<D>(Qs, DP, q, b, row0, BQ, g.S, g.H, hh);
-      load_tile<D>(dOs, DP, dout, b, row0, BQ, g.S, g.H, hh);
-      for (int r = threadIdx.x; r < BQ; r += NT) {
-        const bool in = row0 + r < g.S;
-        const size_t at = ((size_t)b * g.H + hh) * g.S + row0 + r;
-        lse_r[r] = in ? lse[at] : 0.f;
-        delta_r[r] = in ? delta[at] : 0.f;
-      }
-      __syncthreads();
-      bwd_tile<D, RQ, CK, PP>(Qs, dOs, Ks, Vs, lse_r, delta_r, row0, k_first,
-                              g, Ps, dSs);
-      __syncthreads();
+  const size_t at = ((size_t)b * g.H + h) * g.S;
+  const int2 range =
+      visible_range<false>((g.S + BQ - 1) / BQ, BQ, k_first, BK, g);
+
+  copy_tile<D, BK>(Ks, k, b, k_first, g.T, g.Hkv, kvh);
+  copy_tile<D, BK>(Vs, v, b, k_first, g.T, g.Hkv, kvh);
+  if (range.x <= range.y) {
+    copy_tile<D, BQ>(Qs, q, b, range.x * BQ, g.S, g.H, h);
+    copy_tile<D, BQ>(dOs, dout, b, range.x * BQ, g.S, g.H, h);
+    copy_rows<BQ>(rows, lse, at, range.x * BQ, g.S);
+    copy_rows<BQ>(rows + BQ, delta, at, range.x * BQ, g.S);
+  }
+  cp_commit();
+
+  float dk_acc[NT2][4], dv_acc[NT2][4];
+#pragma unroll
+  for (int j = 0; j < NT2; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[j][e] = dv_acc[j][e] = 0.f;
+
+  for (int iq = range.x; iq <= range.y; ++iq) {
+    const int stage = (iq - range.x) & 1;
+    cp_wait_all();
+    __syncthreads();  // this tile landed; the other stage's readers are done
+    if (iq < range.y) {
+      const int next = (iq + 1) * BQ, o = stage ^ 1;
+      copy_tile<D, BQ>(Qs + o * BQ * D, q, b, next, g.S, g.H, h);
+      copy_tile<D, BQ>(dOs + o * BQ * D, dout, b, next, g.S, g.H, h);
+      copy_rows<BQ>(rows + 2 * o * BQ, lse, at, next, g.S);
+      copy_rows<BQ>(rows + (2 * o + 1) * BQ, delta, at, next, g.S);
+    }
+    cp_commit();
+    const float* Qt = Qs + stage * BQ * D;
+    const float* dOt = dOs + stage * BQ * D;
+    const float* lse_t = rows + 2 * stage * BQ;
+    const float* delta_t = lse_t + BQ;
+    const int row0 = iq * BQ;
+
+    // S^T = K Q^T and dP^T = V dO^T on key rows m1.., query columns n1..;
+    // four chains a product (even / odd k step, big / small terms)
+    float acc[2][2][2][4];  // [product][parity][big, small]
+#pragma unroll
+    for (int i = 0; i < 32; ++i) (&acc[0][0][0][0])[i] = 0.f;
 #pragma unroll 2
-      for (int r = 0; r < BQ; ++r) {
-        float pv[RK], dsv[RK], qv[DK], dov[DK];
+    for (int k0 = 0; k0 < D; k0 += 16) {
 #pragma unroll
-        for (int i = 0; i < RK; ++i) {
-          pv[i] = Ps[r * PP + ty + 16 * i];
-          dsv[i] = dSs[r * PP + ty + 16 * i];
+      for (int par = 0; par < 2; ++par) {
+        uint32_t ah[4], al[4], bh[2], bl[2];
+        load_a<D>(Ks, m1, k0 + 8 * par, ah, al);
+        load_bt<D>(Qt, n1, k0 + 8 * par, bh, bl);
+        mma3(acc[0][par][0], acc[0][par][1], ah, al, bh, bl);
+        load_a<D>(Vs, m1, k0 + 8 * par, ah, al);
+        load_bt<D>(dOt, n1, k0 + 8 * par, bh, bl);
+        mma3(acc[1][par][0], acc[1][par][1], ah, al, bh, bl);
+      }
+    }
+    float sc[4], dp[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      sc[e] = (acc[0][0][0][e] + acc[0][1][0][e]) +
+              (acc[0][0][1][e] + acc[0][1][1][e]);
+      dp[e] = (acc[1][0][0][e] + acc[1][1][0][e]) +
+              (acc[1][0][1][e] + acc[1][1][1][e]);
+    }
+    // p = exp(s_soft - lse), ds = p (dp - delta) [* (1 - (s_soft/cap)^2)]
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int kr = m1 + gq + 8 * (e >> 1), qc = n1 + 2 * tq + (e & 1);
+      const float s_soft = soft(sc[e] * g.sm_scale, g.softcap);
+      float p = 0.f, ds = 0.f;
+      if (row0 + qc < g.S && pair_visible(row0 + qc + shift, k_first + kr, g)) {
+        p = expf(s_soft - lse_t[qc]);
+        ds = p * (dp[e] - delta_t[qc]);
+        if (g.softcap > 0.f) {
+          const float t = s_soft / g.softcap;
+          ds *= 1.f - t * t;
         }
+      }
+      Pt[swz<BQ>(kr, qc)] = p;
+      dSt[swz<BQ>(kr, qc)] = ds;
+    }
+    __syncthreads();
+
+    // dV += P^T dO and dK += dS^T Q on key rows m1.., columns c2..
 #pragma unroll
-        for (int kk = 0; kk < DK; ++kk) {
-          qv[kk] = Qs[r * DP + tx + 16 * kk];
-          dov[kk] = dOs[r * DP + tx + 16 * kk];
-        }
+    for (int k0 = 0; k0 < BQ; k0 += 8) {
+      uint32_t ph[4], pl[4], sh[4], sl[4];
+      load_a<BQ>(Pt, m1, k0, ph, pl);
+      load_a<BQ>(dSt, m1, k0, sh, sl);
 #pragma unroll
-        for (int i = 0; i < RK; ++i)
-#pragma unroll
-          for (int kk = 0; kk < DK; ++kk) {
-            dv_acc[i][kk] = fmaf(pv[i], dov[kk], dv_acc[i][kk]);
-            dk_acc[i][kk] = fmaf(dsv[i], qv[kk], dk_acc[i][kk]);
-          }
+      for (int j = 0; j < NT2; ++j) {
+        uint32_t bh[2], bl[2];
+        load_b<D>(dOt, k0, c2 + 8 * j, bh, bl);
+        mma3(dv_acc[j], dv_acc[j], ph, pl, bh, bl);
+        load_b<D>(Qt, k0, c2 + 8 * j, bh, bl);
+        mma3(dk_acc[j], dk_acc[j], sh, sl, bh, bl);
       }
     }
   }
+  cp_wait_all();
 
 #pragma unroll
-  for (int i = 0; i < RK; ++i) {
-    const int t = k_first + ty + 16 * i;
+  for (int hh = 0; hh < 2; ++hh) {
+    const int t = k_first + m1 + gq + 8 * hh;
     if (t >= g.T) continue;
-    const size_t at = ((size_t)(b * g.T + t) * g.Hkv + kvh) * D;
+    const size_t row = ((size_t)(b * g.T + t) * g.H + h) * D;
 #pragma unroll
-    for (int kk = 0; kk < DK; ++kk) {
-      dk[at + tx + 16 * kk] = dk_acc[i][kk] * g.sm_scale;
-      dv[at + tx + 16 * kk] = dv_acc[i][kk];
+    for (int j = 0; j < NT2; ++j) {
+      const int c = c2 + 8 * j + 2 * tq;
+      *reinterpret_cast<float2*>(dk + row + c) =
+          make_float2(dk_acc[j][2 * hh] * g.sm_scale,
+                      dk_acc[j][2 * hh + 1] * g.sm_scale);
+      *reinterpret_cast<float2*>(dv + row + c) =
+          make_float2(dv_acc[j][2 * hh], dv_acc[j][2 * hh + 1]);
     }
   }
+}
+
+// dk[b, t, j] = sum over r of dk_heads[b, t, j * rep + r], r in order (and dv
+// alike), a float4 a thread: the deterministic GQA group-sum
+__global__ void __launch_bounds__(NT)
+    dkv_sum_kernel(const float4* __restrict__ dk_heads,
+                   const float4* __restrict__ dv_heads,
+                   float4* __restrict__ dk, float4* __restrict__ dv, int n,
+                   int rep, int d4) {
+  const int i = blockIdx.x * NT + threadIdx.x;
+  if (i >= n) return;
+  const size_t base = (size_t)(i / d4) * rep * d4 + i % d4;
+  float4 a = dk_heads[base], c = dv_heads[base];
+  for (int r = 1; r < rep; ++r) {
+    const float4 x = dk_heads[base + (size_t)r * d4];
+    const float4 y = dv_heads[base + (size_t)r * d4];
+    a.x += x.x; a.y += x.y; a.z += x.z; a.w += x.w;
+    c.x += y.x; c.y += y.y; c.z += y.z; c.w += y.w;
+  }
+  dk[i] = a;
+  dv[i] = c;
 }
 
 // ------------------------------------------------------------------ launch
@@ -532,8 +865,9 @@ int launch_fwd(const float* q, const float* k, const float* v, const int* nv,
                float* out, float* lse, Geom g, cudaStream_t st) {
   using C = FwdCfg<D>;
   if (int e = set_smem(fwd_kernel<D>, C::smem)) return e;
-  dim3 grid((g.S + C::BQ - 1) / C::BQ, g.H, g.B);
-  fwd_kernel<D><<<grid, NT, C::smem, st>>>(q, k, v, nv, out, lse, g);
+  const int nq = (g.S + C::BQ - 1) / C::BQ;
+  fwd_kernel<D><<<nq * g.H * g.B, NT, C::smem, st>>>(q, k, v, nv, out, lse,
+                                                     g);
   return (int)cudaGetLastError();
 }
 
@@ -548,27 +882,42 @@ int launch_dq(const float* q, const float* k, const float* v, const float* o,
   return (int)cudaGetLastError();
 }
 
+constexpr int kBadHeadDim = -1;
+constexpr int kNoScratch = -2;
+
 template <int D>
 int launch_dkv(const float* q, const float* k, const float* v, const float* o,
                const float* lse, const float* delta, const int* nv, float* dk,
-               float* dv, Geom g, cudaStream_t st) {
+               float* dv, float* dk_heads, float* dv_heads, Geom g,
+               cudaStream_t st) {
   using C = DkvCfg<D>;
+  const int rep = g.H / g.Hkv;
+  if (rep > 1 && !(dk_heads && dv_heads)) return kNoScratch;
   if (int e = set_smem(dkv_kernel<D>, C::smem)) return e;
-  dim3 grid((g.T + C::BK - 1) / C::BK, g.Hkv, g.B);
-  dkv_kernel<D><<<grid, NT, C::smem, st>>>(q, k, v, o, lse, delta, nv, dk, dv,
-                                           g);
+  const int nk = (g.T + C::BK - 1) / C::BK;
+  dkv_kernel<D><<<nk * g.H * g.B, NT, C::smem, st>>>(
+      q, k, v, o, lse, delta, nv, rep > 1 ? dk_heads : dk,
+      rep > 1 ? dv_heads : dv, g);
+  if (int e = (int)cudaGetLastError()) return e;
+  if (rep > 1) {
+    const int n = g.B * g.T * g.Hkv * (D / 4);
+    dkv_sum_kernel<<<(n + NT - 1) / NT, NT, 0, st>>>(
+        reinterpret_cast<const float4*>(dk_heads),
+        reinterpret_cast<const float4*>(dv_heads),
+        reinterpret_cast<float4*>(dk), reinterpret_cast<float4*>(dv), n, rep,
+        D / 4);
+  }
   return (int)cudaGetLastError();
 }
-
-constexpr int kBadHeadDim = -1;
 
 }  // namespace
 
 extern "C" {
 
-// All pointers are device pointers; num_valid may be null (= all B rows).
-// Returns 0 on success, a cudaError_t code if the launch was refused, or -1
-// for a head_dim outside {32, 64, 128, 256}.
+// All pointers are device pointers, 16-byte aligned; num_valid may be null
+// (= all B rows).  Returns 0 on success, a cudaError_t code if a launch was
+// refused, -1 for a head_dim outside {32, 64, 128, 256}, -2 when H > Hkv and
+// flash_bwd_dkv was given no (B, T, H, D) scratch for the per-head partials.
 int flash_fwd(const float* q, const float* k, const float* v,
               const int* num_valid, float* out, float* lse, int B, int S,
               int T, int H, int Hkv, int D, int causal, int window,
@@ -605,15 +954,19 @@ int flash_bwd_dq(const float* q, const float* k, const float* v,
 #undef CALL_DQ
 }
 
+// dk_heads / dv_heads: (B, T, H, D) scratch for the per-query-head partials,
+// used (and required) only when H > Hkv
 int flash_bwd_dkv(const float* q, const float* k, const float* v,
                   const float* dout, const float* lse, const float* delta,
-                  const int* num_valid, float* dk, float* dv, int B, int S,
-                  int T, int H, int Hkv, int D, int causal, int window,
-                  float softcap, float sm_scale, void* stream) {
+                  const int* num_valid, float* dk, float* dv, float* dk_heads,
+                  float* dv_heads, int B, int S, int T, int H, int Hkv, int D,
+                  int causal, int window, float softcap, float sm_scale,
+                  void* stream) {
   Geom g{B, S, T, H, Hkv, causal, window, softcap, sm_scale};
   cudaStream_t st = (cudaStream_t)stream;
-#define CALL_DKV(DD) \
-  launch_dkv<DD>(q, k, v, dout, lse, delta, num_valid, dk, dv, g, st)
+#define CALL_DKV(DD)                                                       \
+  launch_dkv<DD>(q, k, v, dout, lse, delta, num_valid, dk, dv, dk_heads,   \
+                 dv_heads, g, st)
   switch (D) {
     case 32: return CALL_DKV(32);
     case 64: return CALL_DKV(64);

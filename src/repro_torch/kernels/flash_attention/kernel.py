@@ -14,7 +14,10 @@ fp32; queries right-aligned when S < T; optional sliding ``window`` and tanh
 None for all rows) marks batch rows >= num_valid as padding, whose outputs
 and gradients are exact zeros.  The backward takes the forward's lse and
 ``delta = rowsum(dO * O)`` as (B,H,S) f32, and returns dk/dv per kv head
-(summed over the query heads that share it).
+(summed over the query heads that share it).  Like the reference, the dk/dv
+kernel computes them per query head (``flash_bwd_dkv_heads_plain`` is that
+step's plain version) into (B,T,H,D) scratch, then sums each group in a
+fixed order.
 """
 
 from __future__ import annotations
@@ -115,6 +118,23 @@ def flash_bwd_dq_plain(q, k, v, do, lse, delta, num_valid=None, *,
     return _zero_padded(dq.reshape(b, s, h, d), valid).to(q.dtype)
 
 
+def flash_bwd_dkv_heads_plain(q, k, v, do, lse, delta, num_valid=None, *,
+                              causal: bool = True,
+                              window: Optional[int] = None,
+                              softcap: Optional[float] = None):
+    """-> (dk, dv), each (B,T,H,D): per query head, before the group-sum
+    (the reference's ``_dkv_kernel`` outputs)."""
+    b, s, h, d = q.shape
+    t = k.shape[1]
+    p, ds, dog = _bwd_plain(q, k, v, do, lse, delta, causal, window, softcap)
+    qg = q.float().reshape(dog.shape)
+    dk = torch.einsum("bgrst,bsgrd->btgrd", ds, qg) * (1.0 / math.sqrt(d))
+    dv = torch.einsum("bgrst,bsgrd->btgrd", p, dog)
+    valid = _valid_rows(b, num_valid, q.device)
+    return (_zero_padded(dk.reshape(b, t, h, d), valid),
+            _zero_padded(dv.reshape(b, t, h, d), valid))
+
+
 def flash_bwd_dkv_plain(q, k, v, do, lse, delta, num_valid=None, *,
                         causal: bool = True, window: Optional[int] = None,
                         softcap: Optional[float] = None):
@@ -137,7 +157,7 @@ _GEOM = [_I] * 8 + [_F, _F, _P]
 _SIGNATURES = {
     "flash_fwd": [_P] * 6 + _GEOM,
     "flash_bwd_dq": [_P] * 8 + _GEOM,
-    "flash_bwd_dkv": [_P] * 9 + _GEOM,
+    "flash_bwd_dkv": [_P] * 11 + _GEOM,
 }
 
 
@@ -158,6 +178,9 @@ def _check(name, q, k, v, *rest):
             raise TypeError(f"{name}: the kernel takes float32, got {x.dtype}")
         if not x.is_contiguous():
             raise ValueError(f"{name}: inputs must be contiguous")
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name}: inputs must be 16-byte aligned (the "
+                             "kernels copy 16-byte chunks)")
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"{name}: want q (B,S,H,D), k/v (B,T,Hkv,D); got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
@@ -246,7 +269,11 @@ def flash_bwd_dq(q, k, v, do, lse, delta, num_valid=None, *,
 def flash_bwd_dkv(q, k, v, do, lse, delta, num_valid=None, *,
                   causal: bool = True, window: Optional[int] = None,
                   softcap: Optional[float] = None):
-    """(dk, dv), each (B,T,Hkv,D), group-summed over the query heads."""
+    """(dk, dv), each (B,T,Hkv,D), group-summed over the query heads.
+
+    With H > Hkv the kernel writes per-query-head partials into (B,T,H,D)
+    scratch and a second kernel adds each group in a fixed order, so two
+    calls on the same inputs agree bit for bit."""
     if q.device.type == "cpu":
         return flash_bwd_dkv_plain(q, k, v, do, lse, delta, num_valid,
                                    causal=causal, window=window,
@@ -255,11 +282,18 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, num_valid=None, *,
     _check_bwd("flash_bwd_dkv", q, do, lse, delta)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
+    heads = (None, None)
+    if q.shape[2] > k.shape[2]:
+        b, t, h, d = k.shape[0], k.shape[1], q.shape[2], q.shape[3]
+        heads = tuple(torch.empty((b, t, h, d), dtype=torch.float32,
+                                  device=q.device) for _ in range(2))
     nv, _keep = _nv_ptr(num_valid, q.device)
     rc = _lib().flash_bwd_dkv(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                               do.data_ptr(), lse.data_ptr(),
                               delta.data_ptr(), nv, dk.data_ptr(),
                               dv.data_ptr(),
+                              *(x if x is None else x.data_ptr()
+                                for x in heads),
                               *_geom(q, k, causal, window, softcap))
     _raise_on("flash_bwd_dkv", rc)
     LAUNCHES["flash_bwd_dkv"] += 1

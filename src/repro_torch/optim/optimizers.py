@@ -4,7 +4,10 @@ Each optimizer is an (init, update) pair, as in the reference:
     state = opt.init(params)
     new_params, new_state = opt.update(params, grads, state, step)
 
-The update rules follow the reference's arithmetic term for term.  New
+The update rules follow the reference's arithmetic term for term, with
+its scalars in fp32: the learning rate, Adam's step count and bias
+corrections, and ``lr * weight_decay`` are float32 values (kept as Python
+floats, which hold an fp32 value exactly, so no device sync).  New
 parameter tensors are returned (the ASP engine keeps references to the
 parameters a worker last read, so they must not change under it); the
 moment buffers in ``state`` are updated in place, which saves one copy of
@@ -16,6 +19,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Optional, Union
 
+import numpy as np
 import torch
 
 Schedule = Callable[[int], float]  # step -> lr
@@ -32,7 +36,8 @@ class Optimizer:
 
 
 def constant_lr(lr: float) -> Schedule:
-    return lambda step: float(lr)
+    lr32 = float(np.float32(lr))
+    return lambda step: lr32
 
 
 def _sched(lr: Union[Schedule, float]) -> Schedule:
@@ -41,6 +46,14 @@ def _sched(lr: Union[Schedule, float]) -> Schedule:
 
 def _step(step) -> int:
     return int(step.item()) if isinstance(step, torch.Tensor) else int(step)
+
+
+def _sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """fp32 sqrt rounded to nearest, as the reference's.  CUDA's is; the CPU
+    kernel's vectorised sqrt is an ulp off on some inputs, so on the CPU it
+    goes through float64 (the square root of an fp32 value, taken in
+    float64 and rounded to fp32, is the correctly rounded fp32 one)."""
+    return x.sqrt() if x.is_cuda else x.double().sqrt().float()
 
 
 def sgd(lr: Union[Schedule, float]) -> Optimizer:
@@ -92,17 +105,18 @@ def adam(lr: Union[Schedule, float], b1: float = 0.9, b2: float = 0.999,
     def update(params, grads, state, step):
         step = _step(step)
         eta = sched(step)
-        t = step + 1.0
-        bc1 = 1 - b1 ** t
-        bc2 = 1 - b2 ** t
+        one, t = np.float32(1), np.float32(step) + np.float32(1)
+        bc1 = float(one - np.float32(b1) ** t)
+        bc2 = float(one - np.float32(b2) ** t)
+        eta_wd = float(np.float32(eta) * np.float32(weight_decay))
         new_p = {}
         for k, p in params.items():
             g = grads[k].float()
             m = state["m"][k].mul_(b1).add_((1 - b1) * g)
             v = state["v"][k].mul_(b2).add_((1 - b2) * g.square())
-            step_ = eta * (m / bc1) / ((v / bc2).sqrt() + eps)
+            step_ = eta * (m / bc1) / (_sqrt_rn(v / bc2) + eps)
             if weight_decay:
-                step_ = step_ + eta * weight_decay * p.float()
+                step_ = step_ + eta_wd * p.float()
             new_p[k] = (p.float() - step_).to(p.dtype)
         return new_p, state
 

@@ -1,5 +1,10 @@
 """Learning-rate schedules: step -> lr as host floats.
 
+Each schedule evaluates in float32, as the reference's do, and returns that
+fp32 value as a Python float (exact).  The cosine is taken in float64 and
+rounded to fp32: numpy's float32 ``cos`` is off by an ulp where the
+reference's is not.
+
 PyTorch runs eagerly, so a schedule is evaluated on the host each step and
 `BatchCoupledSchedule`'s scale takes effect at the next update, with no
 per-scale compiled copy of the update (the reference keeps one jitted
@@ -11,13 +16,17 @@ from __future__ import annotations
 import math
 from typing import Callable, Sequence, Union
 
+import numpy as np
+
+f32 = np.float32
+
 
 def step_schedule(values: Sequence[float], boundaries: Sequence[int]):
     """Piecewise-constant. The paper's ResNet schedule:
     values=[0.1, 0.01, 0.001, 0.0002] with accuracy/step boundaries."""
     if len(values) != len(boundaries) + 1:
         raise ValueError("need len(values) == len(boundaries) + 1")
-    vals = [float(v) for v in values]
+    vals = [float(f32(v)) for v in values]
     bounds = [int(b) for b in boundaries]
 
     def sched(step):
@@ -28,13 +37,16 @@ def step_schedule(values: Sequence[float], boundaries: Sequence[int]):
 
 def cosine_schedule(peak: float, total_steps: int, warmup: int = 0,
                     floor: float = 0.0):
+    half_range = f32(0.5 * (peak - floor))
+
     def sched(step):
-        step = float(step)
+        step = f32(step)
         if step < warmup:
-            return peak * min(step / max(warmup, 1), 1.0)
-        prog = min(max((step - warmup) / max(total_steps - warmup, 1), 0.0),
-                   1.0)
-        return floor + 0.5 * (peak - floor) * (1 + math.cos(math.pi * prog))
+            return float(f32(peak) * min(step / f32(max(warmup, 1)), f32(1)))
+        prog = min(max((step - f32(warmup)) / f32(max(total_steps - warmup,
+                                                      1)), f32(0)), f32(1))
+        return float(f32(floor) + half_range
+                     * (f32(1) + f32(math.cos(f32(np.pi) * prog))))
 
     return sched
 
@@ -54,7 +66,7 @@ class BatchCoupledSchedule:
         if rule not in self.RULES:
             raise ValueError(f"unknown coupling rule {rule!r}; expected {self.RULES}")
         if not callable(base):
-            lr = float(base)
+            lr = float(f32(base))
             base = lambda step: lr  # noqa: E731
         self.base = base
         self.rule = rule
@@ -68,7 +80,7 @@ class BatchCoupledSchedule:
         return self.scale
 
     def __call__(self, step):
-        return self.scale * self.base(step)
+        return float(f32(self.scale) * f32(self.base(step)))
 
 
 def batch_coupled(base_sched: Union[Callable, float],

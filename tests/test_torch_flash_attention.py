@@ -5,16 +5,23 @@ On the CPU the port's wrappers take their plain PyTorch versions; the same
 numpy-seeded inputs go through both packages.  Tolerances are the
 reference's own: 2e-5 forward (test_kernels.py), atol 5e-4 / rtol 5e-3
 backward (test_kernel_ragged.py).  The kernel-vs-plain check on the card is
-marked ``cuda`` and skips without one.
+marked ``cuda`` and skips without one; it needs no JAX, so a machine with
+the card and without JAX runs this file with ``-m cuda``.
 """
 
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from repro.kernels.flash_attention import flash_attention, flash_attention_bwd
+try:
+    import jax.numpy as jnp
+    from repro.kernels.flash_attention import (flash_attention,
+                                               flash_attention_bwd)
+    from repro.kernels.flash_attention.kernel import _bwd_call, _pad_lanes
+except ImportError:  # the card's machine has no JAX: run it with -m cuda
+    jnp = None
 from repro_torch.kernels.flash_attention import (attention, flash_bwd_dkv,
+                                                 flash_bwd_dkv_heads_plain,
                                                  flash_bwd_dkv_plain,
                                                  flash_bwd_dq,
                                                  flash_bwd_dq_plain,
@@ -87,6 +94,46 @@ def test_autograd_matches_pallas_backward(case):
             assert (g[nv:] == 0).all()
 
 
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_per_head_dkv_sums_to_the_grouped_and_reference_outputs(case):
+    """The decomposition the dk/dv kernel relies on: per-query-head dk/dv
+    (``flash_bwd_dkv_heads_plain``), summed over each kv head's group, equal
+    ``flash_bwd_dkv_plain``; per head and summed, they equal the reference's
+    per-head ``_dkv_kernel`` outputs (``_bwd_call``, interpret mode).  fp32
+    in another summation order: 1e-5 of the largest value, and relative."""
+    q, k, v, do = _inputs(case, seed=4)
+    b, s, t, h, hkv, d = case[:6]
+    nv = case[9]
+    nvj = None if nv is None else jnp.int32(nv)
+    out_j, lse_j = flash_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), num_valid=nvj,
+        interpret=True, return_lse=True, **_opts(case))
+    delta = (np.asarray(out_j) * do).sum(-1).transpose(0, 2, 1)
+    _, dk_j, dv_j = _bwd_call(
+        *(_pad_lanes(jnp.asarray(x)) for x in (q, k, v, do)), lse_j,
+        jnp.asarray(delta), nvj, sm_scale=1.0 / np.sqrt(d),
+        block_q=min(128, s), block_k=min(128, t), interpret=True,
+        **_opts(case))
+    args = [torch.from_numpy(np.array(x, dtype=np.float32))
+            for x in (q, k, v, do, np.asarray(lse_j), delta)]
+    dk_h, dv_h = flash_bwd_dkv_heads_plain(*args, nv, **_opts(case))
+    dk, dv = flash_bwd_dkv_plain(*args, nv, **_opts(case))
+    assert dk_h.shape == dv_h.shape == (b, t, h, d)
+    for heads, grouped, ref in ((dk_h, dk, dk_j), (dv_h, dv, dv_j)):
+        summed = heads.reshape(b, t, hkv, h // hkv, d).sum(3)
+        scale = grouped.abs().max().item()
+        torch.testing.assert_close(summed, grouped, atol=1e-5 * scale,
+                                   rtol=1e-5)
+        ref = np.asarray(ref)[..., :d]
+        atol = 1e-5 * np.abs(ref).max()
+        np.testing.assert_allclose(heads.numpy(), ref, atol=atol, rtol=1e-5)
+        np.testing.assert_allclose(
+            summed.numpy(), ref.reshape(b, t, hkv, h // hkv, d).sum(3),
+            atol=atol, rtol=1e-5)
+        if nv is not None:
+            assert (heads[nv:] == 0).all()
+
+
 @pytest.mark.parametrize("case", [CASES[1], CASES[4]], ids=["mqa", "softcap"])
 def test_kernel_backward_matches_oracle_backward(case):
     """bwd_impl="oracle" (autograd through attention_ref) is the reference
@@ -121,8 +168,18 @@ def cuda_device():
     return torch.device("cuda")
 
 
+# on the card only: the gemma main path's shape, and ragged shapes whose S
+# and T are no multiples of the kernels' 32- and 64-row tiles
+CUDA_CASES = [
+    (2, 1024, 1024, 8, 1, 256, True, None, None, 1),
+    (2, 200, 200, 4, 2, 64, True, None, None, 1),
+    (1, 77, 150, 4, 1, 128, True, 40, 20.0, None),
+]
+CUDA_IDS = ["gemma-main", "ragged-200", "ragged-s-lt-t-window-softcap"]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", CASES, ids=IDS)
+@pytest.mark.parametrize("case", CASES + CUDA_CASES, ids=IDS + CUDA_IDS)
 def test_cuda_kernels_match_plain_versions(case, cuda_device):
     q, k, v, do = (torch.from_numpy(x).to(cuda_device)
                    for x in _inputs(case, seed=3))
@@ -143,3 +200,6 @@ def test_cuda_kernels_match_plain_versions(case, cuda_device):
         assert (a - b).abs().max() <= 1e-3 * b.abs().max()
         if nv is not None:
             assert (a[nv:] == 0).all()
+    # the GQA group-sum has a fixed order: a second launch is bit-equal
+    again = flash_bwd_dkv(q, k, v, do, lse_p, delta, nvt, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(again, got[1:]))

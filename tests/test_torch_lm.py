@@ -219,6 +219,40 @@ def test_optimizer_updates_match_reference(name):
                                    rtol=1e-5, atol=1e-6)
 
 
+@pytest.mark.parametrize("name", ["adam", "adamw"])
+def test_adam_long_run_within_2_ulp_of_reference(name):
+    """200 steps on 4096 parameters, the same Gaussian gradients on both
+    sides: the bias corrections, lr and lr * weight_decay are fp32 as in the
+    reference, so every parameter stays within 2 ulp of the reference's
+    (a float64 bias correction drifts to ~1e-6 by step 200)."""
+    kw = OPTIMIZERS[name]
+    ours, ref = getattr(optimizers, name)(1e-3, **kw), \
+        getattr(ref_optim, name)(1e-3, **kw)
+    rng = np.random.default_rng(200)
+    p0 = rng.standard_normal(4096).astype(np.float32)
+    p, rp = {"w": _t(p0.copy())}, {"w": jnp.asarray(p0)}
+    s, rs = ours.init(p), ref.init(rp)
+    for step in range(200):
+        g = rng.standard_normal(4096).astype(np.float32)
+        p, s = ours.update(p, {"w": _t(g)}, s, step)
+        rp, rs = ref.update(rp, {"w": jnp.asarray(g)}, rs, jnp.asarray(step))
+        want = np.asarray(rp["w"])
+        ulp = np.spacing(np.abs(want))
+        assert (np.abs(p["w"].numpy() - want) <= 2 * ulp).all(), step
+
+
+def test_cosine_schedule_fp32_matches_reference():
+    """1000 steps, warmup 100: the port's fp32 evaluation equals the
+    reference's, or is one ulp off."""
+    ours = schedules.cosine_schedule(1e-3, 1000, warmup=100)
+    ref = ref_sched.cosine_schedule(1e-3, 1000, warmup=100)
+    for step in range(1000):
+        got = np.float32(ours(step))
+        want = np.asarray(ref(jnp.asarray(step)), np.float32)
+        assert float(got) == ours(step)  # an fp32 value, exactly
+        assert abs(got - want) <= np.spacing(np.abs(want)), step
+
+
 def test_schedules_match_reference():
     pairs = [
         (schedules.step_schedule([0.1, 0.01, 0.001], [3, 6]),
