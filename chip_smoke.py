@@ -16,18 +16,20 @@ Phases, each of which fails the run (nonzero exit) when it goes wrong:
      the recurrentgemma local blocks' shapes on the hybrid path (B=2,
      S=T=2048, H=16, Hkv=1, D=256, window 2048, num_valid 1 and 2) and where
      the window bites (B=1, S=T=4096); padded rows must be exact zeros, and
-     a second flash_bwd_dkv launch must repeat the first bit for bit;
-     kernel and plain version against a float64 attention at the training
-     shapes; then kernel, plain and library timings (SDPA's
+     a second flash_bwd_dq and flash_bwd_dkv launch must repeat the first
+     bit for bit; kernel and plain version against a float64 attention at
+     the training shapes; then kernel, plain and library timings (SDPA's
      memory-efficient forward and backward) at the training shapes and at
      the hybrid path's (B=2, S=T=2048, H=16, Hkv=1, D=256, window 2048),
-     with the fp32 bound and, for flash_fwd and flash_bwd_dkv (tensor
-     cores, 3xTF32), the 3xTF32 bound; the SSD forward and backward
-     kernels against their plain versions at the mamba2-1.3b cell's shapes
-     (B=2, nc=32, cl=64, H=64, P=64, N=128) and at a smaller one (cl 32),
-     the differentiable SSD scan through the kernels and the plain fp32 scan
-     against a float64 scan, then kernel and plain timings (no single
-     PyTorch call computes the SSD function); the RG-LRU forward and
+     with the fp32 bound and, for the three flash kernels (tensor cores,
+     3xTF32), the 3xTF32 bound; the SSD forward and backward kernels
+     against their plain versions at the mamba2-1.3b cell's shapes (B=2,
+     nc=32, cl=64, H=64, P=64, N=128), at a smaller one (cl 32) and at a
+     ragged one (cl 40, P 20, N 12), a second ssd_bwd launch repeating the
+     first bit for bit, the differentiable SSD scan through the kernels and
+     the plain fp32 scan against a float64 scan, then kernel and plain
+     timings (no single PyTorch call computes the SSD function), with the
+     3xTF32 bound for ssd_bwd (tensor cores); the RG-LRU forward and
      backward kernels against their plain versions at the recurrentgemma-9b
      cell's shapes (B 1 and 2, L 2048, W 4096, with and without h0) and at
      W 200, the scan through the kernel pair and the plain fp32 scan against
@@ -163,9 +165,11 @@ def check_kernels(report: dict) -> dict:
         dk_p, dv_p = K.flash_bwd_dkv_plain(q, k, v, do, lse_p, delta, nvt,
                                            **kw)
         dk2, dv2 = K.flash_bwd_dkv(q, k, v, do, lse_p, delta, nvt, **kw)
+        dq2 = K.flash_bwd_dq(q, k, v, do, lse_p, delta, nvt, **kw)
         torch.cuda.synchronize()
         case = {"dkv_repeats_bit_for_bit": bool(torch.equal(dk, dk2)
-                                                and torch.equal(dv, dv2))}
+                                                and torch.equal(dv, dv2)),
+                "dq_repeats_bit_for_bit": bool(torch.equal(dq, dq2))}
         for label, x, ref in (("out", out, out_p), ("lse", lse, lse_p)):
             err = (x - ref).abs().max().item()
             ok = torch.allclose(x, ref, atol=FWD_TOL, rtol=FWD_TOL)
@@ -190,7 +194,8 @@ def check_kernels(report: dict) -> dict:
             if isinstance(val, dict))
             + (f", padded rows zero {case['padded_rows_zero']}"
                if "padded_rows_zero" in case else "")
-            + f", dk/dv repeat bit for bit {case['dkv_repeats_bit_for_bit']}")
+            + f", dk/dv repeat bit for bit {case['dkv_repeats_bit_for_bit']}"
+            + f", dq {case['dq_repeats_bit_for_bit']}")
         report["cases"][name] = case
         if bad:
             raise AssertionError(f"kernel case {name} failed on {bad}: {case}")
@@ -265,7 +270,7 @@ FLASH_TIMED = [("gemma", 2, 1024, 1024, 8, 1, 256, None),
 def time_kernels(peak_flops: float, peak_bw: float, peak_tf32: float,
                  report: dict, shape=FLASH_TIMED[0]) -> dict:
     """kernel / plain / library times at one of ``FLASH_TIMED``'s shapes
-    (causal, nv = B), with the fp32 bound and, for the two kernels on the
+    (causal, nv = B), with the fp32 bound and, as all three run on the
     tensor cores, the 3xTF32 bound (three TF32 products per fp32 one).
 
     The library is SDPA's memory-efficient attention in fp32 on (B,H,S,D)
@@ -305,7 +310,6 @@ def time_kernels(peak_flops: float, peak_bw: float, peak_tf32: float,
         "flash_bwd_dkv": (8 * d * pairs * h * b,
                           2 * q_bytes + 4 * kv_bytes + 2 * row_bytes),
     }
-    on_tensor_cores = ("flash_fwd", "flash_bwd_dkv")
     rep = h // hkv
     qt = q.transpose(1, 2).contiguous()
     kt = k.transpose(1, 2).repeat_interleave(rep, dim=1).contiguous()
@@ -360,9 +364,8 @@ def time_kernels(peak_flops: float, peak_bw: float, peak_tf32: float,
             "bound_by": "operations" if t_ops >= t_mem else "bytes",
             "flops": flops, "bytes": nbytes,
         }
-        if name in on_tensor_cores:
-            times[name]["tf32x3_bound_ms"] = max(
-                3 * flops / peak_tf32 * 1e3, t_mem)
+        times[name]["tf32x3_bound_ms"] = max(3 * flops / peak_tf32 * 1e3,
+                                             t_mem)
     return times
 
 
@@ -425,9 +428,11 @@ def time_plain_and_kernel(calls: dict, work: dict, peak_flops: float,
 
 # ------------------------------------------------------- phase 2, SSD scan
 
-# (name, B, nc, cl, H, P, N): the mamba2-1.3b cell (seq 2048 in chunks of 64)
-# and tests/test_kernels.py::SSD_CASES[1] (seq 128, chunk 32)
-SSD_CASES = [("cell", 2, 32, 64, 64, 64, 128), ("chunk32", 1, 4, 32, 2, 32, 16)]
+# (name, B, nc, cl, H, P, N): the mamba2-1.3b cell (seq 2048 in chunks of 64),
+# tests/test_kernels.py::SSD_CASES[1] (seq 128, chunk 32) and a ragged shape
+# whose cl, P and N are no multiples of ssd_bwd's mma tiles
+SSD_CASES = [("cell", 2, 32, 64, 64, 64, 128), ("chunk32", 1, 4, 32, 2, 32, 16),
+             ("ragged", 1, 3, 40, 3, 20, 12)]
 
 
 def ssd_inputs(case, dev, seed, dtype=None):
@@ -447,7 +452,8 @@ def ssd_inputs(case, dev, seed, dtype=None):
 
 
 def check_ssd_kernels(report: dict) -> dict:
-    """ssd_fwd / ssd_bwd against their plain versions on the same inputs."""
+    """ssd_fwd / ssd_bwd against their plain versions on the same inputs;
+    a second ssd_bwd launch must repeat the first bit for bit."""
     import torch
     from repro_torch.kernels.ssd_scan import kernel as K
 
@@ -461,9 +467,18 @@ def check_ssd_kernels(report: dict) -> dict:
         got.update(zip(names, K.ssd_intra_chunk_bwd(x, a, bm, cm, dy, ds)))
         want.update(zip(names, K.ssd_intra_chunk_bwd_plain(x, a, bm, cm, dy,
                                                            ds)))
-        check_case(f"ssd {case[0]} {case[1:]}", got, want, ("y", "state"),
+        label = f"ssd {case[0]} {case[1:]}"
+        check_case(label, got, want, ("y", "state"),
                    (SSD_FWD_TOL, SSD_BWD_TOL), ("ssd_fwd", "ssd_bwd"), errs,
                    report["ssd_cases"])
+        again = K.ssd_intra_chunk_bwd(x, a, bm, cm, dy, ds)
+        repeats = all(bool(torch.equal(u, got[n]))
+                      for u, n in zip(again, names))
+        report["ssd_cases"][label]["bwd_repeats_bit_for_bit"] = repeats
+        log(f"    ssd_bwd repeats bit for bit: {repeats}")
+        if not repeats:
+            raise AssertionError(f"case {label}: a second ssd_bwd launch "
+                                 "differs from the first")
     return errs
 
 
@@ -506,8 +521,10 @@ def check_ssd_fp64() -> dict:
     return res
 
 
-def time_ssd_kernels(peak_flops: float, peak_bw: float) -> dict:
-    """Kernel and plain times at the cell's shapes, with the bound.
+def time_ssd_kernels(peak_flops: float, peak_bw: float,
+                     peak_tf32: float) -> dict:
+    """Kernel and plain times at the cell's shapes, with the bound, and for
+    ssd_bwd (tensor cores) the 3xTF32 bound.
 
     Operations: the products the function needs, the score products over
     the lower triangle (cl (cl + 1) / 2 pairs) only.  Forward: C B^T and
@@ -536,7 +553,11 @@ def time_ssd_kernels(peak_flops: float, peak_bw: float) -> dict:
                     lambda: K.ssd_intra_chunk_bwd_plain(x, a, bm, cm, dy,
                                                         ds)),
     }
-    return time_plain_and_kernel(calls, work, peak_flops, peak_bw, 5)
+    times = time_plain_and_kernel(calls, work, peak_flops, peak_bw, 5)
+    flops, nbytes = work["ssd_bwd"]
+    times["ssd_bwd"]["tf32x3_bound_ms"] = max(3 * flops / peak_tf32,
+                                              nbytes / peak_bw) * 1e3
+    return times
 
 
 # ----------------------------------------------------- phase 2, RG-LRU scan
@@ -942,7 +963,7 @@ def main() -> int:
         f"{SSD_FWD_TOL} / {SSD_BWD_TOL} x max|ref|): " + ", ".join(
             f"{n} {r['kernel']:.3g} / {r['plain']:.3g} (max {r['ref_max']:.3g})"
             for n, r in report["ssd_fp64"].items()))
-    times.update(time_ssd_kernels(peak_flops, peak_bw))
+    times.update(time_ssd_kernels(peak_flops, peak_bw, peak_tf32))
     log(f"  RG-LRU kernels vs plain versions (fwd allclose {RGLRU_FWD_TOL}; "
         f"bwd max err <= {RGLRU_BWD_TOL} x max|ref|)")
     errs.update(check_rglru_kernels(report))

@@ -2,8 +2,9 @@
 
 Each ``.cu`` file under a kernel's ``csrc/`` has a plain C interface; it is
 compiled by ``nvcc`` for ``sm_90a`` into ``build/kernels/`` at the root of
-the checkout (named by a hash of the source and flags, so an edited source
-is rebuilt) at its first use, and loaded with ``ctypes``.  Nothing here runs
+the checkout (named by a hash of the source, the local headers it
+includes and the flags, so an edited source or header is rebuilt) at its
+first use, and loaded with ``ctypes``.  Nothing here runs
 when a module is imported: the CPU tests import every module without nvcc.
 """
 
@@ -12,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -37,10 +39,28 @@ def nvcc() -> str:
                        "toolkit (set CUDA_HOME or put nvcc on PATH)")
 
 
+def local_headers(source: Path) -> list[Path]:
+    """The files ``source`` includes with ``#include "..."``, and theirs,
+    resolved against the including file's directory as nvcc does."""
+    found: list[Path] = []
+    todo = [Path(source)]
+    while todo:
+        path = todo.pop()
+        for inc in re.findall(r'^#include "([^"]+)"', path.read_text(),
+                              flags=re.M):
+            header = (path.parent / inc).resolve()
+            if header not in found:
+                found.append(header)
+                todo.append(header)
+    return found
+
+
 def build(source: Path, name: str) -> Path:
     """Compile ``source`` (if its hashed library is missing); returns the path."""
     source = Path(source)
-    digest = hashlib.sha256(source.read_bytes()
+    content = b"".join(p.read_bytes()
+                       for p in [source, *local_headers(source)])
+    digest = hashlib.sha256(content
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     lib = BUILD_DIR / f"{name}-{digest}.so"
     if lib.exists():

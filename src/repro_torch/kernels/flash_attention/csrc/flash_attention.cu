@@ -18,12 +18,12 @@
 //   device memory, so the caller never syncs with the host for it.
 //
 // What bounds it on an H100: at the training shapes (S = T = 1024, D = 256,
-// causal) each q tile meets up to 16 kv tiles, ~64 flops per byte moved from
-// device memory, so the bound is arithmetic: 67 TFLOP/s of fp32 on the CUDA
-// cores (flash_bwd_dq), or three TF32 products per fp32 one at 495 TFLOP/s
-// on the tensor cores (flash_fwd, flash_bwd_dkv).  At D = 256 a block holds
-// ~200 KB of shared memory, above the 48 KB default, so every launch first
-// raises the kernel's dynamic shared-memory limit.
+// causal) each q tile meets up to 32 kv tiles, ~64 flops per byte moved from
+// device memory, so the bound is arithmetic: three TF32 products per fp32
+// one at 495 TFLOP/s on the tensor cores (67 TFLOP/s of fp32 on the CUDA
+// cores is the fp32 bound).  At D = 256 a block holds ~200 KB of shared
+// memory, above the 48 KB default, so every launch first raises the
+// kernel's dynamic shared-memory limit.
 //
 // The TPU kernel walks a sequential grid axis over kv blocks and carries
 // (m, l, acc) in VMEM scratch between grid steps.  Blocks on a GPU run in no
@@ -34,7 +34,8 @@
 // padding of the TPU version is not carried over: D is a template parameter
 // over {32, 64, 128, 256}.
 //
-// flash_fwd and flash_bwd_dkv run their products on the tensor cores:
+// All three kernels run their products on the tensor cores, with the
+// helpers of ../../csrc/mma_tf32.cuh:
 //   * mma.sync m16n8k8 in TF32 with the 3xTF32 split (x = hi + lo, both
 //     TF32; a b ~ a_lo b_hi + a_hi b_lo + a_hi b_hi, accumulated in fp32),
 //     which keeps the products near fp32 accuracy where plain TF32 keeps
@@ -48,8 +49,9 @@
 //     taken from an [n][k] tile) come by ldmatrix, the others by 32-bit
 //     loads; the products over D keep four accumulator chains a tile (even
 //     and odd k steps, big and small terms) so the mma latency overlaps;
-//   * the next K/V tile (forward) or q/dO tile (dk/dv) is copied with
-//     cp.async into a second stage while the current one computes;
+//   * the next K/V tile (forward, dq) or q/dO tile (dk/dv) is copied with
+//     cp.async into a second stage while the current one computes; ragged
+//     edges are zero-filled by cp.async's source-size operand;
 //   * accumulator fragments are not A fragments ((g, 2t) against (g, t)), so
 //     P and dS go to the next product through a small shared tile.
 // flash_fwd: one block per (q tile of 64, head, batch row), longest causal
@@ -61,19 +63,28 @@
 // first; it writes per-query-head dk/dv partials (B,T,H,D) when H > Hkv, and
 // dkv_sum_kernel adds each kv head's group in a fixed order (no atomics, so
 // a run repeats bit for bit).
-// flash_bwd_dq runs on the CUDA cores from shared memory: a 16 x 16 thread
-// grid, one block per (q tile, head, batch row), tiles with a row stride of
-// D + 1 floats so that the column walks of its products hit distinct banks.
+// flash_bwd_dq: one block per (q tile of 32, query head, batch row), longest
+// causal rows first, Q, dO, lse and delta resident, two stages of K and V:
+// 200,960 B at D 256.  A 64-row q tile would need 128 KB for Q and dO alone,
+// and two stages of K and V beside it do not fit in 227 KB; 32 rows also
+// give 512 blocks at the gemma shapes (2048 at the hybrid ones) where 64
+// gave 256.  Warp w computes S and dP on query rows 16 (w % 2), key columns
+// 8 (w / 2) of each kv tile, writes dS to a 32 x 32 shared tile, then adds
+// dS K into query rows 16 (w % 2), head-dim columns (D / 4)(w / 2).  Each
+// block owns its dq rows, so a run repeats bit for bit.  ptxas (CUDA 12.8):
+// dq_kernel<256> 143 registers, no spills.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
 #include <stdint.h>
 
+#include "../../csrc/mma_tf32.cuh"
+
 namespace {
 
 constexpr float NEG_INF = -1e30f;
-constexpr int NT = 256;  // threads per block (16 x 16, or 8 warps)
+constexpr int NT = 256;  // threads per block (8 warps)
 
 struct Geom {
   int B, S, T, H, Hkv;
@@ -107,20 +118,6 @@ __device__ __forceinline__ float soft(float s, float cap) {
   return cap > 0.f ? cap * tanhf(s / cap) : s;
 }
 
-// rows [row0, row0 + nrows) of head `head` of a (B, L, NH, D) tensor into a
-// shared tile with row stride `stride`; rows past L are zero-filled
-template <int D>
-__device__ __forceinline__ void load_tile(float* dst, int stride,
-                                          const float* __restrict__ src,
-                                          int b, int row0, int nrows, int L,
-                                          int NH, int head) {
-  for (int i = threadIdx.x; i < nrows * D; i += NT) {
-    const int r = i / D, c = i % D, row = row0 + r;
-    dst[r * stride + c] =
-        row < L ? src[((size_t)(b * L + row) * NH + head) * D + c] : 0.f;
-  }
-}
-
 template <int D>
 __device__ __forceinline__ void zero_rows(float* __restrict__ dst, int b,
                                           int row0, int nrows, int L, int NH,
@@ -131,138 +128,6 @@ __device__ __forceinline__ void zero_rows(float* __restrict__ dst, int b,
   }
 }
 
-
-// ------------------------------------------------------ tensor-core helpers
-//
-// mma.sync m16n8k8 TF32 fragments (PTX ISA), lane = 4 g + t:
-//   A (16 x 8, [m][k]): a0 (g, t)   a1 (g+8, t)    a2 (g, t+4)   a3 (g+8, t+4)
-//   B (8 x 8,  [k][n]): b0 (t, g)   b1 (t+4, g)
-//   C (16 x 8, [m][n]): c0 (g, 2t)  c1 (g, 2t+1)   c2 (g+8, 2t)  c3 (g+8, 2t+1)
-
-__device__ __forceinline__ int lane_g() { return (threadIdx.x & 31) >> 2; }
-__device__ __forceinline__ int lane_t() { return threadIdx.x & 3; }
-
-// element (r, c) of a row-major tile with W columns (W a multiple of 32)
-template <int W>
-__device__ __forceinline__ int swz(int r, int c) {
-  return r * W + (c ^ (((r & 3) << 3) | (r & 4)));
-}
-
-// x = hi + lo to ~22 bits, both TF32: hi is x rounded to TF32 (half away
-// from zero, as cvt.rna), lo = x - hi exactly; the tensor cores read the top
-// 19 bits of a .tf32 operand, so lo's low 13 bits are cut there.  An integer
-// add, a mask and a subtraction: cvt.rna.tf32 runs at the conversion units'
-// rate and bounded both kernels when they split with it.
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-  lo = __float_as_uint(x - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// 3xTF32: small += a_lo b_hi + a_hi b_lo, big += a_hi b_hi (two chains
-// where one accumulator would serialise three dependent mma; the caller adds
-// them, or passes the same accumulator twice)
-__device__ __forceinline__ void mma3(float (&big)[4], float (&small)[4],
-                                     const uint32_t (&ah)[4],
-                                     const uint32_t (&al)[4],
-                                     const uint32_t (&bh)[2],
-                                     const uint32_t (&bl)[2]) {
-  mma_tf32(small, al, bh);
-  mma_tf32(small, ah, bl);
-  mma_tf32(big, ah, bh);
-}
-
-// ldmatrix of 8 x 8 b16 matrices = 8 x 4 fp32: lane l receives row l / 4,
-// column l % 4 of each; lanes 8 i .. 8 i + 7 give the row addresses of
-// matrix i (16-byte rows, which the swizzle keeps whole)
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const float* p) {
-  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-
-__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const float* p) {
-  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(a));
-}
-
-// A fragment: rows m0.., columns k0.. of a swizzled [m][k] tile
-template <int W>
-__device__ __forceinline__ void load_a(const float* s, int m0, int k0,
-                                       uint32_t (&hi)[4], uint32_t (&lo)[4]) {
-  const int l = threadIdx.x & 31, mat = l >> 3;
-  uint32_t r[4];
-  ldsm_x4(r, s + swz<W>(m0 + (l & 7) + 8 * (mat & 1), k0 + 4 * (mat >> 1)));
-#pragma unroll
-  for (int i = 0; i < 4; ++i) split(__uint_as_float(r[i]), hi[i], lo[i]);
-}
-
-// B fragment from a swizzled [n][k] tile (B is the tile transposed)
-template <int W>
-__device__ __forceinline__ void load_bt(const float* s, int n0, int k0,
-                                        uint32_t (&hi)[2], uint32_t (&lo)[2]) {
-  const int l = threadIdx.x & 31;
-  uint32_t r[2];
-  ldsm_x2(r, s + swz<W>(n0 + (l & 7), k0 + 4 * ((l >> 3) & 1)));
-#pragma unroll
-  for (int i = 0; i < 2; ++i) split(__uint_as_float(r[i]), hi[i], lo[i]);
-}
-
-// the B fragments of n tiles n0 and n0 + 8 from a swizzled [n][k] tile
-template <int W>
-__device__ __forceinline__ void load_bt2(const float* s, int n0, int k0,
-                                         uint32_t (&hi)[2][2],
-                                         uint32_t (&lo)[2][2]) {
-  const int l = threadIdx.x & 31, mat = l >> 3;
-  uint32_t r[4];
-  ldsm_x4(r, s + swz<W>(n0 + (l & 7) + 8 * (mat >> 1), k0 + 4 * (mat & 1)));
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    split(__uint_as_float(r[i]), hi[i >> 1][i & 1], lo[i >> 1][i & 1]);
-}
-
-// B fragment from a swizzled [k][n] tile
-template <int W>
-__device__ __forceinline__ void load_b(const float* s, int k0, int n0,
-                                       uint32_t (&hi)[2], uint32_t (&lo)[2]) {
-  const int g = lane_g(), t = lane_t();
-  split(s[swz<W>(k0 + t, n0 + g)], hi[0], lo[0]);
-  split(s[swz<W>(k0 + t + 4, n0 + g)], hi[1], lo[1]);
-}
-
-// cp.async: `bytes` of 16 (or 4) from global, the rest of the chunk zeroed
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           int bytes) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(s),
-               "l"(src), "r"(bytes));
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          int bytes) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(s),
-               "l"(src), "r"(bytes));
-}
-
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;" ::);
-}
-
-__device__ __forceinline__ void cp_wait_all() {
-  asm volatile("cp.async.wait_group 0;" ::: "memory");
-}
 
 // rows [row0, row0 + R) of head `head` of a (B, L, NH, D) tensor into a
 // swizzled R x D tile, 16 bytes a thread; rows past L are zero-filled
@@ -312,16 +177,6 @@ __device__ __forceinline__ int2 visible_range(int n, int len, int other0,
     }
   }
   return make_int2(lo, hi);
-}
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
 // ------------------------------------------------------------------ forward
@@ -514,98 +369,36 @@ __global__ void __launch_bounds__(NT, 1)
 //   dp = dO v^T                           ds = p (dp - delta) [* (1 - (s_soft/cap)^2)]
 //   dq += ds k * sm_scale   dk += ds^T q * sm_scale   dv += p^T dO
 
-// scores and dO v^T of one tile: thread rows ty + 16 i, columns tx + 16 j;
-// writes p and ds for those entries into shared P / dS tiles
-template <int D, int RQ, int CK, int PP>
-__device__ __forceinline__ void bwd_tile(const float* Qs, const float* dOs,
-                                         const float* Ks, const float* Vs,
-                                         const float* lse_r,
-                                         const float* delta_r, int row0,
-                                         int k_first, const Geom& g,
-                                         float* Ps, float* dSs) {
-  constexpr int DP = D + 1;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  float sc[RQ][CK], dp[RQ][CK];
-#pragma unroll
-  for (int i = 0; i < RQ; ++i)
-#pragma unroll
-    for (int j = 0; j < CK; ++j) sc[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < D; ++d) {
-    float a[RQ], ao[RQ], bk[CK], bv[CK];
-#pragma unroll
-    for (int i = 0; i < RQ; ++i) {
-      a[i] = Qs[(ty + 16 * i) * DP + d];
-      ao[i] = dOs[(ty + 16 * i) * DP + d];
-    }
-#pragma unroll
-    for (int j = 0; j < CK; ++j) {
-      bk[j] = Ks[(tx + 16 * j) * DP + d];
-      bv[j] = Vs[(tx + 16 * j) * DP + d];
-    }
-#pragma unroll
-    for (int i = 0; i < RQ; ++i)
-#pragma unroll
-      for (int j = 0; j < CK; ++j) {
-        sc[i][j] = fmaf(a[i], bk[j], sc[i][j]);
-        dp[i][j] = fmaf(ao[i], bv[j], dp[i][j]);
-      }
-  }
-  const int shift = g.T - g.S;
-#pragma unroll
-  for (int i = 0; i < RQ; ++i) {
-    const int r = ty + 16 * i;
-    const int qpos = row0 + r + shift;
-#pragma unroll
-    for (int j = 0; j < CK; ++j) {
-      const int c = tx + 16 * j;
-      const float s_soft = soft(sc[i][j] * g.sm_scale, g.softcap);
-      float p = 0.f, ds = 0.f;
-      if (pair_visible(qpos, k_first + c, g) && row0 + r < g.S) {
-        p = expf(s_soft - lse_r[r]);
-        ds = p * (dp[i][j] - delta_r[r]);
-        if (g.softcap > 0.f) {
-          const float t = s_soft / g.softcap;
-          ds *= 1.f - t * t;
-        }
-      }
-      if (Ps) Ps[r * PP + c] = p;
-      dSs[r * PP + c] = ds;
-    }
-  }
-}
-
 template <int D>
 struct DqCfg {
-  static constexpr int BQ = 64, BK = 32, DP = D + 1, PP = BK + 1;
+  static constexpr int BQ = 32, BK = 32;
+  // Q and dO; two stages of K and V; dS; lse and delta
   static constexpr size_t smem =
-      (size_t)(2 * BQ * DP + 2 * BK * DP + BQ * PP + 2 * BQ) * sizeof(float);
+      (size_t)(2 * BQ * D + 4 * BK * D + BQ * BK + 2 * BQ) * sizeof(float);
 };
 
-// one block per (b, q head, q tile), looping over kv tiles
+// one block per (q tile of 32, query head, batch row), longest causal rows
+// first, looping over the visible kv tiles
 template <int D>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(NT, 1)
     dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, const float* __restrict__ dout,
               const float* __restrict__ lse, const float* __restrict__ delta,
               const int* __restrict__ nv_ptr, float* __restrict__ dq, Geom g) {
   using C = DqCfg<D>;
-  constexpr int BQ = C::BQ, BK = C::BK, DP = C::DP, PP = C::PP;
-  constexpr int RQ = BQ / 16, CK = BK / 16, DK = D / 16;
-  extern __shared__ float smem[];
-  float* Qs = smem;             // BQ x DP
-  float* dOs = Qs + BQ * DP;    // BQ x DP
-  float* Ks = dOs + BQ * DP;    // BK x DP
-  float* Vs = Ks + BK * DP;     // BK x DP
-  float* dSs = Vs + BK * DP;    // BQ x PP
-  float* lse_r = dSs + BQ * PP; // BQ
-  float* delta_r = lse_r + BQ;  // BQ
+  constexpr int BQ = C::BQ, BK = C::BK, NT2 = D / 32;  // dq n-tiles a warp
+  extern __shared__ __align__(16) float tc_smem[];
+  float* Qs = tc_smem;            // BQ x D
+  float* dOs = Qs + BQ * D;       // BQ x D
+  float* Ks = dOs + BQ * D;       // 2 x BK x D
+  float* Vs = Ks + 2 * BK * D;    // 2 x BK x D
+  float* dSs = Vs + 2 * BK * D;   // BQ x BK
+  float* rows = dSs + BQ * BK;    // lse BQ, delta BQ
 
-  const int nq = gridDim.x;
-  const int iq = nq - 1 - blockIdx.x;
-  const int h = blockIdx.y, b = blockIdx.z;
+  const int per = g.H * g.B, nq = (g.S + BQ - 1) / BQ;
+  const int iq = nq - 1 - (int)(blockIdx.x / per);  // longest rows first
+  const int h = (int)(blockIdx.x % per) % g.H, b = (int)(blockIdx.x % per) / g.H;
   const int kvh = h / (g.H / g.Hkv);
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const int row0 = iq * BQ;
 
   if (b >= num_valid_rows(nv_ptr, g.B)) {
@@ -613,55 +406,112 @@ __global__ void __launch_bounds__(NT)
     return;
   }
 
-  load_tile<D>(Qs, DP, q, b, row0, BQ, g.S, g.H, h);
-  load_tile<D>(dOs, DP, dout, b, row0, BQ, g.S, g.H, h);
-  for (int r = threadIdx.x; r < BQ; r += NT) {
-    const bool in = row0 + r < g.S;
-    const size_t at = ((size_t)b * g.H + h) * g.S + row0 + r;
-    lse_r[r] = in ? lse[at] : 0.f;
-    delta_r[r] = in ? delta[at] : 0.f;
-  }
-
-  float acc[RQ][DK];
-#pragma unroll
-  for (int i = 0; i < RQ; ++i)
-#pragma unroll
-    for (int kk = 0; kk < DK; ++kk) acc[i][kk] = 0.f;
-
+  const int warp = threadIdx.x >> 5, gq = lane_g(), tq = lane_t();
+  const int m1 = (warp & 1) * 16;        // query rows of both phases
+  const int n1 = (warp >> 1) * 8;        // key columns of S and dP
+  const int c2 = (warp >> 1) * (D / 4);  // head-dim columns of dq
   const int shift = g.T - g.S;
-  const int q_first = row0 + shift, q_last = q_first + BQ - 1;
-  const int nk = (g.T + BK - 1) / BK;
-  for (int ik = 0; ik < nk; ++ik) {
+  const size_t at = ((size_t)b * g.H + h) * g.S;
+  const int2 range =
+      visible_range<true>((g.T + BK - 1) / BK, BK, row0, BQ, g);
+
+  copy_tile<D, BQ>(Qs, q, b, row0, g.S, g.H, h);
+  copy_tile<D, BQ>(dOs, dout, b, row0, g.S, g.H, h);
+  copy_rows<BQ>(rows, lse, at, row0, g.S);
+  copy_rows<BQ>(rows + BQ, delta, at, row0, g.S);
+  if (range.x <= range.y) {
+    copy_tile<D, BK>(Ks, k, b, range.x * BK, g.T, g.Hkv, kvh);
+    copy_tile<D, BK>(Vs, v, b, range.x * BK, g.T, g.Hkv, kvh);
+  }
+  cp_commit();
+
+  float dq_acc[NT2][4];
+#pragma unroll
+  for (int j = 0; j < NT2; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq_acc[j][e] = 0.f;
+
+  for (int ik = range.x; ik <= range.y; ++ik) {
+    const int stage = (ik - range.x) & 1;
+    cp_wait_all();
+    __syncthreads();  // this tile landed; the other stage's readers are done
+    if (ik < range.y) {
+      copy_tile<D, BK>(Ks + (stage ^ 1) * BK * D, k, b, (ik + 1) * BK, g.T,
+                       g.Hkv, kvh);
+      copy_tile<D, BK>(Vs + (stage ^ 1) * BK * D, v, b, (ik + 1) * BK, g.T,
+                       g.Hkv, kvh);
+    }
+    cp_commit();
+    const float* Kt = Ks + stage * BK * D;
+    const float* Vt = Vs + stage * BK * D;
     const int k_first = ik * BK;
-    if (!tile_visible(q_first, q_last, k_first, k_first + BK - 1, g)) continue;
-    __syncthreads();
-    load_tile<D>(Ks, DP, k, b, k_first, BK, g.T, g.Hkv, kvh);
-    load_tile<D>(Vs, DP, v, b, k_first, BK, g.T, g.Hkv, kvh);
-    __syncthreads();
-    bwd_tile<D, RQ, CK, PP>(Qs, dOs, Ks, Vs, lse_r, delta_r, row0, k_first, g,
-                            nullptr, dSs);
-    __syncthreads();
+
+    // S = Q K^T and dP = dO V^T on query rows m1.., key columns n1..; four
+    // chains a product (even / odd k step, big / small terms)
+    float acc[2][2][2][4];  // [product][parity][big, small]
+#pragma unroll
+    for (int i = 0; i < 32; ++i) (&acc[0][0][0][0])[i] = 0.f;
 #pragma unroll 2
-    for (int c = 0; c < BK; ++c) {
-      float kv[DK];
+    for (int k0 = 0; k0 < D; k0 += 16) {
 #pragma unroll
-      for (int kk = 0; kk < DK; ++kk) kv[kk] = Ks[c * DP + tx + 16 * kk];
+      for (int par = 0; par < 2; ++par) {
+        uint32_t ah[4], al[4], bh[2], bl[2];
+        load_a<D>(Qs, m1, k0 + 8 * par, ah, al);
+        load_bt<D>(Kt, n1, k0 + 8 * par, bh, bl);
+        mma3(acc[0][par][0], acc[0][par][1], ah, al, bh, bl);
+        load_a<D>(dOs, m1, k0 + 8 * par, ah, al);
+        load_bt<D>(Vt, n1, k0 + 8 * par, bh, bl);
+        mma3(acc[1][par][0], acc[1][par][1], ah, al, bh, bl);
+      }
+    }
+    // p = exp(s_soft - lse), ds = p (dp - delta) [* (1 - (s_soft/cap)^2)]
 #pragma unroll
-      for (int i = 0; i < RQ; ++i) {
-        const float ds = dSs[(ty + 16 * i) * PP + c];
+    for (int e = 0; e < 4; ++e) {
+      const int r = m1 + gq + 8 * (e >> 1), c = n1 + 2 * tq + (e & 1);
+      const float sc = (acc[0][0][0][e] + acc[0][1][0][e]) +
+                       (acc[0][0][1][e] + acc[0][1][1][e]);
+      const float dp = (acc[1][0][0][e] + acc[1][1][0][e]) +
+                       (acc[1][0][1][e] + acc[1][1][1][e]);
+      const float s_soft = soft(sc * g.sm_scale, g.softcap);
+      float ds = 0.f;
+      if (row0 + r < g.S && pair_visible(row0 + r + shift, k_first + c, g)) {
+        ds = expf(s_soft - rows[r]) * (dp - rows[BQ + r]);
+        if (g.softcap > 0.f) {
+          const float t = s_soft / g.softcap;
+          ds *= 1.f - t * t;
+        }
+      }
+      dSs[swz<BK>(r, c)] = ds;
+    }
+    __syncthreads();
+
+    // dQ += dS K on query rows m1.., head-dim columns c2..
 #pragma unroll
-        for (int kk = 0; kk < DK; ++kk) acc[i][kk] = fmaf(ds, kv[kk], acc[i][kk]);
+    for (int k0 = 0; k0 < BK; k0 += 8) {
+      uint32_t sh[4], sl[4];
+      load_a<BK>(dSs, m1, k0, sh, sl);
+#pragma unroll
+      for (int j = 0; j < NT2; ++j) {
+        uint32_t bh[2], bl[2];
+        load_b<D>(Kt, k0, c2 + 8 * j, bh, bl);
+        mma3(dq_acc[j], dq_acc[j], sh, sl, bh, bl);
       }
     }
   }
+  cp_wait_all();
 
 #pragma unroll
-  for (int i = 0; i < RQ; ++i) {
-    const int s = row0 + ty + 16 * i;
+  for (int hh = 0; hh < 2; ++hh) {
+    const int s = row0 + m1 + gq + 8 * hh;
     if (s >= g.S) continue;
     float* o = dq + ((size_t)(b * g.S + s) * g.H + h) * D;
 #pragma unroll
-    for (int kk = 0; kk < DK; ++kk) o[tx + 16 * kk] = acc[i][kk] * g.sm_scale;
+    for (int j = 0; j < NT2; ++j) {
+      const int c = c2 + 8 * j + 2 * tq;
+      *reinterpret_cast<float2*>(o + c) =
+          make_float2(dq_acc[j][2 * hh] * g.sm_scale,
+                      dq_acc[j][2 * hh + 1] * g.sm_scale);
+    }
   }
 }
 
@@ -877,8 +727,9 @@ int launch_dq(const float* q, const float* k, const float* v, const float* o,
               Geom g, cudaStream_t st) {
   using C = DqCfg<D>;
   if (int e = set_smem(dq_kernel<D>, C::smem)) return e;
-  dim3 grid((g.S + C::BQ - 1) / C::BQ, g.H, g.B);
-  dq_kernel<D><<<grid, NT, C::smem, st>>>(q, k, v, o, lse, delta, nv, dq, g);
+  const int nq = (g.S + C::BQ - 1) / C::BQ;
+  dq_kernel<D><<<nq * g.H * g.B, NT, C::smem, st>>>(q, k, v, o, lse, delta, nv,
+                                                    dq, g);
   return (int)cudaGetLastError();
 }
 

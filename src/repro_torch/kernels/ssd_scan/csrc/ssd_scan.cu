@@ -24,36 +24,62 @@
 // (B,nc,cl,H,N), y (B,nc,cl,H,P), states and dS (B,nc,H,P,N), contiguous
 // fp32.  One head's rows are strided by H*P (or H*N); each block loads its
 // head's rows with those strides (each row is P or N contiguous floats), so
-// the wrapper makes no permuted copy.
+// the wrapper makes no permuted copy.  Sizes: cl <= 64, P <= 64, N <= 128,
+// any value >= 1 (the wrapper raises outside them).
 //
-// What bounds it on an H100: at the mamba2-1.3b shapes (cl 64, P 64, N 128)
-// a block does ~2.6 MFLOP (forward) or ~6 MFLOP (backward) on ~130 KB (~210
-// KB) of device memory, ~20-30 flops per byte, so the bound is near the
-// ridge of fp32 on the CUDA cores (67 TFLOP/s against 3.35 TB/s).  This first
-// version runs the small products on the CUDA cores from shared memory, with
-// a 4 x 4 (or 4 x 8) register tile per thread; tensor cores (TF32 mma /
-// wgmma) are the later step.
+// What bounds them on an H100: at the mamba2-1.3b shapes (cl 64, P 64,
+// N 128) a (b, c, h) item does ~2.6 MFLOP (forward) or ~4.2 MFLOP on the
+// lower triangles (backward) on ~130 KB (~210 KB) of device memory, ~20
+// flops per byte: below the tensor cores' ridge, so the bound is the bytes
+// (3.35 TB/s) once the products leave the CUDA cores.
 //
-// Design.  The TPU kernel gives one grid step to each (b, c, h) and keeps
-// the (cl x cl) decay matrix in VMEM.  Here one block of 256 threads owns one
-// (b, c, h): every operand of the chunk sits in shared memory (rows padded
-// by one float so that the column walks hit distinct banks), the prefix sum
-// of a is one thread's sequential loop (cl <= 64), and each small matrix
-// product runs on a 16 x 16 thread grid in which thread (tx, ty) owns rows
-// ty + 16 i and columns tx + 16 j of the output.  A row's 16 owners are 16
-// lanes of one warp, so row reductions (q_j) are warp shuffles.  At the
-// largest shapes a block holds 100 KB (forward) or 167 KB (backward) of
-// shared memory, above the 48 KB default, so every launch first raises the
-// kernel's dynamic shared-memory limit.  Sizes are runtime values bounded by
-// cl <= 64, P <= 64, N <= 128 (the wrapper raises outside them).
+// ssd_fwd, on the CUDA cores: one block of 256 threads per (b, c, h), every
+// operand in shared memory with rows padded by one float, the prefix sum of
+// a on one thread, each small product on a 16 x 16 thread grid from shared
+// memory (thread (tx, ty) owns rows ty + 16 i, columns tx + 16 j).
+//
+// ssd_bwd: tensor cores, asynchronous copies, no serial section.
+//   * Tiles are compile-time: 64 rows (cl or P), 64 (P or cl) or 128 (N)
+//     columns, unpadded and swizzled as in ../../csrc/mma_tf32.cuh; smaller
+//     or ragged shapes zero-fill the rest of each tile (cp.async's
+//     source-size operand), and zeros change none of the sums.  Rows come
+//     by 16-byte cp.async when P (N) is a multiple of 4 and the tensors are
+//     16-byte aligned, else by 4-byte copies.
+//   * All seven products on mma.sync m16n8k8 TF32 with the 3xTF32 split,
+//     fp32 accumulate.  Wherever Sc, dSc or dG enters a product, only the 20
+//     16 x 8 tiles that touch the lower triangle are computed or read: G and
+//     dSc on those tiles (warp w takes tiles w, w + 8, w + 16), Sc^T dY, dG B
+//     and dG^T C over k ranges that stop at the diagonal.  The last three
+//     pair row tiles {0, 3} and {1, 2}, so each warp does the same work.
+//   * Prefix sums are warp scans (__shfl_up/down_sync): a_cum, and the
+//     reverse cumsum that gives dA with the w q tail.  The row and column
+//     sums of dSc o Sc are reduced inside each warp's tile, written as
+//     per-tile partials and added in a fixed order by 64 threads; q's
+//     partials likewise.  No atomics, so a run repeats bit for bit.
+//   * Occupancy: the B, C, X, dY and dS tiles alone are 128 KB, so two
+//     blocks of an SM cannot both hold an item.  The kernel is persistent
+//     instead: one block of 8 warps an SM walks items blockIdx.x,
+//     blockIdx.x + gridDim.x, ...; B and C have two stages, and the next
+//     item's B and C are copied while the current item computes.  X, dY and
+//     a, then dS, are copied as soon as the current item is done with them,
+//     in two commit groups, so the next item computes G = C B^T while they
+//     are in flight and dSc while dS is.  Shared memory: two stages of B and
+//     C (128 KB), X, dY, dS (64 KB), Sc, dG (32 KB) and 2,688 B of row data
+//     and partials: 232,064 of the 232,448 bytes a block may hold.  ptxas
+//     (CUDA 12.8): 207 registers, no spills.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
+#include <stdint.h>
+
+#include <initializer_list>
+
+#include "../../csrc/mma_tf32.cuh"
 
 namespace {
 
-constexpr int NT = 256;  // threads per block (16 x 16)
+constexpr int NT = 256;  // threads per block (16 x 16, or 8 warps)
 constexpr int MAX_CL = 64, MAX_P = 64, MAX_N = 128;
 
 struct Geom {
@@ -131,13 +157,6 @@ size_t fwd_smem(const Geom& g) {
          sizeof(float);
 }
 
-size_t bwd_smem(const Geom& g) {
-  const int cl = g.cl, P = g.P, N = g.N;
-  return (size_t)(2 * cl * (P + 1) + 2 * cl * (N + 1) + P * (N + 1) +
-                  2 * cl * (cl + 1) + 4 * cl) *
-         sizeof(float);
-}
-
 // ------------------------------------------------------------------ forward
 
 __global__ void __launch_bounds__(NT)
@@ -210,156 +229,453 @@ __global__ void __launch_bounds__(NT)
 
 // ----------------------------------------------------------------- backward
 
-__global__ void __launch_bounds__(NT)
-    ssd_bwd_kernel(const float* __restrict__ x, const float* __restrict__ a,
-                   const float* __restrict__ bm, const float* __restrict__ cm,
-                   const float* __restrict__ dy, const float* __restrict__ ds,
-                   float* __restrict__ dx, float* __restrict__ da,
-                   float* __restrict__ db, float* __restrict__ dc, Geom g) {
-  const int h = blockIdx.x, c = blockIdx.y, b = blockIdx.z;
-  const int cl = g.cl, P = g.P, N = g.N;
-  const int XP = P + 1, NP = N + 1, CP = cl + 1;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  extern __shared__ float smem[];
-  float* Xs = smem;               // cl x XP
-  float* dYs = Xs + cl * XP;      // cl x XP
-  float* Bs = dYs + cl * XP;      // cl x NP
-  float* Cs = Bs + cl * NP;       // cl x NP
-  float* dSs = Cs + cl * NP;      // P x NP
-  float* Ss = dSs + P * NP;       // cl x CP: Sc
-  float* Ts = Ss + cl * CP;       // cl x CP: dSc, then dG
-  float* acum = Ts + cl * CP;     // cl
-  float* w = acum + cl;           // cl
-  float* dacum = w + cl;          // cl
-  float* q = dacum + cl;          // cl
+constexpr int CL = MAX_CL, PM = MAX_P, NM = MAX_N;  // the tiles' sizes
+constexpr int NTRI = 20;  // 16 x 8 tiles of a CL x CL tile on or below the diagonal
+// part: the row (NTRI x 16) and column (NTRI x 8) partials of dSc o Sc,
+// later q's partials (4 x CL)
+constexpr int PART = NTRI * 24;
+constexpr size_t BWD_SMEM =
+    (size_t)(4 * CL * NM + 2 * CL * PM + PM * NM + 2 * CL * CL + 3 * CL +
+             PART) *
+    sizeof(float);
+static_assert(BWD_SMEM <= 232448, "ssd_bwd: above a block's shared memory");
+static_assert(4 * CL <= PART, "q's partials overlay the dSc o Sc partials");
 
-  load_rows(Xs, x, g, b, c, h, P);
-  load_rows(dYs, dy, g, b, c, h, P);
-  load_rows(Bs, bm, g, b, c, h, N);
-  load_rows(Cs, cm, g, b, c, h, N);
-  {
-    const float* src = ds + ((((size_t)b * g.nc + c) * g.H + h) * P) * (size_t)N;
-    for (int idx = threadIdx.x; idx < P * N; idx += NT)
-      dSs[(idx / N) * NP + idx % N] = src[idx];
+// row tile (16 rows) and column tile (8 columns) of lower-triangle tile tl:
+// row tile m holds tiles m (m + 1) .. m (m + 1) + 2 m + 1
+__device__ __forceinline__ void tri_tile(int tl, int& i0, int& j0) {
+  const int m = tl < 2 ? 0 : tl < 6 ? 1 : tl < 12 ? 2 : 3;
+  i0 = 16 * m;
+  j0 = 8 * (tl - m * (m + 1));
+}
+
+__device__ __forceinline__ void item_coords(long long it, const Geom& g,
+                                            int& b, int& c, int& h) {
+  h = (int)(it % g.H);
+  const long long bc = it / g.H;
+  c = (int)(bc % g.nc);
+  b = (int)(bc / g.nc);
+}
+
+// rows [0, nrows) x columns [0, ncols) of a matrix whose row r starts at
+// src + base + r * stride, into a swizzled 64 x W tile; the rest of the tile
+// is zero-filled.  vec: ncols % 4 == 0 and src 16-byte aligned.
+template <int W>
+__device__ __forceinline__ void copy_tile(float* dst,
+                                          const float* __restrict__ src,
+                                          size_t base, size_t stride,
+                                          int nrows, int ncols, bool vec) {
+  if (vec) {
+    constexpr int C4 = W / 4;
+    for (int i = threadIdx.x; i < 64 * C4; i += NT) {
+      const int r = i / C4, col = (i % C4) * 4;
+      const bool in = r < nrows && col < ncols;
+      cp_async16(dst + swz<W>(r, col), in ? src + base + r * stride + col : src,
+                 in ? 16 : 0);
+    }
+  } else {
+    for (int i = threadIdx.x; i < 64 * W; i += NT) {
+      const int r = i / W, col = i % W;
+      const bool in = r < nrows && col < ncols;
+      cp_async4(dst + swz<W>(r, col), in ? src + base + r * stride + col : src,
+                in ? 4 : 0);
+    }
   }
-  decays(acum, w, a, g, b, c, h);
-  __syncthreads();
+}
 
-  {  // Sc = (C B^T) o L and dSc = dY X^T, both zero above the diagonal
-    float acc[4][4];
-    zero(acc);
-    mm_acc(acc, cl, cl, N, [&](int i, int k) { return Cs[i * NP + k]; },
-           [&](int j, int k) { return Bs[j * NP + k]; });
-    float acd[4][4];
-    zero(acd);
-    mm_acc(acd, cl, cl, P, [&](int i, int k) { return dYs[i * XP + k]; },
-           [&](int j, int k) { return Xs[j * XP + k]; });
+struct BwdArgs {
+  const float *x, *a, *bm, *cm, *dy, *ds;
+  float *dx, *da, *db, *dc;
+  int vp, vn;  // 16-byte copies and float2 stores along P, along N
+};
+
+__device__ __forceinline__ void issue_bc(float* Bs, float* Cs,
+                                         const BwdArgs& p, const Geom& g,
+                                         long long it) {
+  int b, c, h;
+  item_coords(it, g, b, c, h);
+  const size_t at = row_off(g, b, c, 0, h, g.N), stride = (size_t)g.H * g.N;
+  copy_tile<NM>(Bs, p.bm, at, stride, g.cl, g.N, p.vn);
+  copy_tile<NM>(Cs, p.cm, at, stride, g.cl, g.N, p.vn);
+}
+
+__device__ __forceinline__ void issue_xya(float* Xs, float* dYs, float* abuf,
+                                          const BwdArgs& p, const Geom& g,
+                                          long long it) {
+  int b, c, h;
+  item_coords(it, g, b, c, h);
+  const size_t at = row_off(g, b, c, 0, h, g.P), stride = (size_t)g.H * g.P;
+  copy_tile<PM>(Xs, p.x, at, stride, g.cl, g.P, p.vp);
+  copy_tile<PM>(dYs, p.dy, at, stride, g.cl, g.P, p.vp);
+  if (threadIdx.x < CL) {
+    const int i = threadIdx.x;
+    const bool in = i < g.cl;
+    cp_async4(abuf + i, in ? p.a + row_off(g, b, c, i, h, 1) : p.a,
+              in ? 4 : 0);
+  }
+}
+
+__device__ __forceinline__ void issue_ds(float* dSs, const BwdArgs& p,
+                                         const Geom& g, long long it) {
+  int b, c, h;
+  item_coords(it, g, b, c, h);
+  const size_t at = (((size_t)b * g.nc + c) * g.H + h) * g.P * (size_t)g.N;
+  copy_tile<NM>(dSs, p.ds, at, g.N, g.P, g.N, p.vn);
+}
+
+// rows r (< nrows) of a (.., D) output at out + row_off of row r, columns
+// col, col + 1 (< ncols): one float2 where vec allows
+__device__ __forceinline__ void store2(float* out, int col, int ncols,
+                                       float v0, float v1, bool vec) {
+  if (vec) {
+    if (col < ncols) *reinterpret_cast<float2*>(out + col) = make_float2(v0, v1);
+  } else {
+    if (col < ncols) out[col] = v0;
+    if (col + 1 < ncols) out[col + 1] = v1;
+  }
+}
+
+// persistent: block blockIdx.x walks items blockIdx.x + k gridDim.x, item
+// = (b, c, h) with h fastest
+__global__ void __launch_bounds__(NT, 1)
+    ssd_bwd_kernel(BwdArgs p, Geom g) {
+  extern __shared__ __align__(16) float tc_smem[];
+  float* BCs = tc_smem;           // 2 stages x (B, C), each CL x NM
+  float* Xs = BCs + 4 * CL * NM;  // CL x PM
+  float* dYs = Xs + CL * PM;      // CL x PM
+  float* dSs = dYs + CL * PM;     // PM x NM
+  float* Scs = dSs + PM * NM;     // CL x CL: G, then Sc
+  float* dGs = Scs + CL * CL;     // CL x CL: dG
+  float* acum = dGs + CL * CL;    // CL
+  float* abuf = acum + CL;        // CL: the a of the item in flight
+  float* dacum = abuf + CL;       // CL
+  float* part = dacum + CL;       // PART
+
+  const long long items = (long long)g.B * g.nc * g.H;
+  const int cl = g.cl;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gq = lane_g(), tq = lane_t();
+  // row tiles {0, 3} (even warps) or {1, 2} (odd) of dX, dC and dB
+  const int mt0 = (warp & 1) ? 1 : 0, mt1 = (warp & 1) ? 2 : 3;
+  const int p0 = (warp >> 1) * 16;  // dX columns p0 .. p0 + 15
+  const int n0 = (warp >> 1) * 32;  // dC / dB columns n0 .. n0 + 31
+
+  long long it = blockIdx.x;
+  issue_bc(BCs, BCs + CL * NM, p, g, it);
+  cp_commit();
+  issue_xya(Xs, dYs, abuf, p, g, it);
+  cp_commit();
+  issue_ds(dSs, p, g, it);
+  cp_commit();
+
+  for (int n = 0; it < items; it += gridDim.x, ++n) {
+    const float* Bs = BCs + (n & 1) * 2 * CL * NM;
+    const float* Cs = Bs + CL * NM;
+    int b, c, h;
+    item_coords(it, g, b, c, h);
+    cp_wait<2>();     // B, C landed (X, dY, a and dS may be in flight)
+    __syncthreads();  // ... for all; the other stage's last readers are done
+    if (it + gridDim.x < items) {
+      float* nb = BCs + ((n + 1) & 1) * 2 * CL * NM;
+      issue_bc(nb, nb + CL * NM, p, g, it + gridDim.x);
+    }
+    cp_commit();
+
+    // G = C B^T on this warp's lower-triangle tiles, into Scs
+    for (int tl = warp; tl < NTRI; tl += 8) {
+      int i0, j0;
+      tri_tile(tl, i0, j0);
+      float acc[2][2][4];  // [parity][big, small]
 #pragma unroll
-    for (int ii = 0; ii < 4; ++ii)
+      for (int i = 0; i < 16; ++i) (&acc[0][0][0])[i] = 0.f;
+#pragma unroll 2
+      for (int k0 = 0; k0 < NM; k0 += 16) {
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const int i = ty + 16 * ii, j = tx + 16 * jj;
-        if (i < cl && j < cl) {
-          const bool low = i >= j;
-          Ss[i * CP + j] = low ? acc[ii][jj] * expf(acum[i] - acum[j]) : 0.f;
-          Ts[i * CP + j] = low ? acd[ii][jj] : 0.f;
+        for (int par = 0; par < 2; ++par) {
+          uint32_t ah[4], al[4], bh[2], bl[2];
+          load_a<NM>(Cs, i0, k0 + 8 * par, ah, al);
+          load_bt<NM>(Bs, j0, k0 + 8 * par, bh, bl);
+          mma3(acc[par][0], acc[par][1], ah, al, bh, bl);
         }
       }
-  }
-  __syncthreads();
-
-  // d a_cum from the decay matrix: row sums minus column sums of dSc o Sc
-  for (int k = threadIdx.x; k < cl; k += NT) {
-    float s = 0.f;
-    for (int j = 0; j <= k; ++j) s += Ts[k * CP + j] * Ss[k * CP + j];
-    for (int i = k; i < cl; ++i) s -= Ts[i * CP + k] * Ss[i * CP + k];
-    dacum[k] = s;
-  }
-  __syncthreads();
-  // dG = dSc o L, in place
-  for (int idx = threadIdx.x; idx < cl * cl; idx += NT) {
-    const int i = idx / cl, j = idx % cl;
-    if (i >= j) Ts[i * CP + j] *= expf(acum[i] - acum[j]);
-  }
-
-  {  // dX = Sc^T dY + w o (B dS^T);  q_j = sum_p X_jp (B dS^T)_jp
-    float acc[4][4];
-    zero(acc);
-    mm_acc(acc, cl, P, N, [&](int j, int k) { return Bs[j * NP + k]; },
-           [&](int p, int k) { return dSs[p * NP + k]; });
 #pragma unroll
-    for (int ii = 0; ii < 4; ++ii) {
-      const int j = ty + 16 * ii;
-      float part = 0.f;
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const int p = tx + 16 * jj;
-        if (j < cl && p < P) part += Xs[j * XP + p] * acc[ii][jj];
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        part += __shfl_xor_sync(0xffffffffu, part, off);
-      if (tx == 0 && j < cl) q[j] = part;
-      const float wj = j < cl ? w[j] : 0.f;
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) acc[ii][jj] *= wj;
+      for (int e = 0; e < 4; ++e)
+        Scs[swz<CL>(i0 + gq + 8 * (e >> 1), j0 + 2 * tq + (e & 1))] =
+            (acc[0][0][e] + acc[1][0][e]) + (acc[0][1][e] + acc[1][1][e]);
     }
-    mm_acc(acc, cl, P, cl, [&](int j, int k) { return Ss[k * CP + j]; },
-           [&](int p, int k) { return dYs[k * XP + p]; });
-#pragma unroll
-    for (int ii = 0; ii < 4; ++ii)
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const int j = ty + 16 * ii, p = tx + 16 * jj;
-        if (j < cl && p < P) dx[row_off(g, b, c, j, h, P) + p] = acc[ii][jj];
-      }
-  }
-  __syncthreads();  // dG and q complete
 
-  {  // dC = dG B
-    float acc[4][8];
-    zero(acc);
-    mm_acc(acc, cl, N, cl, [&](int i, int k) { return Ts[i * CP + k]; },
-           [&](int n, int k) { return Bs[k * NP + n]; });
+    cp_wait<2>();     // X, dY and a landed (dS, the next B and C in flight)
+    __syncthreads();
+    if (warp == 0) {  // a_cum = cumsum(a): two steps a lane, then a warp scan
+      const float a0 = abuf[2 * lane], a1 = abuf[2 * lane + 1];
+      float s = a0 + a1;
 #pragma unroll
-    for (int ii = 0; ii < 4; ++ii)
-#pragma unroll
-      for (int jj = 0; jj < 8; ++jj) {
-        const int i = ty + 16 * ii, n = tx + 16 * jj;
-        if (i < cl && n < N) dc[row_off(g, b, c, i, h, N) + n] = acc[ii][jj];
+      for (int d = 1; d < 32; d <<= 1) {
+        const float o = __shfl_up_sync(0xffffffffu, s, d);
+        if (lane >= d) s += o;
       }
-  }
-
-  {  // dB = w o (X dS) + dG^T C
-    float acc[4][8];
-    zero(acc);
-    mm_acc(acc, cl, N, P, [&](int j, int k) { return Xs[j * XP + k]; },
-           [&](int n, int k) { return dSs[k * NP + n]; });
-#pragma unroll
-    for (int ii = 0; ii < 4; ++ii) {
-      const int j = ty + 16 * ii;
-      const float wj = j < cl ? w[j] : 0.f;
-#pragma unroll
-      for (int jj = 0; jj < 8; ++jj) acc[ii][jj] *= wj;
+      float before = __shfl_up_sync(0xffffffffu, s, 1);
+      if (lane == 0) before = 0.f;
+      acum[2 * lane] = before + a0;
+      acum[2 * lane + 1] = s;
     }
-    mm_acc(acc, cl, N, cl, [&](int j, int k) { return Ts[k * CP + j]; },
-           [&](int n, int k) { return Cs[k * NP + n]; });
+    // dSc = dY X^T on the same tiles, kept in registers
+    float dsc[3][4];
 #pragma unroll
-    for (int ii = 0; ii < 4; ++ii)
+    for (int u = 0; u < 3; ++u) {
+      const int tl = warp + 8 * u;
+      if (tl >= NTRI) continue;
+      int i0, j0;
+      tri_tile(tl, i0, j0);
+      float acc[2][2][4];
 #pragma unroll
-      for (int jj = 0; jj < 8; ++jj) {
-        const int j = ty + 16 * ii, n = tx + 16 * jj;
-        if (j < cl && n < N) db[row_off(g, b, c, j, h, N) + n] = acc[ii][jj];
+      for (int i = 0; i < 16; ++i) (&acc[0][0][0])[i] = 0.f;
+#pragma unroll 2
+      for (int k0 = 0; k0 < PM; k0 += 16) {
+#pragma unroll
+        for (int par = 0; par < 2; ++par) {
+          uint32_t ah[4], al[4], bh[2], bl[2];
+          load_a<PM>(dYs, i0, k0 + 8 * par, ah, al);
+          load_bt<PM>(Xs, j0, k0 + 8 * par, bh, bl);
+          mma3(acc[par][0], acc[par][1], ah, al, bh, bl);
+        }
       }
-  }
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        dsc[u][e] =
+            (acc[0][0][e] + acc[1][0][e]) + (acc[0][1][e] + acc[1][1][e]);
+    }
+    __syncthreads();  // a_cum ready
 
-  // the decay w's share of d a_cum, then dA = reverse cumsum of d a_cum
-  if (threadIdx.x == 0) {
-    float tail = 0.f, s = 0.f;
-    for (int j = 0; j < cl; ++j) tail += w[j] * q[j];
-    for (int k = cl - 1; k >= 0; --k) {
-      s += dacum[k] - w[k] * q[k] + (k == cl - 1 ? tail : 0.f);
-      da[row_off(g, b, c, k, h, 1)] = s;
+    // Sc = G o L and dG = dSc o L (zero above the diagonal, where exp is
+    // never evaluated); each tile's row and column sums of dSc o Sc
+#pragma unroll
+    for (int u = 0; u < 3; ++u) {
+      const int tl = warp + 8 * u;
+      if (tl >= NTRI) continue;
+      int i0, j0;
+      tri_tile(tl, i0, j0);
+      float rs[2] = {0.f, 0.f}, cs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = i0 + gq + 8 * (e >> 1), col = j0 + 2 * tq + (e & 1);
+        const int at = swz<CL>(r, col);
+        float sc = 0.f, dg = 0.f, dseg = 0.f;
+        if (col <= r) {
+          const float l = expf(acum[r] - acum[col]);
+          sc = Scs[at] * l;
+          dg = dsc[u][e] * l;
+          dseg = dsc[u][e] * sc;
+        }
+        Scs[at] = sc;
+        dGs[at] = dg;
+        rs[e >> 1] += dseg;
+        cs[e & 1] += dseg;
+      }
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const float v = quad_sum(rs[hh]);
+        if (tq == 0) part[tl * 16 + gq + 8 * hh] = v;
+      }
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float v = cs[e];
+        v += __shfl_xor_sync(0xffffffffu, v, 4);
+        v += __shfl_xor_sync(0xffffffffu, v, 8);
+        v += __shfl_xor_sync(0xffffffffu, v, 16);
+        if (gq == 0) part[NTRI * 16 + tl * 8 + 2 * tq + e] = v;
+      }
+    }
+
+    cp_wait<1>();     // dS landed (the next B and C may be in flight)
+    __syncthreads();  // ... for all; Sc, dG and the partials complete
+    if (threadIdx.x < CL) {  // d a_cum from L: row sums minus column sums
+      const int k = threadIdx.x, mr = k >> 4, nj = k >> 3;
+      float s = 0.f;
+      for (int j = 0; j <= 2 * mr + 1; ++j)
+        s += part[(mr * (mr + 1) + j) * 16 + (k & 15)];
+      for (int m = nj >> 1; m < 4; ++m)
+        s -= part[NTRI * 16 + (m * (m + 1) + nj) * 8 + (k & 7)];
+      dacum[k] = s;
+    }
+    __syncthreads();  // the partials are read; part takes q's partials
+
+    const float acum_last = acum[cl - 1];
+    // dX = w o (B dS^T) + Sc^T dY on row tiles mt0, mt1, columns p0..;
+    // q_j's partial over these columns
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+      const int j0 = 16 * (m ? mt1 : mt0);
+      float big[2][4], small[2][4];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) (&big[0][0])[i] = (&small[0][0])[i] = 0.f;
+#pragma unroll 4
+      for (int k0 = 0; k0 < NM; k0 += 8) {
+        uint32_t ah[4], al[4], bh[2][2], bl[2][2];
+        load_a<NM>(Bs, j0, k0, ah, al);
+        load_bt2<NM>(dSs, p0, k0, bh, bl);
+#pragma unroll
+        for (int j = 0; j < 2; ++j) mma3(big[j], small[j], ah, al, bh[j], bl[j]);
+      }
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int r = j0 + gq + 8 * hh;
+        const float w = expf(acum_last - acum[r]);
+        float qp = 0.f;
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float t = big[j][2 * hh + e] + small[j][2 * hh + e];
+            qp += Xs[swz<PM>(r, p0 + 8 * j + 2 * tq + e)] * t;
+            big[j][2 * hh + e] = w * t;
+            small[j][2 * hh + e] = 0.f;
+          }
+        qp = quad_sum(qp);
+        if (tq == 0) part[(warp >> 1) * CL + r] = qp;
+      }
+      for (int k0 = j0; k0 < CL; k0 += 8) {
+        uint32_t ah[4], al[4];
+        load_at<CL>(Scs, j0, k0, ah, al);
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          uint32_t bh[2], bl[2];
+          load_b<PM>(dYs, k0, p0 + 8 * j, bh, bl);
+          mma3(big[j], small[j], ah, al, bh, bl);
+        }
+      }
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int r = j0 + gq + 8 * hh;
+        if (r >= cl) continue;
+        float* out = p.dx + row_off(g, b, c, r, h, g.P);
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+          store2(out, p0 + 8 * j + 2 * tq, g.P,
+                 big[j][2 * hh] + small[j][2 * hh],
+                 big[j][2 * hh + 1] + small[j][2 * hh + 1], p.vp);
+      }
+    }
+
+    // dC = dG B on row tiles mt0, mt1, columns n0..; k stops at the diagonal
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+      const int i0 = 16 * (m ? mt1 : mt0);
+      float acc[4][4];
+#pragma unroll
+      for (int i = 0; i < 16; ++i) (&acc[0][0])[i] = 0.f;
+      for (int k0 = 0; k0 < i0 + 16; k0 += 8) {
+        uint32_t ah[4], al[4];
+        load_a<CL>(dGs, i0, k0, ah, al);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          uint32_t bh[2], bl[2];
+          load_b<NM>(Bs, k0, n0 + 8 * j, bh, bl);
+          mma3(acc[j], acc[j], ah, al, bh, bl);
+        }
+      }
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int r = i0 + gq + 8 * hh;
+        if (r >= cl) continue;
+        float* out = p.dc + row_off(g, b, c, r, h, g.N);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          store2(out, n0 + 8 * j + 2 * tq, g.N, acc[j][2 * hh],
+                 acc[j][2 * hh + 1], p.vn);
+      }
+    }
+
+    // dB = w o (X dS) + dG^T C on row tiles mt0, mt1, columns n0..
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+      const int j0 = 16 * (m ? mt1 : mt0);
+      float acc[4][4];
+#pragma unroll
+      for (int i = 0; i < 16; ++i) (&acc[0][0])[i] = 0.f;
+#pragma unroll 2
+      for (int k0 = 0; k0 < PM; k0 += 8) {
+        uint32_t ah[4], al[4];
+        load_a<PM>(Xs, j0, k0, ah, al);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          uint32_t bh[2], bl[2];
+          load_b<NM>(dSs, k0, n0 + 8 * j, bh, bl);
+          mma3(acc[j], acc[j], ah, al, bh, bl);
+        }
+      }
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const float w = expf(acum_last - acum[j0 + gq + 8 * hh]);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          acc[j][2 * hh] *= w;
+          acc[j][2 * hh + 1] *= w;
+        }
+      }
+      for (int k0 = j0; k0 < CL; k0 += 8) {
+        uint32_t ah[4], al[4];
+        load_at<CL>(dGs, j0, k0, ah, al);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          uint32_t bh[2], bl[2];
+          load_b<NM>(Cs, k0, n0 + 8 * j, bh, bl);
+          mma3(acc[j], acc[j], ah, al, bh, bl);
+        }
+      }
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int r = j0 + gq + 8 * hh;
+        if (r >= cl) continue;
+        float* out = p.db + row_off(g, b, c, r, h, g.N);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          store2(out, n0 + 8 * j + 2 * tq, g.N, acc[j][2 * hh],
+                 acc[j][2 * hh + 1], p.vn);
+      }
+    }
+
+    __syncthreads();  // X, dY, dS, Sc, dG read; q's partials complete
+    if (it + gridDim.x < items) {
+      issue_xya(Xs, dYs, abuf, p, g, it + gridDim.x);
+      cp_commit();
+      issue_ds(dSs, p, g, it + gridDim.x);
+      cp_commit();
+    } else {
+      cp_commit();
+      cp_commit();
+    }
+    if (warp == 0) {
+      // d a_cum_j -= w_j q_j, d a_cum_last += sum_j w_j q_j; then dA =
+      // reverse cumsum of d a_cum: two steps a lane, then a warp scan
+      float v[2], wq = 0.f;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int k = 2 * lane + e;
+        const float q = (part[k] + part[CL + k]) +
+                        (part[2 * CL + k] + part[3 * CL + k]);
+        const float wk = expf(acum_last - acum[k]) * q;
+        v[e] = dacum[k] - wk;
+        wq += wk;
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        wq += __shfl_xor_sync(0xffffffffu, wq, off);
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        if (2 * lane + e == cl - 1) v[e] += wq;
+      float s = v[0] + v[1];
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const float o = __shfl_down_sync(0xffffffffu, s, d);
+        if (lane + d < 32) s += o;
+      }
+      float after = __shfl_down_sync(0xffffffffu, s, 1);
+      if (lane == 31) after = 0.f;
+      const float da2[2] = {s, after + v[1]};
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        if (2 * lane + e < cl) p.da[row_off(g, b, c, 2 * lane + e, h, 1)] = da2[e];
     }
   }
 }
@@ -378,6 +694,12 @@ bool bad_shape(const Geom& g) {
   return g.B < 1 || g.nc < 1 || g.cl < 1 || g.H < 1 || g.P < 1 || g.N < 1 ||
          g.cl > MAX_CL || g.P > MAX_P || g.N > MAX_N || g.nc > 65535 ||
          g.B > 65535;
+}
+
+bool aligned16(std::initializer_list<const void*> ptrs) {
+  for (const void* q : ptrs)
+    if ((uintptr_t)q % 16) return false;
+  return true;
 }
 
 }  // namespace
@@ -406,11 +728,18 @@ int ssd_bwd(const float* x, const float* a, const float* b, const float* c,
             void* stream) {
   Geom g{B, nc, cl, H, P, N};
   if (bad_shape(g)) return kBadShape;
-  const size_t smem = bwd_smem(g);
-  if (int e = set_smem(ssd_bwd_kernel, smem)) return e;
-  dim3 grid(H, nc, B);
-  ssd_bwd_kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(
-      x, a, b, c, dy, ds, dx, da, db, dc, g);
+  if (int e = set_smem(ssd_bwd_kernel, BWD_SMEM)) return e;
+  int dev = 0, sms = 0;
+  if (int e = cudaGetDevice(&dev)) return e;
+  if (int e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                     dev))
+    return e;
+  const long long items = (long long)B * nc * H;
+  const int grid = items < sms ? (int)items : sms;
+  BwdArgs p{x, a, b, c, dy, ds, dx, da, db, dc,
+            P % 4 == 0 && aligned16({x, dy, dx}),
+            N % 4 == 0 && aligned16({b, c, ds, db, dc})};
+  ssd_bwd_kernel<<<grid, NT, BWD_SMEM, (cudaStream_t)stream>>>(p, g);
   return (int)cudaGetLastError();
 }
 

@@ -56,6 +56,15 @@ def _sqrt_rn(x: torch.Tensor) -> torch.Tensor:
     return x.sqrt() if x.is_cuda else x.double().sqrt().float()
 
 
+def _divisors(device: torch.device, *values: float) -> list[torch.Tensor]:
+    """fp32 0-dim tensors on ``device`` to divide by, made by a fill and
+    no copy from the host.  CUDA divides by a Python scalar as a multiply by
+    its reciprocal, which can be an ulp off the reference's division; by a
+    tensor on the card it divides."""
+    return [torch.full((), v, dtype=torch.float32, device=device)
+            for v in values]
+
+
 def sgd(lr: Union[Schedule, float]) -> Optimizer:
     sched = _sched(lr)
 
@@ -109,12 +118,15 @@ def adam(lr: Union[Schedule, float], b1: float = 0.9, b2: float = 0.999,
         bc1 = float(one - np.float32(b1) ** t)
         bc2 = float(one - np.float32(b2) ** t)
         eta_wd = float(np.float32(eta) * np.float32(weight_decay))
-        new_p = {}
+        new_p, bcs = {}, {}
         for k, p in params.items():
             g = grads[k].float()
             m = state["m"][k].mul_(b1).add_((1 - b1) * g)
             v = state["v"][k].mul_(b2).add_((1 - b2) * g.square())
-            step_ = eta * (m / bc1) / (_sqrt_rn(v / bc2) + eps)
+            if m.device not in bcs:
+                bcs[m.device] = _divisors(m.device, bc1, bc2)
+            d1, d2 = bcs[m.device]
+            step_ = eta * (m / d1) / (_sqrt_rn(v / d2) + eps)
             if weight_decay:
                 step_ = step_ + eta_wd * p.float()
             new_p[k] = (p.float() - step_).to(p.dtype)

@@ -200,6 +200,9 @@ def test_cuda_kernels_match_plain_versions(case, cuda_device):
         assert (a - b).abs().max() <= 1e-3 * b.abs().max()
         if nv is not None:
             assert (a[nv:] == 0).all()
-    # the GQA group-sum has a fixed order: a second launch is bit-equal
+    # the GQA group-sum has a fixed order, and each dq block owns its rows:
+    # a second launch of either backward kernel is bit-equal
     again = flash_bwd_dkv(q, k, v, do, lse_p, delta, nvt, **kw)
     assert all(torch.equal(a, b) for a, b in zip(again, got[1:]))
+    assert torch.equal(flash_bwd_dq(q, k, v, do, lse_p, delta, nvt, **kw),
+                       got[0])

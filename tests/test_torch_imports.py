@@ -31,6 +31,18 @@ def test_port_imports_neither_jax_nor_reference(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+EMULATOR_FILES = sorted((ROOT / "tools" / "cuda_emu").glob("*.py"))
+
+
+@pytest.mark.parametrize("path", EMULATOR_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_cuda_emulator_imports_neither_jax_nor_reference(path):
+    """The CPU rehearsal of the kernels (tools/cuda_emu) loads the port's
+    modules only: ``repro_torch`` is allowed, ``repro`` and jax are not."""
+    bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
 def test_scan_sees_the_whole_port():
     names = {p.relative_to(ROOT / "src" / "repro_torch").as_posix()
              for p in PORT_FILES[:-1]}

@@ -207,3 +207,43 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
 
     with pytest.raises(ValueError, match="CUDA"):
         _check_cuda("ssd_fwd", *xs)
+
+
+# (b, nc, cl, h, p, n): tests/test_torch_ssd_cuda.py's ragged cases, whose
+# cl, P and N are no multiples of the kernel's mma tiles
+RAGGED = [(1, 3, 40, 3, 20, 12), (1, 2, 13, 3, 7, 9), (1, 1, 1, 1, 1, 1)]
+
+
+@pytest.mark.parametrize("case", RAGGED, ids=["ragged-40", "odd", "one-step"])
+def test_intra_chunk_bwd_plain_matches_jax_grad_at_ragged_shapes(case):
+    """The CPU half of the card's ragged cases: with each chunk a sequence of
+    its own, the reference's ``ssd_chunked`` returns the chunk's y_diag and
+    state, so ``jax.grad`` of it is the VJP that
+    ``ssd_intra_chunk_bwd_plain`` (and ``ssd_bwd`` on the card) computes."""
+    b, nc, cl, h, p, n = case
+    rng = np.random.default_rng(8)
+    x, bm, cm, dy = (rng.standard_normal(shape).astype(np.float32) for shape
+                     in ((b, nc, cl, h, p), (b, nc, cl, h, n),
+                         (b, nc, cl, h, n), (b, nc, cl, h, p)))
+    a = (-np.abs(rng.standard_normal((b, nc, cl, h))) * 0.1).astype(
+        np.float32)
+    ds = rng.standard_normal((b, nc, h, p, n)).astype(np.float32)
+    rows = b * nc
+
+    def ref_loss(x_, a_, bm_, cm_):
+        y, s = ref_ssd_chunked(x_.reshape(rows, cl, h, p),
+                               a_.reshape(rows, cl, h),
+                               bm_.reshape(rows, cl, h, n),
+                               cm_.reshape(rows, cl, h, n), cl)
+        return (jnp.sum(y * dy.reshape(rows, cl, h, p))
+                + jnp.sum(s * ds.reshape(rows, h, p, n)))
+
+    want = jax.grad(ref_loss, argnums=(0, 1, 2, 3))(
+        *map(jnp.asarray, (x, a, bm, cm)))
+    got = ssd_intra_chunk_bwd_plain(*map(torch.from_numpy,
+                                         (x, a, bm, cm, dy, ds)))
+    for name, g, w in zip(("dx", "da", "db", "dc"), got, want):
+        w = np.asarray(w)
+        assert g.shape == w.shape, name
+        err = np.abs(g.numpy() - w).max()
+        assert err <= TOL * np.abs(w).max(), (name, err, np.abs(w).max())

@@ -20,11 +20,15 @@ from repro_torch.kernels.ssd_scan import (LAUNCHES, reset_launches, ssd,
                                           ssd_intra_chunk_plain)
 
 # (b, nc, cl, h, p, n): tests/test_kernels.py::SSD_CASES in chunks, the
-# reduced mamba2 (chunk 8) and the mamba2-1.3b cell's shapes
+# reduced mamba2 (chunk 8), the mamba2-1.3b cell's shapes, and ragged shapes
+# whose cl, P and N are no multiples of the mma tiles (P and N no multiples
+# of 4 in "odd", so its rows go by 4-byte copies), down to one step
 CASES = [(2, 4, 16, 4, 16, 8), (1, 4, 32, 2, 32, 16), (2, 4, 64, 8, 64, 32),
          (1, 2, 64, 64, 64, 128), (2, 4, 8, 16, 16, 16),
-         (2, 32, 64, 64, 64, 128)]
-IDS = ["small", "mid", "wide", "mamba2", "reduced", "cell"]
+         (2, 32, 64, 64, 64, 128), (1, 3, 40, 3, 20, 12),
+         (1, 2, 13, 3, 7, 9), (1, 1, 1, 1, 1, 1)]
+IDS = ["small", "mid", "wide", "mamba2", "reduced", "cell", "ragged-40",
+       "odd", "one-step"]
 
 
 @pytest.fixture
@@ -63,6 +67,9 @@ def test_cuda_kernels_match_plain_versions(case, cuda_device):
         err = (a - b).abs().max().item()
         assert err <= 1e-4 * b.abs().max().item(), (name, err)
     assert LAUNCHES == {"ssd_fwd": 1, "ssd_bwd": 1}
+    # no atomics: a second launch is bit-equal
+    again = ssd_intra_chunk_bwd(*xs, dy, ds)
+    assert all(torch.equal(a, b) for a, b in zip(again, got))
 
 
 @pytest.mark.cuda

@@ -1,11 +1,14 @@
-// CPU stand-in for the CUDA features the port's flash-attention kernels use,
-// so that their indexing, fragment layouts and barriers can be checked with
-// g++ on a machine without a GPU (tools/cuda_emu/run_flash.py).  One block
-// runs at a time as NT std::threads; __syncthreads is a block barrier, warp
-// shuffles, ldmatrix and mma.sync m16n8k8 (tf32, the low 13 bits of each
-// operand ignored as the tensor cores do) exchange through per-warp buffers.
-// The products are accumulated exactly (in double), so this checks layouts
-// and control flow, not the card's rounding or its speed.
+// CPU stand-in for the CUDA features the port's tensor-core kernels use, so
+// that their indexing, fragment layouts, copy groups and barriers can be
+// checked with g++ on a machine without a GPU (tools/cuda_emu/run_flash.py,
+// run_ssd.py).  One block runs at a time as NT std::threads; __syncthreads
+// is a block barrier, warp shuffles, ldmatrix and mma.sync m16n8k8 (tf32,
+// the low 13 bits of each operand ignored as the tensor cores do) exchange
+// through per-warp buffers.  cp.async copies are held per thread in their
+// commit groups and land only at the cp.async.wait_group that covers them,
+// so a read of a tile before its wait sees the NaN the shared memory was
+// filled with.  The products are accumulated exactly (in double), so this
+// checks layouts and control flow, not the card's rounding or its speed.
 #pragma once
 #include <stdint.h>
 #include <stdio.h>
@@ -44,6 +47,10 @@ inline int2 make_int2(int a, int b) { return {a, b}; }
 typedef int cudaError_t;
 typedef void* cudaStream_t;
 enum { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+enum { cudaDevAttrMultiProcessorCount = 16 };
+constexpr int EMU_SMS = 3;  // few SMs, so a persistent grid walks many items
+inline int cudaGetDevice(int* d) { *d = 0; return 0; }
+inline int cudaDeviceGetAttribute(int* v, int, int) { *v = EMU_SMS; return 0; }
 extern size_t emu_smem_limit;
 template <typename K>
 int cudaFuncSetAttribute(K, int, int bytes) {
@@ -64,13 +71,49 @@ extern char* emu_dyn_smem;
 
 inline void __syncthreads() { emu_block_bar->arrive_and_wait(); }
 
-inline float __shfl_xor_sync(unsigned, float v, int off) {
+// the value of lane src(l) of this warp (its own where src(l) is off the warp)
+template <typename F>
+inline float emu_shfl(float v, F src) {
   const int w = threadIdx.x >> 5, l = threadIdx.x & 31;
   emu_warp_f[w][l][0] = v;
   emu_warp_bar[w]->arrive_and_wait();
-  const float r = emu_warp_f[w][l ^ off][0];
+  const int s = src(l);
+  const float r = emu_warp_f[w][s >= 0 && s < 32 ? s : l][0];
   emu_warp_bar[w]->arrive_and_wait();
   return r;
+}
+inline float __shfl_xor_sync(unsigned, float v, int off) {
+  return emu_shfl(v, [&](int l) { return l ^ off; });
+}
+inline float __shfl_sync(unsigned, float v, int src) {
+  return emu_shfl(v, [&](int) { return src & 31; });
+}
+inline float __shfl_up_sync(unsigned, float v, int d) {
+  return emu_shfl(v, [&](int l) { return l - d; });
+}
+inline float __shfl_down_sync(unsigned, float v, int d) {
+  return emu_shfl(v, [&](int l) { return l + d; });
+}
+
+// cp.async: this thread's copies, in commit groups, land at the wait
+struct EmuCopy { void* dst; const void* src; int size, bytes; };
+extern thread_local std::vector<std::vector<EmuCopy>> emu_groups;
+extern thread_local std::vector<EmuCopy> emu_open;
+inline void emu_cp_async(void* dst, const void* src, int size, int bytes) {
+  emu_open.push_back({dst, src, size, bytes});
+}
+inline void emu_cp_commit() {
+  emu_groups.push_back(emu_open);
+  emu_open.clear();
+}
+inline void emu_cp_wait(int pending) {
+  while ((int)emu_groups.size() > pending) {
+    for (const EmuCopy& c : emu_groups.front()) {
+      memset(c.dst, 0, c.size);
+      if (c.bytes) memcpy(c.dst, c.src, c.bytes);
+    }
+    emu_groups.erase(emu_groups.begin());
+  }
 }
 
 // d = a b + c for one warp, fragments as the PTX ISA lays them out

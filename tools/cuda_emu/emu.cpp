@@ -9,6 +9,8 @@ std::barrier<>* emu_warp_bar[EMU_WARPS];
 float emu_warp_f[EMU_WARPS][32][8];
 const float* emu_warp_p[EMU_WARPS][32];
 char* emu_dyn_smem;
+thread_local std::vector<std::vector<EmuCopy>> emu_groups;
+thread_local std::vector<EmuCopy> emu_open;
 
 void emu_launch(dim3 grid, unsigned threads, size_t smem,
                 std::function<void()> body) {
@@ -36,7 +38,12 @@ void emu_launch(dim3 grid, unsigned threads, size_t smem,
     std::fill(buf.begin(), buf.end(), (char)0xff);
     std::vector<std::thread> pool;
     for (unsigned i = 0; i < threads; ++i)
-      pool.emplace_back([&, i] { threadIdx.x = i; body(); });
+      pool.emplace_back([&, i] {
+        threadIdx.x = i;
+        body();
+        emu_groups.clear();  // copies never waited for die with the block
+        emu_open.clear();
+      });
     for (auto& t : pool) t.join();
   }
   for (auto* w : warps) delete w;

@@ -4,28 +4,24 @@ hold them against their plain PyTorch versions.
     PYTHONPATH=src python tools/cuda_emu/run_flash.py [case ...]
 
 A rehearsal for machines without a GPU or nvcc: it rewrites
-``csrc/flash_attention.cu`` for g++ (the inline PTX of ``mma.sync``,
-``ldmatrix`` and ``cp.async`` becomes calls into ``cuda_runtime.h`` here,
-``<<<...>>>`` launches become ``emu_launch``), builds it into
-``build/cuda_emu/`` and calls its C entry points with CPU tensors.  It
-checks indexing, fragment layouts, masks, padded rows and barriers at small
-shapes; it says nothing about the card's rounding or speed, which only a
+``csrc/flash_attention.cu`` for g++ (``gxx.py``: the inline PTX of
+``mma.sync``, ``ldmatrix`` and ``cp.async`` becomes calls into
+``cuda_runtime.h`` here, ``<<<...>>>`` launches become ``emu_launch``),
+builds it into ``build/cuda_emu/`` and calls its C entry points with CPU
+tensors.  It checks indexing, fragment layouts, masks, padded rows, copy
+groups and barriers at small shapes; it says nothing about the card's rounding or speed, which only a
 run on the card measures.  Exits 1 if a case disagrees.
 """
 
 from __future__ import annotations
 
-import ctypes
 import math
-import re
-import subprocess
 import sys
-from pathlib import Path
 
 import torch
 
-HERE = Path(__file__).resolve().parent
-ROOT = HERE.parents[1]
+from gxx import ROOT, build
+
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.kernels.flash_attention import kernel as K  # noqa: E402
@@ -41,56 +37,6 @@ CASES = {
     "d256-padded": (2, 72, 72, 4, 1, 256, True, None, None, 1),
     "local-window": (1, 160, 160, 2, 1, 64, True, 64, None, None),
 }
-# device functions whose bodies are inline PTX, and their emulations
-EMULATED = {
-    "mma_tf32": "  emu_mma(c, a, b);",
-    "ldsm_x4": "  emu_ldsm(r, 4, p);",
-    "ldsm_x2": "  emu_ldsm(r, 2, p);",
-    "cp_async16": "  if (bytes) memcpy(dst, src, 16); else memset(dst, 0, 16);",
-    "cp_async4": "  if (bytes) memcpy(dst, src, 4); else memset(dst, 0, 4);",
-    "cp_commit": "",
-    "cp_wait_all": "",
-}
-
-
-def for_gxx(src: str) -> str:
-    for name, body in EMULATED.items():
-        m = re.search(r"__device__ __forceinline__ [^\n]*\b" + name
-                      + r"\([^{]*\{", src)
-        if m is None:
-            raise ValueError(f"no device function {name} to emulate")
-        depth, i = 1, m.end()
-        while depth:
-            depth += {"{": 1, "}": -1}.get(src[i], 0)
-            i += 1
-        src = src[:m.end()] + "\n" + body + "\n}" + src[i:]
-    src = re.sub(r"extern __shared__ (?:__align__\(16\) )?float (\w+)\[\];",
-                 r"float* \1 = (float*)emu_dyn_smem;", src)
-
-    def launch(m):
-        grid, threads, smem = [p.strip() for p in
-                               re.split(r",(?![^(]*\))", m.group(2))][:3]
-        return (f"emu_launch(dim3({grid}), {threads}, {smem}, [&] "
-                f"{{ {m.group(1)}({m.group(3)}); }});")
-
-    return re.sub(r"(\w+(?:<\w+>)?)<<<(.*?)>>>\((.*?)\);", launch, src,
-                  flags=re.S)
-
-
-def build() -> ctypes.CDLL:
-    out = ROOT / "build" / "cuda_emu"
-    out.mkdir(parents=True, exist_ok=True)
-    (out / "flash_attention.cpp").write_text(for_gxx(K.SOURCE.read_text()))
-    lib = out / "libflash_emu.so"
-    subprocess.run(["g++", "-std=c++20", "-O2", "-fPIC", "-shared",
-                    "-pthread", "-Wno-unknown-pragmas", f"-I{HERE}", "-o",
-                    str(lib), str(out / "flash_attention.cpp"),
-                    str(HERE / "emu.cpp")], check=True)
-    dll = ctypes.CDLL(str(lib))
-    for name, argtypes in K._SIGNATURES.items():
-        getattr(dll, name).argtypes = argtypes
-        getattr(dll, name).restype = ctypes.c_int
-    return dll
 
 
 def run_case(lib, name, case) -> bool:
@@ -133,7 +79,7 @@ def run_case(lib, name, case) -> bool:
 
 def main() -> int:
     names = sys.argv[1:] or list(CASES)
-    lib = build()
+    lib = build(K.SOURCE, "flash_attention", K._SIGNATURES)
     results = [run_case(lib, name, CASES[name]) for name in names]
     return 0 if all(results) else 1
 
