@@ -428,24 +428,29 @@ def time_plain_and_kernel(calls: dict, work: dict, peak_flops: float,
 
 # ------------------------------------------------------- phase 2, SSD scan
 
-# (name, B, nc, cl, H, P, N): the mamba2-1.3b cell (seq 2048 in chunks of 64),
-# tests/test_kernels.py::SSD_CASES[1] (seq 128, chunk 32) and a ragged shape
-# whose cl, P and N are no multiples of ssd_bwd's mma tiles
-SSD_CASES = [("cell", 2, 32, 64, 64, 64, 128), ("chunk32", 1, 4, 32, 2, 32, 16),
-             ("ragged", 1, 3, 40, 3, 20, 12)]
+# (name, B, nc, cl, H, G, P, N): the mamba2-1.3b cell (seq 2048 in chunks of
+# 64) with B and C for its one group, as the main path runs it, and per head
+# (G = H, the reference's layout), tests/test_kernels.py::SSD_CASES[1] (seq
+# 128, chunk 32), a ragged shape whose cl, P and N are no multiples of the
+# mma tiles, and the same with two groups of three heads
+SSD_CASES = [("cell", 2, 32, 64, 64, 1, 64, 128),
+             ("cell-per-head", 2, 32, 64, 64, 64, 64, 128),
+             ("chunk32", 1, 4, 32, 2, 2, 32, 16),
+             ("ragged", 1, 3, 40, 3, 3, 20, 12),
+             ("ragged-g2", 1, 3, 40, 6, 2, 20, 12)]
 
 
-def ssd_inputs(case, dev, seed, dtype=None):
-    """x, a, b, c in the kernels' (B,nc,cl,H,...) layout; a = -|z| / 10, the
-    reference tests' decay scale."""
+def ssd_inputs(case, dev, seed):
+    """x, a, b, c, dy, ds in the kernels' (B,nc,cl,H or G,...) layout; a =
+    -|z| / 10, the reference tests' decay scale."""
     import torch
 
-    _, b, nc, cl, h, p, n = case
+    _, b, nc, cl, h, grp, p, n = case
     g = torch.Generator(device=dev).manual_seed(seed)
     x = torch.randn((b, nc, cl, h, p), generator=g, device=dev)
     a = -torch.randn((b, nc, cl, h), generator=g, device=dev).abs() * 0.1
-    bm = torch.randn((b, nc, cl, h, n), generator=g, device=dev)
-    cm = torch.randn((b, nc, cl, h, n), generator=g, device=dev)
+    bm = torch.randn((b, nc, cl, grp, n), generator=g, device=dev)
+    cm = torch.randn((b, nc, cl, grp, n), generator=g, device=dev)
     dy = torch.randn((b, nc, cl, h, p), generator=g, device=dev)
     ds = torch.randn((b, nc, h, p, n), generator=g, device=dev)
     return x, a, bm, cm, dy, ds
@@ -453,7 +458,7 @@ def ssd_inputs(case, dev, seed, dtype=None):
 
 def check_ssd_kernels(report: dict) -> dict:
     """ssd_fwd / ssd_bwd against their plain versions on the same inputs;
-    a second ssd_bwd launch must repeat the first bit for bit."""
+    a second launch of each must repeat the first bit for bit."""
     import torch
     from repro_torch.kernels.ssd_scan import kernel as K
 
@@ -471,26 +476,29 @@ def check_ssd_kernels(report: dict) -> dict:
         check_case(label, got, want, ("y", "state"),
                    (SSD_FWD_TOL, SSD_BWD_TOL), ("ssd_fwd", "ssd_bwd"), errs,
                    report["ssd_cases"])
-        again = K.ssd_intra_chunk_bwd(x, a, bm, cm, dy, ds)
-        repeats = all(bool(torch.equal(u, got[n]))
-                      for u, n in zip(again, names))
-        report["ssd_cases"][label]["bwd_repeats_bit_for_bit"] = repeats
-        log(f"    ssd_bwd repeats bit for bit: {repeats}")
-        if not repeats:
-            raise AssertionError(f"case {label}: a second ssd_bwd launch "
-                                 "differs from the first")
+        again = dict(zip(("y", "state"), K.ssd_intra_chunk(x, a, bm, cm)))
+        again.update(zip(names, K.ssd_intra_chunk_bwd(x, a, bm, cm, dy, ds)))
+        for kernel, keys in (("fwd", ("y", "state")), ("bwd", names)):
+            repeats = all(bool(torch.equal(again[k], got[k])) for k in keys)
+            report["ssd_cases"][label][f"{kernel}_repeats_bit_for_bit"] = \
+                repeats
+            log(f"    ssd_{kernel} repeats bit for bit: {repeats}")
+            if not repeats:
+                raise AssertionError(f"case {label}: a second ssd_{kernel} "
+                                     "launch differs from the first")
     return errs
 
 
 def check_ssd_fp64() -> dict:
-    """The differentiable scan through the kernel pair (``ops.ssd``, fp32)
-    and the plain fp32 ``ssd_chunked`` against a float64 ``ssd_chunked``
-    (autograd for the gradients), at the cell's shapes."""
+    """The differentiable scan through the kernel pair (``ops.ssd``, fp32, B
+    and C per group) and the plain fp32 ``ssd_chunked`` against a float64
+    ``ssd_chunked`` (both on B and C repeated to heads; autograd for the
+    gradients), at the cell's shapes."""
     import torch
     from repro_torch.kernels.ssd_scan import ssd, ssd_chunked
 
     dev = torch.device("cuda")
-    _, b, nc, cl, h, p, n = SSD_CASES[0]
+    _, b, nc, cl, h, grp, p, n = SSD_CASES[0]
     x, a, bm, cm, _, _ = ssd_inputs(SSD_CASES[0], dev, seed=64)
     flat = [t.reshape(b, nc * cl, *t.shape[3:]) for t in (x, a, bm, cm)]
     g = torch.Generator(device=dev).manual_seed(65)
@@ -505,9 +513,13 @@ def check_ssd_fp64() -> dict:
         grads = torch.autograd.grad(loss, leaves)
         return dict(zip(names, (y.detach(), st.detach(), *grads)))
 
-    ref = run(lambda *v: ssd_chunked(*v, cl), torch.float64)
+    def chunked(x_, a_, b_, c_):
+        return ssd_chunked(x_, a_, b_.repeat_interleave(h // grp, 2),
+                           c_.repeat_interleave(h // grp, 2), cl)
+
+    ref = run(chunked, torch.float64)
     got = {"kernel": run(lambda *v: ssd(*v, chunk=cl), torch.float32),
-           "plain": run(lambda *v: ssd_chunked(*v, cl), torch.float32)}
+           "plain": run(chunked, torch.float32)}
     res = {}
     for name, r in ref.items():
         scale = r.abs().max().item()
@@ -521,31 +533,43 @@ def check_ssd_fp64() -> dict:
     return res
 
 
-def time_ssd_kernels(peak_flops: float, peak_bw: float,
-                     peak_tf32: float) -> dict:
-    """Kernel and plain times at the cell's shapes, with the bound, and for
-    ssd_bwd (tensor cores) the 3xTF32 bound.
+def ssd_work(case) -> dict:
+    """kernel -> (flops, bytes) of the SSD function at one of ``SSD_CASES``.
 
     Operations: the products the function needs, the score products over
-    the lower triangle (cl (cl + 1) / 2 pairs) only.  Forward: C B^T and
-    Sc X on the triangle, X^T (B o w) in full.  Backward: C B^T (recomputed),
-    dY X^T, Sc^T dY, dG B and dG^T C on the triangle, (B o w) dS^T and X dS
-    in full.  Bytes: each input read once, each output written once."""
+    the lower triangle (cl (cl + 1) / 2 pairs) only, and C B^T once per
+    (b, chunk, group).  Forward: C B^T and Sc X on the triangle, X^T (B o w)
+    in full.  Backward: C B^T, dY X^T, Sc^T dY, dG B and dG^T C on the
+    triangle, (B o w) dS^T and X dS in full.  Bytes: each input read once,
+    each output written once, B, C, dB and dC per group."""
+    _, b, nc, cl, h, grp, p, n = case
+    tri, f4 = cl * (cl + 1) // 2, 4
+    heads, groups = b * nc * h, b * nc * grp
+    xb, ab = b * nc * cl * h * p * f4, b * nc * cl * h * f4
+    nb, sb = b * nc * cl * grp * n * f4, b * nc * h * p * n * f4
+    cbt = groups * 2 * tri * n
+    return {
+        "ssd_fwd": (heads * (2 * tri * p + 2 * cl * p * n) + cbt,
+                    2 * xb + ab + 2 * nb + sb),
+        "ssd_bwd": (heads * (2 * tri * (2 * n + 2 * p) + 4 * cl * p * n) + cbt,
+                    2 * (xb + ab + 2 * nb) + xb + sb),
+    }
+
+
+def time_ssd_kernels(peak_flops: float, peak_bw: float,
+                     peak_tf32: float) -> dict:
+    """Kernel and plain times at the cell's shapes with B and C per group
+    (the main path), with the bound and the 3xTF32 bound (both kernels run
+    on the tensor cores); then the kernels' times with B and C per head
+    (G = H), the layout of the per-head kernels that came before, as
+    ``per_head_ms`` beside that layout's bounds.  ``ssd_bwd``'s time
+    includes the wrapper's sum of dB and dC over each group's heads;
+    ``launch_ms`` is its kernel alone, which writes them per head."""
     import torch
     from repro_torch.kernels.ssd_scan import kernel as K
 
     dev = torch.device("cuda")
-    _, b, nc, cl, h, p, n = SSD_CASES[0]
     x, a, bm, cm, dy, ds = ssd_inputs(SSD_CASES[0], dev, seed=0)
-    tri, blocks, f4 = cl * (cl + 1) // 2, b * nc * h, 4
-    xb, ab, nb, sb = (x.numel() * f4, a.numel() * f4, bm.numel() * f4,
-                      ds.numel() * f4)
-    work = {
-        "ssd_fwd": (blocks * (2 * tri * (n + p) + 2 * cl * p * n),
-                    2 * xb + ab + 2 * nb + sb),
-        "ssd_bwd": (blocks * (2 * tri * (3 * n + 2 * p) + 4 * cl * p * n),
-                    2 * (xb + ab + 2 * nb) + xb + sb),
-    }
     calls = {
         "ssd_fwd": (lambda: K.ssd_intra_chunk(x, a, bm, cm),
                     lambda: K.ssd_intra_chunk_plain(x, a, bm, cm)),
@@ -553,10 +577,24 @@ def time_ssd_kernels(peak_flops: float, peak_bw: float,
                     lambda: K.ssd_intra_chunk_bwd_plain(x, a, bm, cm, dy,
                                                         ds)),
     }
+    work = ssd_work(SSD_CASES[0])
     times = time_plain_and_kernel(calls, work, peak_flops, peak_bw, 5)
-    flops, nbytes = work["ssd_bwd"]
-    times["ssd_bwd"]["tf32x3_bound_ms"] = max(3 * flops / peak_tf32,
-                                              nbytes / peak_bw) * 1e3
+    times["ssd_bwd"]["launch_ms"] = time_ms(
+        lambda: K.ssd_bwd_per_head(x, a, bm, cm, dy, ds), 20)
+    del x, a, bm, cm, dy, ds, calls
+    head_work = ssd_work(SSD_CASES[1])
+    x, a, bm, cm, dy, ds = ssd_inputs(SSD_CASES[1], dev, seed=0)
+    per_head = {"ssd_fwd": lambda: K.ssd_intra_chunk(x, a, bm, cm),
+                "ssd_bwd": lambda: K.ssd_intra_chunk_bwd(x, a, bm, cm, dy, ds)}
+    for name, tm in times.items():
+        (flops, nbytes), (hflops, hbytes) = work[name], head_work[name]
+        tm["tf32x3_bound_ms"] = max(3 * flops / peak_tf32,
+                                    nbytes / peak_bw) * 1e3
+        tm["per_head_ms"] = time_ms(per_head[name], 20)
+        tm["per_head_bound_ms"] = max(hflops / peak_flops,
+                                      hbytes / peak_bw) * 1e3
+        tm["per_head_tf32x3_bound_ms"] = max(3 * hflops / peak_tf32,
+                                             hbytes / peak_bw) * 1e3
     return times
 
 
@@ -980,7 +1018,13 @@ def main() -> int:
             f"ms, library {lib_ms}, bound {tm['bound_ms']:.4f} ms "
             f"({tm['bound_by']})"
             + (f", 3xTF32 bound {tm['tf32x3_bound_ms']:.4f} ms"
-               if "tf32x3_bound_ms" in tm else ""))
+               if "tf32x3_bound_ms" in tm else "")
+            + (f"; launch alone {tm['launch_ms']:.3f} ms"
+               if "launch_ms" in tm else "")
+            + (f"; B and C per head: kernel {tm['per_head_ms']:.3f} ms, "
+               f"bound {tm['per_head_bound_ms']:.4f} ms, 3xTF32 bound "
+               f"{tm['per_head_tf32x3_bound_ms']:.4f} ms"
+               if "per_head_ms" in tm else ""))
     torch.cuda.empty_cache()
 
     # 3. small-input model checks, then the main paths
@@ -1038,6 +1082,8 @@ def main() -> int:
                if "tf32x3_bound_ms" in tm else {}),
             **({"hybrid_ms": report["hybrid_times"][name]["ms"]}
                if name in report["hybrid_times"] else {}),
+            **{key: tm[key] for key in ("launch_ms", "per_head_ms",
+                                        "per_head_bound_ms") if key in tm},
         })
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start

@@ -1,8 +1,9 @@
 // Tensor-core and asynchronous-copy helpers shared by the port's Hopper
-// kernels (flash_attention.cu, ssd_scan.cu): fp32 products on mma.sync
-// m16n8k8 TF32 with the 3xTF32 split, fragment loads from swizzled shared
-// tiles, and cp.async.  kernels/build.py hashes this header with each
-// source that includes it, so an edit rebuilds both libraries.
+// kernels (flash_attention.cu, ssd_scan.cu; rglru_scan.cu takes only the
+// cp.async ones): fp32 products on mma.sync m16n8k8 TF32 with the 3xTF32
+// split, fragment loads from swizzled shared tiles, and cp.async.
+// kernels/build.py hashes this header with each source that includes it,
+// so an edit rebuilds every library.
 //
 // mma.sync m16n8k8 TF32 fragments (PTX ISA), lane = 4 g + t:
 //   A (16 x 8, [m][k]): a0 (g, t)   a1 (g+8, t)    a2 (g, t+4)   a3 (g+8, t+4)

@@ -29,19 +29,38 @@
 // the carry in vector registers.  Here one thread owns one column w and
 // walks its L steps with the carry in a register; consecutive threads own
 // consecutive columns, so each step's loads and stores are coalesced 128-byte
-// rows of a warp.  The loads do not depend on the carry, so each thread
-// first loads UNROLL steps into registers (UNROLL loads of each operand in
-// flight at once) and then runs the dependent chain over them.  The grid is
-// only B W threads (8192 at the cell: two warps per SM), so the walk is
-// bound by the latency of each group of loads, not by the memory's rate; a
-// chunked scan (per-chunk local scans, then a carry fix-up) is the later
-// redesign that fills the card.  One warp per block spreads the warps over
-// as many SMs as possible.
+// rows of a warp.  One warp per block spreads the warps over as many SMs as
+// possible.  The grid is only B W threads (8192 at the cell, 256 warps: about
+// two an SM), so each warp must keep many loads in flight to draw the
+// memory's rate; the dependent chain itself (two rounded operations a step,
+// ~8 cycles) needs ~10 us for 2048 steps, a tenth of the bytes bound.
+//
+//   rglru_fwd: each thread loads UNROLL steps of a and bx into
+//   registers, then runs the chain over them.
+//
+//   rglru_bwd: a ring in shared memory of STAGES stages of STEPS steps of the
+//   warp's 32 columns of a, dh and h[t-1], filled by cp.async walking time
+//   backwards (16-byte copies, 8 lanes a 128-byte row, when W % 4 == 0 and
+//   the inputs are 16-byte aligned; else each lane copies its own column).
+//   While the chain runs over one stage, the next STAGES - 1 are in flight:
+//   3 x 16 = 48 steps, 18 KB a warp, ~36 KB an SM, where ~25 KB an SM cover
+//   ~1 us of loaded latency at 3.35 TB/s.  Occupancy: a block is BWD_WARPS
+//   warps (1), each with 24 KB of ring (4 x 16 x 3 x 32 floats), so every
+//   SM can hold all the warps it is given.  The chain is unchanged (same order, __fadd_rn,
+//   __fmul_rn, no FMA), so the kernel stays bit-equal to the plain version;
+//   a chunked scan would change the order of the roundings.  h0 enters at
+//   t = 0 in place of h[-1]; the last stage holds the first L % STEPS steps
+//   when L is no multiple of STEPS; lanes past W copy and store nothing.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
+#include <stdint.h>
+
+#include "../../csrc/mma_tf32.cuh"
 
 namespace {
+
+bool aligned16(const void* p) { return (uintptr_t)p % 16 == 0; }
 
 constexpr int NT = 32;      // threads per block: one warp
 constexpr int UNROLL = 16;  // steps loaded ahead of the dependent chain
@@ -78,48 +97,89 @@ rglru_fwd_kernel(const float* __restrict__ a, const float* __restrict__ bx,
   hT[(size_t)b * W + w] = carry;
 }
 
-// Reverse walk.  c carries a_{t+1} g_{t+1} (dhT at the start); h_{t-1} is
-// read from the saved output, h0 (or 0) at t = 0.
-__global__ void __launch_bounds__(NT)
+constexpr int BWD_WARPS = 1;  // warps per block, each with its own ring
+constexpr int STEPS = 16;     // steps of one ring stage
+constexpr int STAGES = 4;     // ring stages: STAGES - 1 in flight
+constexpr int RING = STAGES * 3 * STEPS * 32;  // floats a warp: a, dh, h[t-1]
+
+// Copy stage k of the reverse walk, steps [max(0, hi - STEPS), hi) with hi
+// = L - k STEPS, into ring slot st: row u of array q (a, dh, h[t-1]) holds
+// step t = hi - STEPS + u.  h[-1] (h0) is not copied.
+__device__ __forceinline__ void issue_stage(float* st, const float* __restrict__ a,
+                                            const float* __restrict__ dh,
+                                            const float* __restrict__ h,
+                                            size_t base, int w0, int hi, int W,
+                                            bool vec) {
+  const int lane = threadIdx.x & 31;
+  const float* src[3] = {a, dh, h};
+  if (vec) {
+    for (int i = lane; i < 3 * STEPS * 8; i += 32) {
+      const int q = i / (STEPS * 8), u = i / 8 % STEPS, col = w0 + 4 * (i % 8);
+      const int t = hi - STEPS + u, row = q == 2 ? t - 1 : t;
+      if (row >= 0 && col < W)
+        cp_async16(st + (q * STEPS + u) * 32 + 4 * (i % 8),
+                   src[q] + base + (size_t)row * W + col, 16);
+    }
+  } else if (w0 + lane < W) {
+    for (int i = 0; i < 3 * STEPS; ++i) {
+      const int q = i / STEPS, u = i % STEPS;
+      const int t = hi - STEPS + u, row = q == 2 ? t - 1 : t;
+      if (row >= 0)
+        cp_async4(st + i * 32 + lane,
+                  src[q] + base + (size_t)row * W + w0 + lane, 4);
+    }
+  }
+}
+
+// Reverse walk.  c carries a_{t+1} g_{t+1} (dhT at the start); h_{t-1} comes
+// from the ring, h0 (or 0) at t = 0.
+__global__ void __launch_bounds__(32 * BWD_WARPS)
 rglru_bwd_kernel(const float* __restrict__ a, const float* __restrict__ h,
                  const float* __restrict__ h0, const float* __restrict__ dh,
                  const float* __restrict__ dhT, float* __restrict__ da,
                  float* __restrict__ dbx, float* __restrict__ dh0, int L,
-                 int W) {
-  const int w = blockIdx.x * NT + threadIdx.x;
-  if (w >= W) return;
+                 int W, int vec) {
+  extern __shared__ __align__(16) float rings[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int w0 = (blockIdx.x * BWD_WARPS + warp) * 32, w = w0 + lane;
+  if (w0 >= W) return;  // a whole warp past W (warps sync only themselves)
+  float* ring = rings + warp * RING;
+  const bool live = w < W;
   const int b = blockIdx.y;
-  const size_t col = (size_t)b * L * W + w;
-  const float first = h0 != nullptr ? h0[(size_t)b * W + w] : 0.f;
-  float c = dhT[(size_t)b * W + w];
-  int t = L;  // steps [t, L) are done
-  for (; t - UNROLL >= 0; t -= UNROLL) {
-    const int t0 = t - UNROLL;
-    float av[UNROLL], dv[UNROLL], hp[UNROLL];
+  const size_t base = (size_t)b * L * W;
+  const int stages = (L + STEPS - 1) / STEPS;
 #pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      const size_t i = col + (size_t)(t0 + u) * W;
-      av[u] = __ldg(a + i);
-      dv[u] = __ldg(dh + i);
-      hp[u] = t0 + u > 0 ? __ldg(h + i - W) : first;
-    }
+  for (int k = 0; k < STAGES - 1; ++k) {
+    if (k < stages)
+      issue_stage(ring + k * (RING / STAGES), a, dh, h, base, w0, L - k * STEPS,
+                  W, vec);
+    cp_commit();
+  }
+  const float first = live && h0 != nullptr ? h0[(size_t)b * W + w] : 0.f;
+  float c = live ? dhT[(size_t)b * W + w] : 0.f;
+  for (int k = 0; k < stages; ++k) {
+    cp_wait<STAGES - 2>();  // stage k landed (the next STAGES - 2 in flight)
+    __syncwarp();           // ... for every lane; all are done with stage k - 1
+    const int next = k + STAGES - 1;
+    if (next < stages)
+      issue_stage(ring + next % STAGES * (RING / STAGES), a, dh, h, base, w0,
+                  L - next * STEPS, W, vec);
+    cp_commit();
+    const float* st = ring + k % STAGES * (RING / STAGES);
+    if (!live) continue;
 #pragma unroll
-    for (int u = UNROLL - 1; u >= 0; --u) {
-      const size_t i = col + (size_t)(t0 + u) * W;
-      const float g = __fadd_rn(dv[u], c);
-      da[i] = __fmul_rn(g, hp[u]);
+    for (int u = STEPS - 1; u >= 0; --u) {
+      const int t = L - (k + 1) * STEPS + u;
+      if (t < 0) continue;  // only in the last stage
+      const size_t i = base + (size_t)t * W + w;
+      const float hp = t > 0 ? st[(2 * STEPS + u) * 32 + lane] : first;
+      const float g = __fadd_rn(st[(STEPS + u) * 32 + lane], c);
+      da[i] = __fmul_rn(g, hp);
       dbx[i] = g;
-      c = __fmul_rn(av[u], g);
+      c = __fmul_rn(st[u * 32 + lane], g);
     }
   }
-  for (--t; t >= 0; --t) {
-    const size_t i = col + (size_t)t * W;
-    const float g = __fadd_rn(__ldg(dh + i), c);
-    da[i] = __fmul_rn(g, t > 0 ? __ldg(h + i - W) : first);
-    dbx[i] = g;
-    c = __fmul_rn(__ldg(a + i), g);
-  }
-  if (dh0 != nullptr) dh0[(size_t)b * W + w] = c;
+  if (live && dh0 != nullptr) dh0[(size_t)b * W + w] = c;
 }
 
 }  // namespace
@@ -139,9 +199,15 @@ int rglru_fwd(const float* a, const float* bx, const float* h0, float* h,
 int rglru_bwd(const float* a, const float* h, const float* h0,
               const float* dh, const float* dhT, float* da, float* dbx,
               float* dh0, int B, int L, int W, cudaStream_t stream) {
-  const dim3 grid((W + NT - 1) / NT, B);
-  rglru_bwd_kernel<<<grid, NT, 0, stream>>>(a, h, h0, dh, dhT, da, dbx, dh0,
-                                            L, W);
+  const dim3 grid((W + 32 * BWD_WARPS - 1) / (32 * BWD_WARPS), B);
+  const size_t smem = BWD_WARPS * RING * sizeof(float);
+  if (int e = (int)cudaFuncSetAttribute(
+          rglru_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          (int)smem))
+    return e;
+  const int vec = W % 4 == 0 && aligned16(a) && aligned16(dh) && aligned16(h);
+  rglru_bwd_kernel<<<grid, 32 * BWD_WARPS, smem, stream>>>(
+      a, h, h0, dh, dhT, da, dbx, dh0, L, W, vec);
   return (int)cudaGetLastError();
 }
 

@@ -20,53 +20,79 @@
 // L is never evaluated above the diagonal: there a_cum_i - a_cum_j > 0 and
 // its exp may overflow, and 0 * inf would be NaN.
 //
-// Layouts are the reference's: x (B,nc,cl,H,P), a (B,nc,cl,H), b/c
-// (B,nc,cl,H,N), y (B,nc,cl,H,P), states and dS (B,nc,H,P,N), contiguous
-// fp32.  One head's rows are strided by H*P (or H*N); each block loads its
-// head's rows with those strides (each row is P or N contiguous floats), so
-// the wrapper makes no permuted copy.  Sizes: cl <= 64, P <= 64, N <= 128,
-// any value >= 1 (the wrapper raises outside them).
+// Layouts: x (B,nc,cl,H,P), a (B,nc,cl,H), b/c (B,nc,cl,G,N) with B and C
+// per group (head h reads group h / (H / G); G == H is the reference's
+// per-head layout), y (B,nc,cl,H,P), states and dS (B,nc,H,P,N), contiguous
+// fp32; ssd_bwd writes dB and dC per head, (B,nc,cl,H,N), and the wrapper
+// sums each group's heads.  One head's rows are strided by H*P, one group's
+// by G*N; each block loads its rows with those strides (each row is P or N
+// contiguous floats), so the wrapper makes no permuted copy.  Sizes: cl <=
+// 64, P <= 64, N <= 128, any value >= 1, G dividing H (the wrapper raises
+// outside them).
 //
-// What bounds them on an H100: at the mamba2-1.3b shapes (cl 64, P 64,
-// N 128) a (b, c, h) item does ~2.6 MFLOP (forward) or ~4.2 MFLOP on the
-// lower triangles (backward) on ~130 KB (~210 KB) of device memory, ~20
-// flops per byte: below the tensor cores' ridge, so the bound is the bytes
-// (3.35 TB/s) once the products leave the CUDA cores.
+// What bounds them on an H100: at the mamba2-1.3b cell (cl 64, P 64, N 128,
+// H 64, G 1) the forward moves X, y, a and the states (~270 MB) and B and C
+// once per group (4 MB), ~20 flops per byte; the backward ~210 KB an item.
+// Both sit below the tensor cores' ridge, so the bound is the bytes (3.35
+// TB/s) once the products leave the CUDA cores.
 //
-// ssd_fwd, on the CUDA cores: one block of 256 threads per (b, c, h), every
-// operand in shared memory with rows padded by one float, the prefix sum of
-// a on one thread, each small product on a 16 x 16 thread grid from shared
-// memory (thread (tx, ty) owns rows ty + 16 i, columns tx + 16 j).
-//
-// ssd_bwd: tensor cores, asynchronous copies, no serial section.
+// Shared by both: tensor cores, asynchronous copies, no serial section.
 //   * Tiles are compile-time: 64 rows (cl or P), 64 (P or cl) or 128 (N)
 //     columns, unpadded and swizzled as in ../../csrc/mma_tf32.cuh; smaller
 //     or ragged shapes zero-fill the rest of each tile (cp.async's
 //     source-size operand), and zeros change none of the sums.  Rows come
 //     by 16-byte cp.async when P (N) is a multiple of 4 and the tensors are
 //     16-byte aligned, else by 4-byte copies.
-//   * All seven products on mma.sync m16n8k8 TF32 with the 3xTF32 split,
-//     fp32 accumulate.  Wherever Sc, dSc or dG enters a product, only the 20
-//     16 x 8 tiles that touch the lower triangle are computed or read: G and
-//     dSc on those tiles (warp w takes tiles w, w + 8, w + 16), Sc^T dY, dG B
-//     and dG^T C over k ranges that stop at the diagonal.  The last three
-//     pair row tiles {0, 3} and {1, 2}, so each warp does the same work.
-//   * Prefix sums are warp scans (__shfl_up/down_sync): a_cum, and the
-//     reverse cumsum that gives dA with the w q tail.  The row and column
-//     sums of dSc o Sc are reduced inside each warp's tile, written as
-//     per-tile partials and added in a fixed order by 64 threads; q's
-//     partials likewise.  No atomics, so a run repeats bit for bit.
+//   * Products on mma.sync m16n8k8 TF32 with the 3xTF32 split, fp32
+//     accumulate.  Wherever G = C B^T, Sc, dSc or dG enters a product, only
+//     the 20 16 x 8 tiles that touch the lower triangle are computed or read.
+//   * Prefix sums are warp scans (__shfl_up/down_sync).  No atomics, so a
+//     run repeats bit for bit.
+//
+// ssd_fwd: one block per (b, c, a run of up to `run` heads of one group),
+// run 8 by default (512 blocks at the cell; PERF.md section 6 has the
+// choice).  C B^T is the same for every head of a group, so the block
+// copies the group's B and C once (with the run's a) and forms G = C B^T
+// once, on the 20 lower-triangle tiles (8 warps; warp w takes tiles w, w +
+// 8, w + 16), while warps scan a_cum and w for every head of the run.  Then
+// for each head it streams X through a ring of three stages (the first a
+// buffer of its own, the other two C's buffer once G is formed; X of head j
+// + 2 is copied while head j computes) and forms
+//   y = Sc X       Sc = G o L_h built in the A fragments, L never evaluated
+//                  above the diagonal; row tiles paired {0, 3} / {1, 2} and k
+//                  stopping at the diagonal, so every warp does equal work
+//   state = (X o w)^T B   w scales the X fragments in registers; B, shared
+//                  by the run's heads, is never rescaled.
+// Outputs go straight from the accumulators as 16-byte rows: lanes 2t and
+// 2t + 1 swap one float pair by a shuffle, so each writes 4 consecutive
+// floats of one row (scalar stores where P, N or alignment do not allow).
+// Shared memory: B, C (64 KB), G (16 KB), X's own stage (16 KB) and 3 x run
+// x 64 floats of a, a_cum and w: 104,448 bytes at run 8, so two blocks
+// share an SM, and one block's copies overlap the other's products.  One
+// sync a head.  ptxas (CUDA 12.8): 127 registers, no spills.
+//
+// ssd_bwd (B and C read by group; each item's arithmetic is that of the
+// per-head layout):
+//   * All seven products on 3xTF32 mma.sync; G and dSc on the lower-triangle
+//     tiles (warp w takes tiles w, w + 8, w + 16), Sc^T dY, dG B and dG^T C
+//     over k ranges that stop at the diagonal.  The last three pair row
+//     tiles {0, 3} and {1, 2}, so each warp does the same work.
+//   * Prefix sums: a_cum, and the reverse cumsum that gives dA with the w q
+//     tail.  The row and column sums of dSc o Sc are reduced inside each
+//     warp's tile, written as per-tile partials and added in a fixed order
+//     by 64 threads; q's partials likewise.
 //   * Occupancy: the B, C, X, dY and dS tiles alone are 128 KB, so two
 //     blocks of an SM cannot both hold an item.  The kernel is persistent
-//     instead: one block of 8 warps an SM walks items blockIdx.x,
-//     blockIdx.x + gridDim.x, ...; B and C have two stages, and the next
-//     item's B and C are copied while the current item computes.  X, dY and
-//     a, then dS, are copied as soon as the current item is done with them,
-//     in two commit groups, so the next item computes G = C B^T while they
-//     are in flight and dSc while dS is.  Shared memory: two stages of B and
-//     C (128 KB), X, dY, dS (64 KB), Sc, dG (32 KB) and 2,688 B of row data
-//     and partials: 232,064 of the 232,448 bytes a block may hold.  ptxas
-//     (CUDA 12.8): 207 registers, no spills.
+//     instead: one block of 8 warps an SM walks items (b, c, h), h fastest,
+//     blockIdx.x, blockIdx.x + gridDim.x, ...; B and C have two stages, and
+//     the next item's B and C (its group's rows) are copied while the
+//     current item computes.  X, dY and a, then dS, are copied as soon as
+//     the current item is done with them, in two commit groups, so the next
+//     item computes G = C B^T while they are in flight and dSc while dS is.
+//     Shared memory: two stages of B and C (128 KB), X, dY, dS (64 KB), Sc,
+//     dG (32 KB) and 2,688 B of row data and partials: 232,064 of the
+//     232,448 bytes a block may hold.  ptxas (CUDA 12.8): 211 registers, no
+//     spills.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -79,45 +105,15 @@
 
 namespace {
 
-constexpr int NT = 256;  // threads per block (16 x 16, or 8 warps)
+constexpr int NT = 256;  // threads per block (8 warps)
 constexpr int MAX_CL = 64, MAX_P = 64, MAX_N = 128;
+constexpr int CL = MAX_CL, PM = MAX_P, NM = MAX_N;  // the tiles' sizes
+constexpr int NTRI = 20;  // 16 x 8 tiles of a CL x CL tile on or below the diagonal
+constexpr unsigned FULL = 0xffffffffu;
 
 struct Geom {
-  int B, nc, cl, H, P, N;
+  int B, nc, cl, H, G, P, N;
 };
-
-// acc[i][j] += sum_{k<K} A(ty + 16 i, k) * Bm(tx + 16 j, k) for rows < M,
-// columns < Nc; operands outside the output's range read as zero.
-template <int RM, int RN, class FA, class FB>
-__device__ __forceinline__ void mm_acc(float (&acc)[RM][RN], int M, int Nc,
-                                       int K, FA A, FB Bm) {
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  for (int k = 0; k < K; ++k) {
-    float av[RM], bv[RN];
-#pragma unroll
-    for (int i = 0; i < RM; ++i) {
-      const int r = ty + 16 * i;
-      av[i] = r < M ? A(r, k) : 0.f;
-    }
-#pragma unroll
-    for (int j = 0; j < RN; ++j) {
-      const int col = tx + 16 * j;
-      bv[j] = col < Nc ? Bm(col, k) : 0.f;
-    }
-#pragma unroll
-    for (int i = 0; i < RM; ++i)
-#pragma unroll
-      for (int j = 0; j < RN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-  }
-}
-
-template <int RM, int RN>
-__device__ __forceinline__ void zero(float (&acc)[RM][RN]) {
-#pragma unroll
-  for (int i = 0; i < RM; ++i)
-#pragma unroll
-    for (int j = 0; j < RN; ++j) acc[i][j] = 0.f;
-}
 
 // offset of row i of head h, chunk c, batch b in a (B, nc, cl, H, D) tensor
 __device__ __forceinline__ size_t row_off(const Geom& g, int b, int c, int i,
@@ -125,121 +121,17 @@ __device__ __forceinline__ size_t row_off(const Geom& g, int b, int c, int i,
   return ((((size_t)b * g.nc + c) * g.cl + i) * g.H + h) * (size_t)D;
 }
 
-// the chunk's cl rows of one head into a shared tile with row stride D + 1
-__device__ __forceinline__ void load_rows(float* dst, const float* __restrict__ src,
-                                          const Geom& g, int b, int c, int h,
-                                          int D) {
-  for (int idx = threadIdx.x; idx < g.cl * D; idx += NT) {
-    const int r = idx / D, col = idx % D;
-    dst[r * (D + 1) + col] = src[row_off(g, b, c, r, h, D) + col];
-  }
+// offset of row i of group grp in a (B, nc, cl, G, N) tensor (B or C)
+__device__ __forceinline__ size_t grp_off(const Geom& g, int b, int c, int i,
+                                          int grp) {
+  return ((((size_t)b * g.nc + c) * g.cl + i) * g.G + grp) * (size_t)g.N;
 }
 
-// a_cum (prefix sum of the chunk's a, fp32, sequential) and w
-__device__ __forceinline__ void decays(float* acum, float* w,
-                                       const float* __restrict__ a,
-                                       const Geom& g, int b, int c, int h) {
-  if (threadIdx.x == 0) {
-    float s = 0.f;
-    for (int i = 0; i < g.cl; ++i) {
-      s += a[row_off(g, b, c, i, h, 1)];
-      acum[i] = s;
-    }
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < g.cl; i += NT)
-    w[i] = expf(acum[g.cl - 1] - acum[i]);
+// offset of head h's (P, N) state in a (B, nc, H, P, N) tensor
+__device__ __forceinline__ size_t state_off(const Geom& g, int b, int c,
+                                            int h) {
+  return (((size_t)b * g.nc + c) * g.H + h) * g.P * (size_t)g.N;
 }
-
-size_t fwd_smem(const Geom& g) {
-  const int cl = g.cl, P = g.P, N = g.N;
-  return (size_t)(cl * (P + 1) + 2 * cl * (N + 1) + cl * (cl + 1) + 2 * cl) *
-         sizeof(float);
-}
-
-// ------------------------------------------------------------------ forward
-
-__global__ void __launch_bounds__(NT)
-    ssd_fwd_kernel(const float* __restrict__ x, const float* __restrict__ a,
-                   const float* __restrict__ bm, const float* __restrict__ cm,
-                   float* __restrict__ y, float* __restrict__ st, Geom g) {
-  const int h = blockIdx.x, c = blockIdx.y, b = blockIdx.z;
-  const int cl = g.cl, P = g.P, N = g.N;
-  const int XP = P + 1, NP = N + 1, CP = cl + 1;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  extern __shared__ float smem[];
-  float* Xs = smem;              // cl x XP
-  float* Bs = Xs + cl * XP;      // cl x NP
-  float* Cs = Bs + cl * NP;      // cl x NP
-  float* Ss = Cs + cl * NP;      // cl x CP: Sc = (C B^T) o L
-  float* acum = Ss + cl * CP;    // cl
-  float* w = acum + cl;          // cl
-
-  load_rows(Xs, x, g, b, c, h, P);
-  load_rows(Bs, bm, g, b, c, h, N);
-  load_rows(Cs, cm, g, b, c, h, N);
-  decays(acum, w, a, g, b, c, h);
-  __syncthreads();
-
-  {  // Sc = (C B^T) o L, zero above the diagonal
-    float acc[4][4];
-    zero(acc);
-    mm_acc(acc, cl, cl, N, [&](int i, int k) { return Cs[i * NP + k]; },
-           [&](int j, int k) { return Bs[j * NP + k]; });
-#pragma unroll
-    for (int ii = 0; ii < 4; ++ii)
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const int i = ty + 16 * ii, j = tx + 16 * jj;
-        if (i < cl && j < cl)
-          Ss[i * CP + j] = i >= j ? acc[ii][jj] * expf(acum[i] - acum[j]) : 0.f;
-      }
-  }
-  __syncthreads();
-
-  {  // y_diag = Sc X
-    float acc[4][4];
-    zero(acc);
-    mm_acc(acc, cl, P, cl, [&](int i, int k) { return Ss[i * CP + k]; },
-           [&](int p, int k) { return Xs[k * XP + p]; });
-#pragma unroll
-    for (int ii = 0; ii < 4; ++ii)
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const int i = ty + 16 * ii, p = tx + 16 * jj;
-        if (i < cl && p < P) y[row_off(g, b, c, i, h, P) + p] = acc[ii][jj];
-      }
-  }
-
-  {  // state = X^T (B o w), (P x N)
-    float acc[4][8];
-    zero(acc);
-    mm_acc(acc, P, N, cl, [&](int p, int k) { return Xs[k * XP + p]; },
-           [&](int n, int k) { return Bs[k * NP + n] * w[k]; });
-    float* out = st + ((((size_t)b * g.nc + c) * g.H + h) * P) * (size_t)N;
-#pragma unroll
-    for (int ii = 0; ii < 4; ++ii)
-#pragma unroll
-      for (int jj = 0; jj < 8; ++jj) {
-        const int p = ty + 16 * ii, n = tx + 16 * jj;
-        if (p < P && n < N) out[(size_t)p * N + n] = acc[ii][jj];
-      }
-  }
-}
-
-// ----------------------------------------------------------------- backward
-
-constexpr int CL = MAX_CL, PM = MAX_P, NM = MAX_N;  // the tiles' sizes
-constexpr int NTRI = 20;  // 16 x 8 tiles of a CL x CL tile on or below the diagonal
-// part: the row (NTRI x 16) and column (NTRI x 8) partials of dSc o Sc,
-// later q's partials (4 x CL)
-constexpr int PART = NTRI * 24;
-constexpr size_t BWD_SMEM =
-    (size_t)(4 * CL * NM + 2 * CL * PM + PM * NM + 2 * CL * CL + 3 * CL +
-             PART) *
-    sizeof(float);
-static_assert(BWD_SMEM <= 232448, "ssd_bwd: above a block's shared memory");
-static_assert(4 * CL <= PART, "q's partials overlay the dSc o Sc partials");
 
 // row tile (16 rows) and column tile (8 columns) of lower-triangle tile tl:
 // row tile m holds tiles m (m + 1) .. m (m + 1) + 2 m + 1
@@ -247,14 +139,6 @@ __device__ __forceinline__ void tri_tile(int tl, int& i0, int& j0) {
   const int m = tl < 2 ? 0 : tl < 6 ? 1 : tl < 12 ? 2 : 3;
   i0 = 16 * m;
   j0 = 8 * (tl - m * (m + 1));
-}
-
-__device__ __forceinline__ void item_coords(long long it, const Geom& g,
-                                            int& b, int& c, int& h) {
-  h = (int)(it % g.H);
-  const long long bc = it / g.H;
-  c = (int)(bc % g.nc);
-  b = (int)(bc / g.nc);
 }
 
 // rows [0, nrows) x columns [0, ncols) of a matrix whose row r starts at
@@ -283,6 +167,282 @@ __device__ __forceinline__ void copy_tile(float* dst,
   }
 }
 
+// G = C B^T on this warp's lower-triangle tiles (w, w + 8, w + 16), into the
+// swizzled CL x CL tile out
+__device__ __forceinline__ void cbt_tiles(const float* Cs, const float* Bs,
+                                          float* out, int warp) {
+  const int gq = lane_g(), tq = lane_t();
+  for (int tl = warp; tl < NTRI; tl += 8) {
+    int i0, j0;
+    tri_tile(tl, i0, j0);
+    float acc[2][2][4];  // [parity][big, small]
+#pragma unroll
+    for (int i = 0; i < 16; ++i) (&acc[0][0][0])[i] = 0.f;
+#pragma unroll 2
+    for (int k0 = 0; k0 < NM; k0 += 16) {
+#pragma unroll
+      for (int par = 0; par < 2; ++par) {
+        uint32_t ah[4], al[4], bh[2], bl[2];
+        load_a<NM>(Cs, i0, k0 + 8 * par, ah, al);
+        load_bt<NM>(Bs, j0, k0 + 8 * par, bh, bl);
+        mma3(acc[par][0], acc[par][1], ah, al, bh, bl);
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      out[swz<CL>(i0 + gq + 8 * (e >> 1), j0 + 2 * tq + (e & 1))] =
+          (acc[0][0][e] + acc[1][0][e]) + (acc[0][1][e] + acc[1][1][e]);
+  }
+}
+
+// ------------------------------------------------------------------ forward
+
+constexpr int MAX_RUN = 16;  // most heads one forward block takes
+
+size_t fwd_smem(int run) {
+  return (size_t)(2 * CL * NM + CL * CL + CL * PM + 3 * run * CL) *
+         sizeof(float);
+}
+static_assert(2 * (2 * CL * NM + CL * CL + CL * PM + 3 * 8 * CL) * 4 + 2048 <=
+                  233472,
+              "ssd_fwd: two blocks of run 8 no longer share an SM");
+
+struct FwdArgs {
+  const float *x, *a, *bm, *cm;
+  float *y, *st;
+  int run;     // heads of one group a block takes
+  int vp, vn;  // 16-byte copies and stores along P, along N
+};
+
+// A fragment of Sc = G o L at rows i0.., columns k0.. (the mma_tf32.cuh
+// layout), from the swizzled G tile and a_cum: L_ij = exp(a_cum_i -
+// a_cum_j) for j <= i, and Sc is 0 above the diagonal, where L is never
+// evaluated (its exponent is positive there and may overflow)
+__device__ __forceinline__ void load_sc(const float* Gs, const float* ac,
+                                        int i0, int k0, uint32_t (&hi)[4],
+                                        uint32_t (&lo)[4]) {
+  const int l = threadIdx.x & 31, mat = l >> 3;
+  const int gq = lane_g(), tq = lane_t();
+  uint32_t r[4];
+  ldsm_x4(r, Gs + swz<CL>(i0 + (l & 7) + 8 * (mat & 1), k0 + 4 * (mat >> 1)));
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = i0 + gq + 8 * (i & 1), col = k0 + tq + 4 * (i >> 1);
+    const float v =
+        col <= row ? __uint_as_float(r[i]) * expf(ac[row] - ac[col]) : 0.f;
+    split(v, hi[i], lo[i]);
+  }
+}
+
+// A fragment of (X o w)^T at rows (P) m0.., columns (steps) k0.., from the
+// swizzled [k][m] X tile, each step's X scaled by its w (w0 = w[k0 + t],
+// w1 = w[k0 + t + 4])
+__device__ __forceinline__ void load_xwt(const float* Xs, int m0, int k0,
+                                         float w0, float w1,
+                                         uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+  const int gq = lane_g(), tq = lane_t();
+  split(Xs[swz<PM>(k0 + tq, m0 + gq)] * w0, hi[0], lo[0]);
+  split(Xs[swz<PM>(k0 + tq, m0 + gq + 8)] * w0, hi[1], lo[1]);
+  split(Xs[swz<PM>(k0 + tq + 4, m0 + gq)] * w1, hi[2], lo[2]);
+  split(Xs[swz<PM>(k0 + tq + 4, m0 + gq + 8)] * w1, hi[3], lo[3]);
+}
+
+// one 16 x 8 accumulator tile, v = (g, 2t), (g, 2t + 1), (g + 8, 2t),
+// (g + 8, 2t + 1) relative to (row g of row_g / row_g8, column col0), into
+// rows whose starts are row_g and row_g8 (null when the row is outside the
+// output), columns < ncols.  vec (ncols % 4 == 0, rows 16-byte aligned):
+// lanes 2t and 2t + 1 swap a pair, and each writes 4 floats of one row.
+__device__ __forceinline__ void store_tile(float* row_g, float* row_g8,
+                                           int col0, int ncols,
+                                           const float (&v)[4], bool vec) {
+  const int tq = lane_t();
+  if (vec) {
+    const bool odd = tq & 1;
+    const float r0 = __shfl_xor_sync(FULL, odd ? v[0] : v[2], 1);
+    const float r1 = __shfl_xor_sync(FULL, odd ? v[1] : v[3], 1);
+    const int col = col0 + 2 * (tq & 2);
+    float* row = odd ? row_g8 : row_g;
+    if (row != nullptr && col < ncols)
+      *reinterpret_cast<float4*>(row + col) =
+          odd ? make_float4(r0, r1, v[2], v[3]) : make_float4(v[0], v[1], r0, r1);
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float* row = e < 2 ? row_g : row_g8;
+      const int col = col0 + 2 * tq + (e & 1);
+      if (row != nullptr && col < ncols) row[col] = v[e];
+    }
+  }
+}
+
+__device__ __forceinline__ void issue_x(float* Xs, const FwdArgs& p,
+                                        const Geom& g, int b, int c, int h) {
+  copy_tile<PM>(Xs, p.x, row_off(g, b, c, 0, h, g.P), (size_t)g.H * g.P,
+                g.cl, g.P, p.vp);
+}
+
+// item = (b, c, group, run of heads), the run fastest, so the blocks of one
+// (b, c, group) start together and share its B and C in L2
+__global__ void __launch_bounds__(NT, 2) ssd_fwd_kernel(FwdArgs p, Geom g) {
+  extern __shared__ __align__(16) float tc_smem[];
+  float* Bs = tc_smem;                // CL x NM
+  float* Cs = Bs + CL * NM;           // CL x NM: C, then X stages 1 and 2
+  float* Gs = Cs + CL * NM;           // CL x CL: G on the lower-triangle tiles
+  float* X0 = Gs + CL * CL;           // CL x PM: X stage 0
+  float* abuf = X0 + CL * PM;         // run x CL: a, head by head
+  float* acum = abuf + p.run * CL;    // run x CL
+  float* wbuf = acum + p.run * CL;    // run x CL
+  // X ring: head j's X in stage j % 3 (X0, then the two halves of Cs)
+  auto xbuf = [&](int j) { return j % 3 ? Cs + (j % 3 - 1) * CL * PM : X0; };
+
+  const int R = g.H / g.G, nr = (R + p.run - 1) / p.run;
+  long long it = blockIdx.x;
+  const int r = (int)(it % nr);
+  it /= nr;
+  const int grp = (int)(it % g.G);
+  it /= g.G;
+  const int c = (int)(it % g.nc), b = (int)(it / g.nc);
+  const int h0 = grp * R + r * p.run, nh = min(p.run, R - r * p.run);
+  const int cl = g.cl;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gq = lane_g();
+
+  // copy groups: (B, C, a), X of head 0, X of head 1
+  const size_t bc = grp_off(g, b, c, 0, grp), bc_stride = (size_t)g.G * g.N;
+  copy_tile<NM>(Bs, p.bm, bc, bc_stride, cl, g.N, p.vn);
+  copy_tile<NM>(Cs, p.cm, bc, bc_stride, cl, g.N, p.vn);
+  for (int i = threadIdx.x; i < p.run * CL; i += NT) {
+    const int j = i % p.run, row = i / p.run;  // a run's heads are adjacent
+    const bool in = j < nh && row < cl;
+    cp_async4(abuf + j * CL + row, in ? p.a + row_off(g, b, c, row, h0 + j, 1)
+                                      : p.a,
+              in ? 4 : 0);
+  }
+  cp_commit();
+  issue_x(X0, p, g, b, c, h0);
+  cp_commit();
+  cp_wait<1>();  // B, C and a landed (X of head 0 may be in flight)
+  __syncthreads();
+
+  // a_cum = cumsum(a) and w = exp(a_cum_last - a_cum) of head j on warp j:
+  // two steps a lane, then a warp scan; rows past cl hold a = 0, so the
+  // total is a_cum_last
+  for (int j = warp; j < nh; j += NT / 32) {
+    const float a0 = abuf[j * CL + 2 * lane], a1 = abuf[j * CL + 2 * lane + 1];
+    float s = a0 + a1;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const float o = __shfl_up_sync(FULL, s, d);
+      if (lane >= d) s += o;
+    }
+    float before = __shfl_up_sync(FULL, s, 1);
+    if (lane == 0) before = 0.f;
+    const float total = __shfl_sync(FULL, s, 31);
+    const float c0 = before + a0;
+    acum[j * CL + 2 * lane] = c0;
+    acum[j * CL + 2 * lane + 1] = s;
+    wbuf[j * CL + 2 * lane] = expf(total - c0);
+    wbuf[j * CL + 2 * lane + 1] = expf(total - s);
+  }
+  cbt_tiles(Cs, Bs, Gs, warp);
+  __syncthreads();  // G, a_cum and w complete; C is read
+  if (nh > 1) issue_x(xbuf(1), p, g, b, c, h0 + 1);
+  cp_commit();
+
+  // y: row tiles {0, 3} (even warps) or {1, 2} (odd), columns p0 .. p0 + 15;
+  // state: every row tile, columns n0 .. n0 + 15
+  const int mt0 = (warp & 1) ? 1 : 0, mt1 = (warp & 1) ? 2 : 3;
+  const int p0 = (warp >> 1) * 16, n0 = warp * 16;
+  for (int j = 0; j < nh; ++j) {
+    cp_wait<1>();     // X of head j landed (head j + 1's may be in flight)
+    __syncthreads();  // ... for all; every warp is done with head j - 1
+    if (j + 2 < nh) issue_x(xbuf(j + 2), p, g, b, c, h0 + j + 2);
+    cp_commit();
+    const float* Xs = xbuf(j);
+    const float* ac = acum + j * CL;
+    const float* w = wbuf + j * CL;
+    const int h = h0 + j;
+
+    // y = Sc X, k stopping at the diagonal
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+      const int i0 = 16 * (m ? mt1 : mt0);
+      float big[2][4], small[2][4];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) (&big[0][0])[i] = (&small[0][0])[i] = 0.f;
+      for (int k0 = 0; k0 < i0 + 16; k0 += 8) {
+        uint32_t ah[4], al[4];
+        load_sc(Gs, ac, i0, k0, ah, al);
+#pragma unroll
+        for (int jn = 0; jn < 2; ++jn) {
+          uint32_t bh[2], bl[2];
+          load_b<PM>(Xs, k0, p0 + 8 * jn, bh, bl);
+          mma3(big[jn], small[jn], ah, al, bh, bl);
+        }
+      }
+      const int r0 = i0 + gq, r8 = r0 + 8;
+      float* yg = r0 < cl ? p.y + row_off(g, b, c, r0, h, g.P) : nullptr;
+      float* y8 = r8 < cl ? p.y + row_off(g, b, c, r8, h, g.P) : nullptr;
+#pragma unroll
+      for (int jn = 0; jn < 2; ++jn) {
+        const float v[4] = {big[jn][0] + small[jn][0], big[jn][1] + small[jn][1],
+                            big[jn][2] + small[jn][2], big[jn][3] + small[jn][3]};
+        store_tile(yg, y8, p0 + 8 * jn, g.P, v, p.vp);
+      }
+    }
+
+    // state = (X o w)^T B, (P x N)
+    float acc[4][2][4];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) (&acc[0][0][0])[i] = 0.f;
+#pragma unroll 2
+    for (int k0 = 0; k0 < CL; k0 += 8) {
+      uint32_t bh[2][2], bl[2][2];
+#pragma unroll
+      for (int jn = 0; jn < 2; ++jn) load_b<NM>(Bs, k0, n0 + 8 * jn, bh[jn], bl[jn]);
+      const float w0 = w[k0 + lane_t()], w1 = w[k0 + lane_t() + 4];
+#pragma unroll
+      for (int mp = 0; mp < 4; ++mp) {
+        uint32_t ah[4], al[4];
+        load_xwt(Xs, 16 * mp, k0, w0, w1, ah, al);
+#pragma unroll
+        for (int jn = 0; jn < 2; ++jn)
+          mma3(acc[mp][jn], acc[mp][jn], ah, al, bh[jn], bl[jn]);
+      }
+    }
+    float* out = p.st + state_off(g, b, c, h);
+#pragma unroll
+    for (int mp = 0; mp < 4; ++mp) {
+      const int r0 = 16 * mp + gq, r8 = r0 + 8;
+      float* sg = r0 < g.P ? out + (size_t)r0 * g.N : nullptr;
+      float* s8 = r8 < g.P ? out + (size_t)r8 * g.N : nullptr;
+#pragma unroll
+      for (int jn = 0; jn < 2; ++jn)
+        store_tile(sg, s8, n0 + 8 * jn, g.N, acc[mp][jn], p.vn);
+    }
+  }
+}
+
+// ----------------------------------------------------------------- backward
+
+// part: the row (NTRI x 16) and column (NTRI x 8) partials of dSc o Sc,
+// later q's partials (4 x CL)
+constexpr int PART = NTRI * 24;
+constexpr size_t BWD_SMEM =
+    (size_t)(4 * CL * NM + 2 * CL * PM + PM * NM + 2 * CL * CL + 3 * CL +
+             PART) *
+    sizeof(float);
+static_assert(BWD_SMEM <= 232448, "ssd_bwd: above a block's shared memory");
+static_assert(4 * CL <= PART, "q's partials overlay the dSc o Sc partials");
+
+__device__ __forceinline__ void item_coords(long long it, const Geom& g,
+                                            int& b, int& c, int& h) {
+  h = (int)(it % g.H);
+  const long long bc = it / g.H;
+  c = (int)(bc % g.nc);
+  b = (int)(bc / g.nc);
+}
+
 struct BwdArgs {
   const float *x, *a, *bm, *cm, *dy, *ds;
   float *dx, *da, *db, *dc;
@@ -294,7 +454,8 @@ __device__ __forceinline__ void issue_bc(float* Bs, float* Cs,
                                          long long it) {
   int b, c, h;
   item_coords(it, g, b, c, h);
-  const size_t at = row_off(g, b, c, 0, h, g.N), stride = (size_t)g.H * g.N;
+  const size_t at = grp_off(g, b, c, 0, h / (g.H / g.G)),
+               stride = (size_t)g.G * g.N;
   copy_tile<NM>(Bs, p.bm, at, stride, g.cl, g.N, p.vn);
   copy_tile<NM>(Cs, p.cm, at, stride, g.cl, g.N, p.vn);
 }
@@ -319,8 +480,7 @@ __device__ __forceinline__ void issue_ds(float* dSs, const BwdArgs& p,
                                          const Geom& g, long long it) {
   int b, c, h;
   item_coords(it, g, b, c, h);
-  const size_t at = (((size_t)b * g.nc + c) * g.H + h) * g.P * (size_t)g.N;
-  copy_tile<NM>(dSs, p.ds, at, g.N, g.P, g.N, p.vn);
+  copy_tile<NM>(dSs, p.ds, state_off(g, b, c, h), g.N, g.P, g.N, p.vn);
 }
 
 // rows r (< nrows) of a (.., D) output at out + row_off of row r, columns
@@ -382,27 +542,7 @@ __global__ void __launch_bounds__(NT, 1)
     cp_commit();
 
     // G = C B^T on this warp's lower-triangle tiles, into Scs
-    for (int tl = warp; tl < NTRI; tl += 8) {
-      int i0, j0;
-      tri_tile(tl, i0, j0);
-      float acc[2][2][4];  // [parity][big, small]
-#pragma unroll
-      for (int i = 0; i < 16; ++i) (&acc[0][0][0])[i] = 0.f;
-#pragma unroll 2
-      for (int k0 = 0; k0 < NM; k0 += 16) {
-#pragma unroll
-        for (int par = 0; par < 2; ++par) {
-          uint32_t ah[4], al[4], bh[2], bl[2];
-          load_a<NM>(Cs, i0, k0 + 8 * par, ah, al);
-          load_bt<NM>(Bs, j0, k0 + 8 * par, bh, bl);
-          mma3(acc[par][0], acc[par][1], ah, al, bh, bl);
-        }
-      }
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        Scs[swz<CL>(i0 + gq + 8 * (e >> 1), j0 + 2 * tq + (e & 1))] =
-            (acc[0][0][e] + acc[1][0][e]) + (acc[0][1][e] + acc[1][1][e]);
-    }
+    cbt_tiles(Cs, Bs, Scs, warp);
 
     cp_wait<2>();     // X, dY and a landed (dS, the next B and C in flight)
     __syncthreads();
@@ -691,9 +831,9 @@ int set_smem(K kernel, size_t bytes) {
 constexpr int kBadShape = -1;
 
 bool bad_shape(const Geom& g) {
-  return g.B < 1 || g.nc < 1 || g.cl < 1 || g.H < 1 || g.P < 1 || g.N < 1 ||
-         g.cl > MAX_CL || g.P > MAX_P || g.N > MAX_N || g.nc > 65535 ||
-         g.B > 65535;
+  return g.B < 1 || g.nc < 1 || g.cl < 1 || g.H < 1 || g.G < 1 || g.P < 1 ||
+         g.N < 1 || g.cl > MAX_CL || g.P > MAX_P || g.N > MAX_N ||
+         g.H % g.G != 0;
 }
 
 bool aligned16(std::initializer_list<const void*> ptrs) {
@@ -708,25 +848,31 @@ extern "C" {
 
 // All pointers are device pointers.  Returns 0 on success, a cudaError_t
 // code if the launch was refused, or -1 for sizes outside cl <= 64, P <= 64,
-// N <= 128.
+// N <= 128, G dividing H (and run outside 1..16, or too many blocks).
+// run: heads of one group a forward block takes.
 int ssd_fwd(const float* x, const float* a, const float* b, const float* c,
-            float* y, float* states, int B, int nc, int cl, int H, int P,
-            int N, void* stream) {
-  Geom g{B, nc, cl, H, P, N};
-  if (bad_shape(g)) return kBadShape;
-  const size_t smem = fwd_smem(g);
+            float* y, float* states, int run, int B, int nc, int cl, int H,
+            int G, int P, int N, void* stream) {
+  Geom g{B, nc, cl, H, G, P, N};
+  if (bad_shape(g) || run < 1 || run > MAX_RUN) return kBadShape;
+  const int R = H / G;
+  const long long items = (long long)B * nc * G * ((R + run - 1) / run);
+  if (items > 0x7fffffffLL) return kBadShape;
+  const size_t smem = fwd_smem(run);
   if (int e = set_smem(ssd_fwd_kernel, smem)) return e;
-  dim3 grid(H, nc, B);
-  ssd_fwd_kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(x, a, b, c, y,
-                                                           states, g);
+  FwdArgs p{x, a, b, c, y, states, run,
+            P % 4 == 0 && aligned16({x, y}),
+            N % 4 == 0 && aligned16({b, c, states})};
+  ssd_fwd_kernel<<<(unsigned)items, NT, smem, (cudaStream_t)stream>>>(p, g);
   return (int)cudaGetLastError();
 }
 
+// db and dc are per head, (B, nc, cl, H, N); b and c per group.
 int ssd_bwd(const float* x, const float* a, const float* b, const float* c,
             const float* dy, const float* ds, float* dx, float* da, float* db,
-            float* dc, int B, int nc, int cl, int H, int P, int N,
+            float* dc, int B, int nc, int cl, int H, int G, int P, int N,
             void* stream) {
-  Geom g{B, nc, cl, H, P, N};
+  Geom g{B, nc, cl, H, G, P, N};
   if (bad_shape(g)) return kBadShape;
   if (int e = set_smem(ssd_bwd_kernel, BWD_SMEM)) return e;
   int dev = 0, sms = 0;

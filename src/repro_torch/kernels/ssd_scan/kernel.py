@@ -9,17 +9,20 @@ picks the implementation: a CPU tensor takes the plain version, a CUDA
 tensor launches the kernel (built from ``csrc/ssd_scan.cu`` on first use)
 or raises.  Each launch adds one to ``LAUNCHES[name]``; nothing else does.
 
-Per (batch, chunk, head), with ``a_cum = cumsum(a)`` over the chunk,
+Per (batch, chunk, head h), with ``a_cum = cumsum(a)`` over the chunk,
 ``L_ij = exp(a_cum_i - a_cum_j)`` for i >= j (0 above the diagonal, never
 computed there: the exponent is positive and may overflow) and
 ``w_j = exp(a_cum_last - a_cum_j)``:
 
     y_diag = ((C B^T) o L) X          state = X^T (B o w)
 
-Layouts are the reference's: x (B,nc,cl,H,P), a (B,nc,cl,H), b/c
-(B,nc,cl,H,N), y_diag (B,nc,cl,H,P), states (B,nc,H,P,N), all float32.
-Both devices enforce the kernel's shape rule (cl <= 64, P <= 64,
-N <= 128) with ``ValueError``.
+where B and C are those of h's group, ``h // (H // G)``.  Layouts: x
+(B,nc,cl,H,P), a (B,nc,cl,H), b/c (B,nc,cl,G,N) with ``H % G == 0``,
+y_diag (B,nc,cl,H,P), states (B,nc,H,P,N), all float32; G == H is the
+reference's layout (B and C per head).  The backward returns db and dc in
+the inputs' layout, summed over the heads of each group.  Both devices
+enforce the kernel's shape rule (cl <= 64, P <= 64, N <= 128, G divides H)
+with ``ValueError``.
 """
 
 from __future__ import annotations
@@ -47,17 +50,21 @@ def check_shapes(name: str, x, a, b, c, dy=None, ds=None) -> None:
     device, so that the CPU tests meet the card's rule."""
     if x.dim() != 5 or a.dim() != 4 or b.dim() != 5 or b.shape != c.shape:
         raise ValueError(
-            f"{name}: want x (B,nc,cl,H,P), a (B,nc,cl,H), b/c (B,nc,cl,H,N);"
+            f"{name}: want x (B,nc,cl,H,P), a (B,nc,cl,H), b/c (B,nc,cl,G,N);"
             f" got {tuple(x.shape)}, {tuple(a.shape)}, {tuple(b.shape)}, "
             f"{tuple(c.shape)}")
     bsz, nc, cl, h, p = x.shape
-    n = b.shape[-1]
-    if tuple(a.shape) != (bsz, nc, cl, h) or tuple(b.shape[:4]) != (
-            bsz, nc, cl, h):
+    grp, n = b.shape[3], b.shape[4]
+    if tuple(a.shape) != (bsz, nc, cl, h) or tuple(b.shape[:3]) != (
+            bsz, nc, cl):
         raise ValueError(f"{name}: x {tuple(x.shape)}, a {tuple(a.shape)} "
                          f"and b {tuple(b.shape)} do not match")
-    if min(bsz, nc, cl, h, p, n) == 0:
-        raise ValueError(f"{name}: empty input {tuple(x.shape)}, N {n}")
+    if min(bsz, nc, cl, h, p, grp, n) == 0:
+        raise ValueError(f"{name}: empty input {tuple(x.shape)}, b "
+                         f"{tuple(b.shape)}")
+    if h % grp:
+        raise ValueError(f"{name}: {grp} groups of B and C do not divide "
+                         f"{h} heads")
     if cl > MAX_CHUNK or p > MAX_HEAD_DIM or n > MAX_STATE:
         raise ValueError(
             f"{name}: chunk {cl}, head_dim {p}, state {n} outside the "
@@ -86,9 +93,23 @@ def _decays(a):
     return ltri, w
 
 
+def _per_head(t, heads: int):
+    """(B,nc,cl,G,N) -> (B,nc,cl,H,N): head h reads group h // (H // G)."""
+    rep = heads // t.shape[3]
+    return t if rep == 1 else torch.repeat_interleave(t, rep, dim=3)
+
+
+def _per_group(t, groups: int):
+    """(B,nc,cl,H,N) -> (B,nc,cl,G,N): the sum over each group's heads."""
+    bsz, nc, cl, h, n = t.shape
+    return t if groups == h else t.reshape(bsz, nc, cl, groups, h // groups,
+                                           n).sum(4)
+
+
 def ssd_intra_chunk_plain(x, a, b, c):
     """-> (y_diag (B,nc,cl,H,P), states (B,nc,H,P,N)), differentiable."""
     check_shapes("ssd_intra_chunk_plain", x, a, b, c)
+    b, c = _per_head(b, x.shape[3]), _per_head(c, x.shape[3])
     ltri, w = _decays(a)
     scores = torch.einsum("bcihn,bcjhn->bchij", c, b) * ltri
     y = torch.einsum("bchij,bcjhp->bcihp", scores, x)
@@ -106,9 +127,11 @@ def ssd_intra_chunk_bwd_plain(x, a, b, c, dy, ds):
         d a_cum_last += sum_j w_j q_j,    d a_cum_j -= w_j q_j
         with q_j = sum_n (X dS)_jn B_jn;  dA = reverse cumsum of d a_cum
 
-    where Sc = (C B^T) o L.  -> (dx, da, db, dc) in the inputs' layouts."""
+    where Sc = (C B^T) o L, B and C repeated to heads.  -> (dx, da, db, dc)
+    in the inputs' layouts (db and dc summed over each group's heads)."""
     check_shapes("ssd_intra_chunk_bwd_plain", x, a, b, c, dy, ds)
-    cl = x.shape[2]
+    cl, groups = x.shape[2], b.shape[3]
+    b, c = _per_head(b, x.shape[3]), _per_head(c, x.shape[3])
     ltri, w = _decays(a)
     sc = torch.einsum("bcihn,bcjhn->bchij", c, b) * ltri       # (B,nc,H,i,j)
     mask = torch.tril(torch.ones((cl, cl), dtype=torch.bool, device=x.device))
@@ -125,18 +148,20 @@ def ssd_intra_chunk_bwd_plain(x, a, b, c, dy, ds):
     dacum = dacum - wq
     dacum[:, :, -1] += wq.sum(2)
     da = torch.flip(torch.cumsum(torch.flip(dacum, [2]), dim=2), [2])
-    return dx, da, db, dc
+    return dx, da, _per_group(db, groups), _per_group(dc, groups)
 
 
 # ------------------------------------------------------------------- kernels
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# B, nc, cl, H, P, N, stream
-_GEOM = [_I] * 6 + [_P]
+# B, nc, cl, H, G, P, N, stream
+_GEOM = [_I] * 7 + [_P]
 _SIGNATURES = {
-    "ssd_fwd": [_P] * 6 + _GEOM,
+    "ssd_fwd": [_P] * 6 + [_I] + _GEOM,
     "ssd_bwd": [_P] * 10 + _GEOM,
 }
+# ssd_fwd's run of heads of one group per block (PERF.md section 6)
+FWD_HEADS = 8
 
 
 def _lib() -> ctypes.CDLL:
@@ -160,7 +185,7 @@ def _check_cuda(name: str, *xs) -> None:
 
 
 def _geom(x, b):
-    return [*x.shape, b.shape[-1],
+    return [*x.shape[:4], b.shape[3], x.shape[4], b.shape[4],
             torch.cuda.current_stream(x.device).cuda_stream]
 
 
@@ -182,20 +207,21 @@ def ssd_intra_chunk(x, a, b, c):
                          device=x.device)
     rc = _lib().ssd_fwd(x.data_ptr(), a.data_ptr(), b.data_ptr(),
                         c.data_ptr(), y.data_ptr(), states.data_ptr(),
-                        *_geom(x, b))
+                        FWD_HEADS, *_geom(x, b))
     _raise_on("ssd_fwd", rc)
     LAUNCHES["ssd_fwd"] += 1
     return y, states
 
 
-def ssd_intra_chunk_bwd(x, a, b, c, dy, ds):
-    """(dx, da, db, dc) for cotangents dy (B,nc,cl,H,P) and ds (B,nc,H,P,N)."""
-    if x.device.type == "cpu":
-        return ssd_intra_chunk_bwd_plain(x, a, b, c, dy, ds)
+def ssd_bwd_per_head(x, a, b, c, dy, ds):
+    """The ``ssd_bwd`` launch alone, on the card: (dx, da, db, dc) with db
+    and dc per head, (B,nc,cl,H,N), whatever b's and c's group count."""
     check_shapes("ssd_intra_chunk_bwd", x, a, b, c, dy, ds)
     _check_cuda("ssd_intra_chunk_bwd", x, a, b, c, dy, ds)
     dx, da = torch.empty_like(x), torch.empty_like(a)
-    db, dc = torch.empty_like(b), torch.empty_like(c)
+    per_head = (*x.shape[:4], b.shape[4])
+    db, dc = (torch.empty(per_head, dtype=torch.float32, device=x.device)
+              for _ in range(2))
     rc = _lib().ssd_bwd(x.data_ptr(), a.data_ptr(), b.data_ptr(),
                         c.data_ptr(), dy.data_ptr(), ds.data_ptr(),
                         dx.data_ptr(), da.data_ptr(), db.data_ptr(),
@@ -203,3 +229,15 @@ def ssd_intra_chunk_bwd(x, a, b, c, dy, ds):
     _raise_on("ssd_bwd", rc)
     LAUNCHES["ssd_bwd"] += 1
     return dx, da, db, dc
+
+
+def ssd_intra_chunk_bwd(x, a, b, c, dy, ds):
+    """(dx, da, db, dc) for cotangents dy (B,nc,cl,H,P) and ds (B,nc,H,P,N);
+    db and dc in b's and c's (B,nc,cl,G,N).  The kernel writes them per
+    head; with G < H a reduction on the device then sums each group's
+    heads."""
+    if x.device.type == "cpu":
+        return ssd_intra_chunk_bwd_plain(x, a, b, c, dy, ds)
+    dx, da, db, dc = ssd_bwd_per_head(x, a, b, c, dy, ds)
+    groups = b.shape[3]
+    return dx, da, _per_group(db, groups), _per_group(dc, groups)

@@ -9,6 +9,11 @@ the intra-chunk part is a ``torch.autograd.Function`` whose backward is the
 decays and scores inside the backward, so the port trains through the
 kernel pair.  ``bwd_impl="oracle"`` (tests only) differentiates the plain
 forward with autograd instead.
+
+B and C come per group, (B,L,G,N) with ``H % G == 0``, head h reading
+group ``h // (H // G)``; G == H is the reference's per-head layout.  No
+per-head copy of them is made, saved for the backward or read by the
+inter-chunk part.
 """
 
 from __future__ import annotations
@@ -48,19 +53,19 @@ class _SSDIntraChunk(torch.autograd.Function):
 
 def ssd(x, a_log, b, c, chunk: int, initial_state=None,
         bwd_impl: str = "kernel"):
-    """x (B,L,H,P); a_log (B,L,H); b/c (B,L,H,N) ->
+    """x (B,L,H,P); a_log (B,L,H); b/c (B,L,G,N) ->
     (y (B,L,H,P), final_state (B,H,P,N)), differentiable in every input."""
     if bwd_impl not in BWD_IMPLS:
         raise ValueError(f"unknown bwd_impl {bwd_impl!r}; expected {BWD_IMPLS}")
     bsz, l, h, p = x.shape
-    n = b.shape[-1]
+    g, n = b.shape[-2:]
     if l % chunk:
         raise ValueError(f"seq {l} not divisible by chunk {chunk}")
     nc = l // chunk
     xr = x.reshape(bsz, nc, chunk, h, p).contiguous()
     ar = a_log.reshape(bsz, nc, chunk, h).contiguous()
-    br = b.reshape(bsz, nc, chunk, h, n).contiguous()
-    cr = c.reshape(bsz, nc, chunk, h, n).contiguous()
+    br = b.reshape(bsz, nc, chunk, g, n).contiguous()
+    cr = c.reshape(bsz, nc, chunk, g, n).contiguous()
     y_diag, states = _SSDIntraChunk.apply(xr, ar, br, cr, bwd_impl)
     y_off, final_state = inter_chunk(cr, ar, states, initial_state)
     return (y_diag + y_off).reshape(bsz, l, h, p), final_state

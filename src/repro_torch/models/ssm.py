@@ -39,10 +39,12 @@ def inter_chunk(cr, ar, states, initial_state=None):
     """Steps 3-4 of the chunked scan: carry the per-chunk states across
     chunks and turn them into each chunk's off-diagonal output.
 
-    cr (B,nc,cl,H,N), ar (B,nc,cl,H), states (B,nc,H,P,N) ->
-    (y_off (B,nc,cl,H,P), final_state (B,H,P,N))."""
-    bsz, nc, cl, h, n = cr.shape
-    p = states.shape[3]
+    cr (B,nc,cl,G,N) with C per group (G == H: per head), ar (B,nc,cl,H),
+    states (B,nc,H,P,N) -> (y_off (B,nc,cl,H,P), final_state (B,H,P,N)).
+    Head h reads group h // (H // G); the state-to-output product contracts
+    per group, so no per-head C is made."""
+    bsz, nc, cl, g, n = cr.shape
+    h, p = states.shape[2:4]
     a_cum = torch.cumsum(ar.permute(0, 3, 1, 2), dim=-1)       # (B,H,nc,cl)
     if initial_state is None:
         initial_state = torch.zeros((bsz, h, p, n), dtype=states.dtype,
@@ -51,7 +53,9 @@ def inter_chunk(cr, ar, states, initial_state=None):
     decay_chunk = torch.exp(segsum(F.pad(a_cum[..., -1], (1, 0))))
     new_states = torch.einsum("bhzc,bchpn->bzhpn", decay_chunk, st)
     prev_states, final_state = new_states[:, :-1], new_states[:, -1]
-    y_off = torch.einsum("bclhn,bchpn->bclhp", cr, prev_states)
+    y_off = torch.einsum("bclgn,bcgrpn->bclgrp", cr,
+                         prev_states.reshape(bsz, nc, g, h // g, p, n))
+    y_off = y_off.reshape(bsz, nc, cl, h, p)
     y_off = y_off * torch.exp(a_cum).permute(0, 2, 3, 1)[..., None]
     return y_off, final_state
 
@@ -151,9 +155,6 @@ def ssd_block(p: Params, x, cfg: ModelConfig, cache=None):
     xs = xbc[..., :di].reshape(bsz, s, h, ph)
     bmat = xbc[..., di:di + g * n].reshape(bsz, s, g, n)
     cmat = xbc[..., di + g * n:].reshape(bsz, s, g, n)
-    # broadcast groups to heads: head i reads group i // (h // g)
-    bmat = torch.repeat_interleave(bmat, h // g, dim=2)
-    cmat = torch.repeat_interleave(cmat, h // g, dim=2)
 
     # softplus as log(1 + e^x) everywhere (F.softplus turns linear above 20)
     dt_in = dt_raw.float() + p["dt_bias"]
@@ -171,10 +172,14 @@ def ssd_block(p: Params, x, cfg: ModelConfig, cache=None):
     if cfg.use_pallas:
         from repro_torch.kernels.ssd_scan.ops import ssd as ssd_kernel
 
+        # B and C per group: head i reads group i // (h // g)
         y, _ = ssd_kernel(x_dt, a_log_step, bmat.float(), cmat.float(),
                           chunk=cfg.ssm_chunk)
     else:
-        y, _ = ssd_chunked(x_dt, a_log_step, bmat.float(), cmat.float(),
+        # the reference's contract: groups broadcast to heads first
+        y, _ = ssd_chunked(x_dt, a_log_step,
+                           torch.repeat_interleave(bmat, h // g, dim=2).float(),
+                           torch.repeat_interleave(cmat, h // g, dim=2).float(),
                            cfg.ssm_chunk)
     y = y[:, :s]
 

@@ -22,12 +22,15 @@ from repro_torch.kernels.rglru_scan import (LAUNCHES, reset_launches, rglru,
                                             rglru_scan)
 
 # (b, l, w): tests/test_kernels.py::RGLRU_CASES, the recurrentgemma-9b
-# cell's shapes (B 1-2, L 2048, W 4096), a W that is no multiple of 128 and
-# an L that is no multiple of the kernels' unroll
+# cell's shapes (B 1-2, L 2048, W 4096), a W that is no multiple of 128, an
+# L that is no multiple of the kernels' unroll, and a long L that is no
+# multiple of rglru_bwd's ring stage (16 steps) with a W that is no
+# multiple of 32
 CASES = [(2, 32, 128), (1, 64, 256), (3, 16, 128), (1, 128, 512),
-         (1, 2048, 4096), (2, 2048, 4096), (2, 100, 200), (3, 37, 33)]
+         (1, 2048, 4096), (2, 2048, 4096), (2, 100, 200), (3, 37, 33),
+         (2, 2045, 4100)]
 IDS = ["b2-l32", "b1-l64", "b3-l16", "b1-l128", "cell-b1", "cell-b2",
-       "w200", "odd"]
+       "w200", "odd", "l-ragged"]
 
 
 @pytest.fixture

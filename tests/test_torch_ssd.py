@@ -247,3 +247,130 @@ def test_intra_chunk_bwd_plain_matches_jax_grad_at_ragged_shapes(case):
         assert g.shape == w.shape, name
         err = np.abs(g.numpy() - w).max()
         assert err <= TOL * np.abs(w).max(), (name, err, np.abs(w).max())
+
+
+# (b, l, h, g, p, n, chunk): B and C for one group of all heads (the
+# mamba2 configs' layout), for 1 < G < H, and per head (G == H, the
+# reference's layout)
+GROUPED = [(2, 64, 4, 1, 16, 8, 16), (1, 128, 6, 2, 16, 16, 32),
+           (2, 64, 4, 4, 16, 8, 16)]
+GROUP_IDS = ["g1", "g2-of-6", "g-eq-h"]
+
+
+def _grouped_inputs(case, seed):
+    b, l, h, g, p, n, _ = case
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, l, h, p)).astype(np.float32)
+    a = (-np.abs(rng.standard_normal((b, l, h))) * 0.1).astype(np.float32)
+    bm = rng.standard_normal((b, l, g, n)).astype(np.float32)
+    cm = rng.standard_normal((b, l, g, n)).astype(np.float32)
+    return x, a, bm, cm
+
+
+def _heads(t, h):
+    """(..., G, N) -> (..., H, N), head i reading group i // (H // G)."""
+    return torch.repeat_interleave(t, h // t.shape[-2], dim=-2)
+
+
+@pytest.mark.parametrize("case", GROUPED, ids=GROUP_IDS)
+def test_grouped_ssd_matches_per_head_and_reference(case):
+    """``ssd`` with B and C per group against itself on B and C repeated to
+    heads, against the reference's Pallas ``ssd`` on ``jnp.repeat``'d B and
+    C, and its gradients against ``jax.grad`` of ``ssd_chunked`` with the
+    repeat inside the loss (so the reference's db and dc are per group)."""
+    b, l, h, g, p, n, chunk = case
+    arrays = _grouped_inputs(case, seed=9)
+    rng = np.random.default_rng(10)
+    gy = rng.standard_normal((b, l, h, p)).astype(np.float32)
+    gs = rng.standard_normal((b, h, p, n)).astype(np.float32)
+    rep = lambda v: jnp.repeat(v, h // g, axis=2)  # noqa: E731
+    jx, ja, jb, jc = map(jnp.asarray, arrays)
+    y_k, s_k = ref_ssd(jx, ja, rep(jb), rep(jc), chunk=chunk, interpret=True)
+
+    def ref_loss(x, a, bm, cm):
+        y, s = ref_ssd_chunked(x, a, rep(bm), rep(cm), chunk)
+        return jnp.sum(y * gy) + jnp.sum(s * gs)
+
+    want = jax.grad(ref_loss, argnums=(0, 1, 2, 3))(jx, ja, jb, jc)
+    out, grads = {}, {}
+    for layout in ("group", "head"):
+        leaves = [torch.from_numpy(v).requires_grad_() for v in arrays]
+        bc = leaves[2:] if layout == "group" else [_heads(t, h)
+                                                  for t in leaves[2:]]
+        y, s = ssd(*leaves[:2], *bc, chunk=chunk)
+        loss = (y * torch.from_numpy(gy)).sum() + (s * torch.from_numpy(gs)
+                                                   ).sum()
+        out[layout] = (y.detach(), s.detach())
+        grads[layout] = torch.autograd.grad(loss, leaves)
+    _close(out["group"][0].numpy(), y_k, what="y vs pallas")
+    _close(out["group"][1].numpy(), s_k, what="state vs pallas")
+    for got, per_head in zip(out["group"], out["head"]):
+        _close(got.numpy(), per_head.numpy(), tol=1e-5, what="vs per head")
+    for name, gg, gh, w in zip(("x", "a_log", "b", "c"), grads["group"],
+                               grads["head"], want):
+        w = np.asarray(w)
+        assert gg.shape == w.shape, name
+        err = np.abs(gg.numpy() - w).max()
+        assert err <= TOL * np.abs(w).max(), (name, err, np.abs(w).max())
+        assert (gg - gh).abs().max() <= 1e-5 * gh.abs().max(), name
+
+
+@pytest.mark.parametrize("case", GROUPED, ids=GROUP_IDS)
+def test_grouped_intra_chunk_plain_equals_per_head(case):
+    """The plain intra-chunk forward and backward with B and C per group
+    equal the same functions on B and C repeated to heads, with db and dc
+    summed over each group's heads, to the bit; and the backward matches
+    ``jax.grad`` of the reference's ``ssd_chunked`` on each chunk alone,
+    with the repeat inside the loss."""
+    b, l, h, g, p, n, chunk = case
+    nc = l // chunk
+    x, a, bm, cm = (torch.from_numpy(v) for v in _grouped_inputs(case, 11))
+    xs = (x.reshape(b, nc, chunk, h, p), a.reshape(b, nc, chunk, h),
+          bm.reshape(b, nc, chunk, g, n), cm.reshape(b, nc, chunk, g, n))
+    heads = (*xs[:2], _heads(xs[2], h), _heads(xs[3], h))
+    y, s = ssd_intra_chunk_plain(*xs)
+    y_h, s_h = ssd_intra_chunk_plain(*heads)
+    assert torch.equal(y, y_h) and torch.equal(s, s_h)
+    rng = np.random.default_rng(12)
+    dy = torch.from_numpy(rng.standard_normal(y.shape).astype(np.float32))
+    ds = torch.from_numpy(rng.standard_normal(s.shape).astype(np.float32))
+    got = ssd_intra_chunk_bwd_plain(*xs, dy, ds)
+    per_head = ssd_intra_chunk_bwd_plain(*heads, dy, ds)
+    assert torch.equal(got[0], per_head[0]) and torch.equal(got[1],
+                                                            per_head[1])
+    for gg, gh in zip(got[2:], per_head[2:]):
+        assert gg.shape == (b, nc, chunk, g, n)
+        assert torch.equal(gg, gh.reshape(b, nc, chunk, g, h // g, n).sum(4))
+    assert torch.equal(got[0], ssd_intra_chunk_bwd(*xs, dy, ds)[0])
+    rows = b * nc
+
+    def ref_loss(x_, a_, bm_, cm_):
+        yy, ss = ref_ssd_chunked(
+            x_.reshape(rows, chunk, h, p), a_.reshape(rows, chunk, h),
+            jnp.repeat(bm_.reshape(rows, chunk, g, n), h // g, axis=2),
+            jnp.repeat(cm_.reshape(rows, chunk, g, n), h // g, axis=2), chunk)
+        return (jnp.sum(yy * dy.numpy().reshape(rows, chunk, h, p))
+                + jnp.sum(ss * ds.numpy().reshape(rows, h, p, n)))
+
+    want = jax.grad(ref_loss, argnums=(0, 1, 2, 3))(
+        *(jnp.asarray(t.numpy()) for t in xs))
+    for name, gg, w in zip(("dx", "da", "db", "dc"), got, want):
+        w = np.asarray(w)
+        err = np.abs(gg.numpy() - w).max()
+        assert err <= TOL * np.abs(w).max(), (name, err, np.abs(w).max())
+
+
+def test_group_count_that_does_not_divide_heads_raises():
+    x = torch.zeros(1, 2, 8, 6, 4)
+    a = torch.zeros(1, 2, 8, 6)
+    bm = torch.zeros(1, 2, 8, 4, 3)
+    ds = torch.zeros(1, 2, 6, 4, 3)
+    for fn, args in ((ssd_intra_chunk, (x, a, bm, bm)),
+                     (ssd_intra_chunk_plain, (x, a, bm, bm)),
+                     (ssd_intra_chunk_bwd, (x, a, bm, bm, x, ds)),
+                     (ssd_intra_chunk_bwd_plain, (x, a, bm, bm, x, ds))):
+        with pytest.raises(ValueError, match="do not divide"):
+            fn(*args)
+    with pytest.raises(ValueError, match="do not divide"):
+        ssd(x.reshape(1, 16, 6, 4), a.reshape(1, 16, 6),
+            bm.reshape(1, 16, 4, 3), bm.reshape(1, 16, 4, 3), chunk=8)

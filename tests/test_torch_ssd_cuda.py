@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels.ssd_scan import kernel as K
 from repro_torch.kernels.ssd_scan import (LAUNCHES, reset_launches, ssd,
                                           ssd_chunked, ssd_intra_chunk,
                                           ssd_intra_chunk_bwd,
@@ -94,3 +95,49 @@ def test_cuda_shape_rule_raises(cuda_device):
     a = torch.zeros(1, 1, 128, 1, device=cuda_device)
     with pytest.raises(ValueError, match="outside the kernel's range"):
         ssd_intra_chunk(x, a, x, x)
+
+
+# (b, nc, cl, h, g, p, n): B and C per group: the mamba2-1.3b cell as its
+# main path runs it (G 1), a ragged shape with 1 < G < H (runs of heads
+# shorter than ssd_fwd's), and G == H at the cell's head geometry
+GROUPED = [(2, 32, 64, 64, 1, 64, 128), (1, 3, 40, 6, 2, 20, 12),
+           (1, 2, 64, 64, 64, 64, 128)]
+GROUP_IDS = ["cell-g1", "ragged-g2", "g-eq-h"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", GROUPED, ids=GROUP_IDS)
+def test_cuda_grouped_kernels_match_plain_versions(case, cuda_device):
+    b, nc, cl, h, grp, p, n = case
+    rng = np.random.default_rng(3)
+    arrays = (rng.standard_normal((b, nc, cl, h, p)),
+              -np.abs(rng.standard_normal((b, nc, cl, h))) * 0.1,
+              rng.standard_normal((b, nc, cl, grp, n)),
+              rng.standard_normal((b, nc, cl, grp, n)))
+    xs = [torch.from_numpy(v.astype(np.float32)).to(cuda_device)
+          for v in arrays]
+    reset_launches()
+    y, s = ssd_intra_chunk(*xs)
+    y2, s2 = ssd_intra_chunk(*xs)
+    y_p, s_p = ssd_intra_chunk_plain(*xs)
+    torch.testing.assert_close(y, y_p, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(s, s_p, atol=1e-4, rtol=1e-4)
+    # no atomics: a second launch is bit-equal
+    assert torch.equal(y, y2) and torch.equal(s, s2)
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    dy = torch.randn(y.shape, generator=g, device=cuda_device)
+    ds = torch.randn(s.shape, generator=g, device=cuda_device)
+    got = ssd_intra_chunk_bwd(*xs, dy, ds)
+    again = ssd_intra_chunk_bwd(*xs, dy, ds)
+    want = ssd_intra_chunk_bwd_plain(*xs, dy, ds)
+    for name, a, b_ in zip(("dx", "da", "db", "dc"), got, want):
+        assert a.shape == b_.shape, name
+        err = (a - b_).abs().max().item()
+        assert err <= 1e-4 * b_.abs().max().item(), (name, err)
+    assert all(torch.equal(a, b_) for a, b_ in zip(again, got))
+    # the launch alone writes dB and dC per head; the wrapper sums each group's
+    per_head = K.ssd_bwd_per_head(*xs, dy, ds)
+    for a, b_ in zip(per_head[2:], got[2:]):
+        assert a.shape == (b, nc, cl, h, n)
+        assert torch.equal(a.reshape(b, nc, cl, grp, h // grp, n).sum(4), b_)
+    assert LAUNCHES == {"ssd_fwd": 2, "ssd_bwd": 3}

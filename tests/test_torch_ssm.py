@@ -197,3 +197,31 @@ def test_lm_loss_and_grads_match_reference(variant):
     np.testing.assert_allclose(ls.item(), float(ref_val), rtol=1e-5)
     _assert_grads_close(_flat(params_to_jax(grads, cfg)),
                         _flat(jax.tree_util.tree_map(np.asarray, ref_grads)))
+
+
+@pytest.mark.parametrize("variant", ["base", "ngroups2"])
+def test_ssd_block_kernel_branch_passes_b_and_c_per_group(variant,
+                                                          monkeypatch):
+    """The kernel branch hands the intra-chunk kernels B and C per group
+    (ssm_ngroups 1, and 1 < G < H), never repeated to heads, and still
+    equals the plain branch."""
+    from repro_torch.kernels.ssd_scan import ops
+
+    kw, seq = VARIANTS[variant]
+    cfg, _, _, ours, x = _block_inputs(kw, seq)
+    assert 1 <= cfg.ssm_ngroups < cfg.ssm_nheads
+    seen = []
+    real = ops.ssd_intra_chunk
+
+    def spy(xx, aa, bb, cc):
+        seen.append((tuple(xx.shape), tuple(bb.shape), tuple(cc.shape)))
+        return real(xx, aa, bb, cc)
+
+    monkeypatch.setattr(ops, "ssd_intra_chunk", spy)
+    out, _ = ssd_block(ours, torch.from_numpy(x), cfg)
+    ((xs, bs, cs),) = seen
+    assert xs[3] == cfg.ssm_nheads
+    assert bs == cs == (*xs[:3], cfg.ssm_ngroups, cfg.ssm_state)
+    plain, _ = ssd_block(ours, torch.from_numpy(x), cfg.with_(use_pallas=False))
+    np.testing.assert_allclose(out.numpy(), plain.numpy(), atol=1e-5,
+                               rtol=1e-5)

@@ -1,7 +1,7 @@
 // CPU stand-in for the CUDA features the port's tensor-core kernels use, so
 // that their indexing, fragment layouts, copy groups and barriers can be
 // checked with g++ on a machine without a GPU (tools/cuda_emu/run_flash.py,
-// run_ssd.py).  One block runs at a time as NT std::threads; __syncthreads
+// run_ssd.py, run_rglru.py).  One block runs at a time as NT std::threads; __syncthreads
 // is a block barrier, warp shuffles, ldmatrix and mma.sync m16n8k8 (tf32,
 // the low 13 bits of each operand ignored as the tensor cores do) exchange
 // through per-warp buffers.  cp.async copies are held per thread in their
@@ -43,6 +43,9 @@ struct float2 { float x, y; };
 struct float4 { float x, y, z, w; };
 struct int2 { int x, y; };
 inline float2 make_float2(float a, float b) { return {a, b}; }
+inline float4 make_float4(float a, float b, float c, float d) {
+  return {a, b, c, d};
+}
 inline int2 make_int2(int a, int b) { return {a, b}; }
 typedef int cudaError_t;
 typedef void* cudaStream_t;
@@ -70,6 +73,15 @@ extern const float* emu_warp_p[EMU_WARPS][32];
 extern char* emu_dyn_smem;
 
 inline void __syncthreads() { emu_block_bar->arrive_and_wait(); }
+inline void __syncwarp(unsigned = 0xffffffffu) {
+  emu_warp_bar[threadIdx.x >> 5]->arrive_and_wait();
+}
+// rounded fp32 operations (g++ builds with -ffp-contract=off, so no fused
+// multiply-add forms behind them) and the read-only load
+inline float __fadd_rn(float a, float b) { return a + b; }
+inline float __fmul_rn(float a, float b) { return a * b; }
+template <typename T>
+inline T __ldg(const T* p) { return *p; }
 
 // the value of lane src(l) of this warp (its own where src(l) is off the warp)
 template <typename F>

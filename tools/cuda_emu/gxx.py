@@ -4,7 +4,8 @@ emulator in this directory (``cuda_runtime.h``, ``emu.cpp``).
 The source's local ``#include "..."`` headers are inlined; device functions
 whose bodies are inline PTX (``mma.sync``, ``ldmatrix``, ``cp.async``)
 become calls into the emulator; ``<<<...>>>`` launches become
-``emu_launch``.  Used by ``run_flash.py`` and ``run_ssd.py``.
+``emu_launch``.  Used by ``run_flash.py``, ``run_ssd.py`` and
+``run_rglru.py``.
 """
 
 from __future__ import annotations
@@ -81,8 +82,9 @@ def build(source: Path, name: str, signatures: dict) -> ctypes.CDLL:
     cpp.write_text(for_gxx(inline_includes(source)))
     lib = out / f"lib{name}_emu.so"
     subprocess.run(["g++", "-std=c++20", "-O2", "-fPIC", "-shared",
-                    "-pthread", "-Wno-unknown-pragmas", f"-I{HERE}", "-o",
-                    str(lib), str(cpp), str(HERE / "emu.cpp")], check=True)
+                    "-pthread", "-ffp-contract=off", "-Wno-unknown-pragmas",
+                    f"-I{HERE}", "-o", str(lib), str(cpp),
+                    str(HERE / "emu.cpp")], check=True)
     dll = ctypes.CDLL(str(lib))
     for fn, argtypes in signatures.items():
         getattr(dll, fn).argtypes = argtypes
