@@ -34,7 +34,8 @@ Phases, each of which fails the run (nonzero exit) when it goes wrong:
      cell's shapes (B 1 and 2, L 2048, W 4096, with and without h0) and at
      W 200, the scan through the kernel pair and the plain fp32 scan against
      a float64 scan, then kernel and plain timings (no single PyTorch call
-     computes the RG-LRU scan);
+     computes the RG-LRU scan), with a second rglru_fwd launch repeating the
+     first bit for bit and the forward kernel alone against a float64 scan;
   3. small-input checks that the LM loss and its gradients through the
      kernels equal those of the plain path, on the card: reduced gemma-2b
      (attention), reduced mamba2-1.3b (SSD, chunk 8) and reduced
@@ -50,7 +51,17 @@ Phases, each of which fails the run (nonzero exit) when it goes wrong:
   6. the hybrid path: the same loop at recurrentgemma-9b's full widths (3
      layers, one rec-rec-local group), seq 2048, with the RG-LRU pair's
      launch counts equal to 2 rec layers x microbatches, the flash kernels'
-     to 1 local layer x microbatches, and all five in the profiled step.
+     to 1 local layer x microbatches, and all five in the profiled step;
+  7. the paper's workloads through ``Experiment(paper_workload(...))`` at
+     their full widths: mnist-cnn uniform and dynamic, 60 BSP steps each,
+     where dynamic's simulated time must stay under 0.75 x uniform's and
+     the final losses within 0.5 (``tests/test_system.py``'s compute-bound
+     claim), then resnet dynamic, 20 steps; finite losses, step wall ms and
+     peak memory logged, no launch of the port's kernels;
+  8. resume: resnet for 6 steps straight, and for 3 steps, ``Session.save``,
+     a fresh session resumed from the file, 3 more steps; final params,
+     Adam's moments and the resumed steps' records bit-identical (cuDNN
+     deterministic for this check).
 
 Each main path runs with every kernel's launch count set to 0 just before
 it and read just after.
@@ -622,7 +633,8 @@ def rglru_inputs(case, dev, seed):
 
 def check_rglru_kernels(report: dict) -> dict:
     """rglru_fwd / rglru_bwd against their plain versions on the same
-    inputs (they round alike, so bit-equality is reported too)."""
+    inputs (they round alike, so bit-equality is reported too); a second
+    rglru_fwd launch must repeat the first bit for bit."""
     import torch
     from repro_torch.kernels.rglru_scan import kernel as K
 
@@ -637,16 +649,28 @@ def check_rglru_kernels(report: dict) -> dict:
                                                       dh_t)))
         want.update(zip(names, K.rglru_linear_scan_bwd_plain(
             a, want["h"], h0, dh, dh_t)))
-        check_case(f"rglru {case[0]} {case[1:]}", got, want, ("h", "hT"),
+        label = f"rglru {case[0]} {case[1:]}"
+        check_case(label, got, want, ("h", "hT"),
                    (RGLRU_FWD_TOL, RGLRU_BWD_TOL), ("rglru_fwd", "rglru_bwd"),
                    errs, report["rglru_cases"])
+        again = K.rglru_linear_scan(a, bx, h0)
+        torch.cuda.synchronize()
+        repeats = all(bool(torch.equal(x, got[k]))
+                      for k, x in zip(("h", "hT"), again))
+        report["rglru_cases"][label]["fwd_repeats_bit_for_bit"] = repeats
+        log(f"    rglru_fwd repeats bit for bit: {repeats}")
+        if not repeats:
+            raise AssertionError(f"case {label}: a second rglru_fwd launch "
+                                 "differs from the first")
     return errs
 
 
 def check_rglru_fp64() -> dict:
     """The scan through the kernel pair (``ops.rglru``, fp32) and the plain
     fp32 versions against the doubling ``rglru_scan`` in float64 (autograd
-    for the gradients), at the cell's shapes with h0."""
+    for the gradients), at the cell's shapes with h0; then the forward
+    kernel alone as the main path runs it (no h0) against the float64
+    scan (``fwd_no_h0``)."""
     import torch
     from repro_torch.kernels.rglru_scan import kernel as K
     from repro_torch.kernels.rglru_scan import rglru, rglru_scan
@@ -680,6 +704,16 @@ def check_rglru_fp64() -> dict:
         tol = RGLRU_FWD_TOL if name in ("h", "hT") else RGLRU_BWD_TOL
         if res[name]["kernel"] > tol * scale:
             raise AssertionError(f"rglru {name} off the float64 scan: {res}")
+    a, bx, _, _, _ = rglru_inputs(RGLRU_CASES[0], dev, seed=65)
+    h, h_t = K.rglru_linear_scan(a, bx)
+    ref = rglru_scan(a.double(), bx.double())
+    res["fwd_no_h0"] = {
+        "h": (h.double() - ref).abs().max().item(),
+        "hT": (h_t.double() - ref[:, -1]).abs().max().item(),
+        "ref_max": ref.abs().max().item()}
+    if max(res["fwd_no_h0"]["h"], res["fwd_no_h0"]["hT"]) > \
+            RGLRU_FWD_TOL * res["fwd_no_h0"]["ref_max"]:
+        raise AssertionError(f"rglru_fwd off the float64 scan: {res}")
     return res
 
 
@@ -785,30 +819,18 @@ PATHS = {
 }
 
 
-def main_path(path: str) -> dict:
-    """One heterogeneous Experiment at the arch's full widths (depth cut),
-    STEPS BSP steps, three h-level workers; every launch count is set to 0
-    just before the run and read just after."""
+def step_clock(profile_step=None, frags=None):
+    """A session hook that records each step's wall ms (host clock around
+    synchronized steps) and, given ``profile_step``, runs torch.profiler
+    over that step: device time by kernel (``frags``, see
+    ``profile_summary``) and the device's idle share.  The profiler's own
+    start and stop fall outside every timed window."""
     import torch
-    from repro_torch.api import (ClusterSpec, Experiment, Hook, TrainConfig,
-                                 lm_workload)
-    from repro_torch.configs import get_config
-    from repro_torch.core import ControllerConfig, plan_microbatches
-    from repro_torch.data import DataPipeline
-    from repro_torch.optim import adam
-
-    arch, layers, seq, own = PATHS[path]
-    frags = {k: frag for k, (frag, _) in own.items()}
+    from repro_torch.api import Hook
 
     class StepClock(Hook):
-        """Per-step wall ms (host clock around synchronized steps), and
-        torch.profiler over step ``profile_step``: device time by kernel and
-        the device's idle share.  The profiler's own start and stop fall
-        outside every timed window."""
-
-        def __init__(self, profile_step):
-            self.ms, self.t = [], None
-            self.profile_step, self.prof, self.profile = profile_step, None, None
+        def __init__(self):
+            self.ms, self.t, self.prof, self.profile = [], None, None, None
 
         def on_run_start(self, session):
             torch.cuda.synchronize()
@@ -818,16 +840,35 @@ def main_path(path: str) -> dict:
             torch.cuda.synchronize()
             wall = time.perf_counter() - self.t
             self.ms.append(wall * 1e3)
-            if rec.step == self.profile_step - 1:
+            if profile_step is None:
+                pass
+            elif rec.step == profile_step - 1:
                 self.prof = torch.profiler.profile(activities=[
                     torch.profiler.ProfilerActivity.CPU,
                     torch.profiler.ProfilerActivity.CUDA])
                 self.prof.__enter__()
-            elif rec.step == self.profile_step and self.prof is not None:
+            elif rec.step == profile_step and self.prof is not None:
                 self.prof.__exit__(None, None, None)
                 self.profile = profile_summary(self.prof, wall * 1e6, frags)
             self.t = time.perf_counter()
 
+    return StepClock()
+
+
+def main_path(path: str) -> dict:
+    """One heterogeneous Experiment at the arch's full widths (depth cut),
+    STEPS BSP steps, three h-level workers; every launch count is set to 0
+    just before the run and read just after."""
+    import torch
+    from repro_torch.api import (ClusterSpec, Experiment, TrainConfig,
+                                 lm_workload)
+    from repro_torch.configs import get_config
+    from repro_torch.core import ControllerConfig, plan_microbatches
+    from repro_torch.data import DataPipeline
+    from repro_torch.optim import adam
+
+    arch, layers, seq, own = PATHS[path]
+    frags = {k: frag for k, (frag, _) in own.items()}
     cfg = get_config(arch, num_layers=layers)
     experiment = Experiment(
         workload=lm_workload(cfg, DataPipeline(cfg, seq_len=seq,
@@ -840,7 +881,7 @@ def main_path(path: str) -> dict:
                            sync="bsp", max_steps=STEPS,
                            controller=ControllerConfig(kind="p")),
     )
-    clock = StepClock(profile_step=STEPS - 1)
+    clock = step_clock(profile_step=STEPS - 1, frags=frags)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     session = experiment.session(hooks=[clock])
@@ -928,6 +969,125 @@ def log_path(mp: dict) -> None:
         f"max_memory_allocated {mp['max_memory_allocated'] / 2**30:.2f} GiB")
 
 
+# ------------------------------------------------- phases 7-8, paper workloads
+
+
+def paper_experiment(name: str, batching: str, steps: int):
+    """One of the paper's workloads as ``tests/test_system.py`` runs it:
+    three CPU-core workers of h-level 8 over 39 cores, b0 32, microbatch 8,
+    BSP, adam(2e-3), the batch stream's seed 100; on the card."""
+    from repro_torch.api import (ClusterSpec, Experiment, TrainConfig,
+                                 paper_workload)
+    from repro_torch.optim import adam
+
+    return Experiment(
+        workload=paper_workload(name, seed=100),
+        cluster=ClusterSpec.hlevel(39, 8, workload=name, seed=0),
+        optimizer=adam(2e-3),
+        config=TrainConfig(b0=32, microbatch=8, batching=batching,
+                           sync="bsp", max_steps=steps))
+
+
+def paper_run(name: str, batching: str, steps: int) -> dict:
+    """``paper_experiment(...).run()`` with per-step wall ms (host clock
+    around synchronized steps), peak memory and the port's kernel launch
+    counts, which must stay 0 (the paper workloads' convolutions and
+    products are PyTorch calls, as they are XLA's in the reference)."""
+    import torch
+
+    clock = step_clock()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launches()
+    out = paper_experiment(name, batching, steps).run(hooks=[clock])
+    launched = {k: v for k, v in all_launches().items() if v}
+    losses = [r.loss for r in out["history"]]
+    res = {"workload": name, "batching": batching, "steps": out["steps"],
+           "sim_time": out["sim_time"], "final_loss": out["final_loss"],
+           "batch_adjustments": out["batch_adjustments"],
+           "final_batches": out["final_batches"], "losses": losses,
+           "step_wall_ms": clock.ms,
+           "steady_step_wall_ms": sorted(clock.ms[1:])[(steps - 1) // 2],
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "launches": launched}
+    log(f"  {name} {batching}: {out['steps']} steps, sim_time "
+        f"{out['sim_time']:.4f} s, final loss (EWMA) {out['final_loss']:.4f}, "
+        f"final batches {out['final_batches']}, adjustments "
+        f"{out['batch_adjustments']}; step wall ms median "
+        f"{res['steady_step_wall_ms']:.2f} (step 0 {clock.ms[0]:.1f}), peak "
+        f"memory {res['max_memory_allocated'] / 2**20:.1f} MiB")
+    if out["steps"] != steps or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{name} {batching}: bad run {res}")
+    if launched:
+        raise AssertionError(f"{name} {batching} launched {launched}")
+    return res
+
+
+def check_paper_workloads() -> dict:
+    """The paper's compute-bound claim on the card
+    (``test_dynamic_beats_uniform_on_compute_bound``): mnist-cnn, 60 steps
+    uniform and dynamic; dynamic's simulated time under 0.75 x uniform's,
+    the final losses within 0.5.  Then resnet, dynamic, 20 steps."""
+    uni = paper_run("mnist-cnn", "uniform", 60)
+    dyn = paper_run("mnist-cnn", "dynamic", 60)
+    res = {"mnist-cnn-uniform": uni, "mnist-cnn-dynamic": dyn,
+           "sim_time_ratio": dyn["sim_time"] / uni["sim_time"],
+           "loss_gap": abs(uni["final_loss"] - dyn["final_loss"])}
+    log(f"  dynamic / uniform sim_time {res['sim_time_ratio']:.4f} (< 0.75), "
+        f"final loss gap {res['loss_gap']:.4f} (< 0.5)")
+    if not (res["sim_time_ratio"] < 0.75 and res["loss_gap"] < 0.5):
+        raise AssertionError(f"compute-bound claim fails on the card: {res}")
+    res["resnet-dynamic"] = paper_run("resnet", "dynamic", 20)
+    return res
+
+
+def check_resume(out_dir: str) -> dict:
+    """resnet, 6 BSP steps straight; then 3 steps, ``Session.save``, a fresh
+    Experiment's ``session(resume_from=...)``, 3 more: the final params,
+    Adam's moments and the last 3 steps' records must be bit-identical.
+    cuDNN runs with ``deterministic = True`` and ``benchmark = False`` here
+    (its convolution backward may otherwise pick algorithms whose sums vary
+    between runs); the settings are restored afterwards."""
+    import torch
+
+    flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    path = os.path.join(out_dir, "resume_resnet.npz")
+    try:
+        straight = paper_experiment("resnet", "dynamic", 6).session()
+        straight.run()
+        first = paper_experiment("resnet", "dynamic", 6).session()
+        for rec in first:
+            if rec.step == 2:
+                first.save(path)
+                break
+        resumed = paper_experiment("resnet", "dynamic", 6).session(
+            resume_from=path)
+        resumed.run()
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+            flags
+        if os.path.exists(path):
+            os.remove(path)
+    opt = straight.trainer.opt_state
+    opt_r = resumed.trainer.opt_state
+    same = {
+        "params": all(torch.equal(resumed.params[k], p)
+                      for k, p in straight.params.items()),
+        "adam_moments": all(torch.equal(opt_r[m][k], x)
+                            for m in ("m", "v") for k, x in opt[m].items()),
+        "records": [(r.loss, r.batches, r.sim_time) for r in resumed.history]
+        == [(r.loss, r.batches, r.sim_time) for r in straight.history[3:]],
+    }
+    res = {"resumed_at": 3, "steps": resumed.step_idx, "bit_identical": same,
+           "cudnn": "deterministic=True, benchmark=False"}
+    log(f"  resnet resumed at step 3 of 6 (cuDNN deterministic, benchmark "
+        f"off for this check): bit-identical {same}")
+    if not all(same.values()):
+        raise AssertionError(f"resumed run differs: {res}")
+    return res
+
+
 # --------------------------------------------------------------------- main
 
 
@@ -1009,7 +1169,9 @@ def main() -> int:
     log(f"  RG-LRU scan vs float64 (kernel / plain max abs err; tol "
         f"{RGLRU_FWD_TOL} / {RGLRU_BWD_TOL} x max|ref|): " + ", ".join(
             f"{n} {r['kernel']:.3g} / {r['plain']:.3g} (max {r['ref_max']:.3g})"
-            for n, r in report["rglru_fp64"].items()))
+            for n, r in report["rglru_fp64"].items() if n != "fwd_no_h0")
+        + "; rglru_fwd alone, no h0: h {h:.3g}, hT {hT:.3g} (max "
+        "{ref_max:.3g})".format(**report["rglru_fp64"]["fwd_no_h0"]))
     times.update(time_rglru_kernels(peak_flops, peak_bw))
     for name, tm in times.items():
         lib_ms = ("none" if tm["library_ms"] is None
@@ -1040,6 +1202,13 @@ def main() -> int:
             f"{seq}, microbatch {MICROBATCH}, {STEPS} BSP steps")
         report["paths"][path] = main_path(path)
         log_path(report["paths"][path])
+
+    # 7-8. the paper's workloads, then resume
+    log("[7] paper workloads on the card (hlevel 39 cores, h 8, b0 32, "
+        "microbatch 8, adam 2e-3, BSP)")
+    report["paper"] = check_paper_workloads()
+    log("[8] checkpoint and resume on the card")
+    report["resume"] = check_resume(args.out)
 
     replaces = {
         "flash_fwd": "src/repro/kernels/flash_attention/kernel.py:280",

@@ -1,12 +1,14 @@
 """Public API: declarative experiments for heterogeneous dynamic batching.
 
-  * :mod:`repro_torch.api.workload` — Workload + the SUM-gradient adapter and
-    ``lm_workload``;
+  * :mod:`repro_torch.api.workload` — Workload + the adapters that implement
+    the SUM-gradient contract once (``mean_loss_workload``,
+    ``sum_loss_workload``, ``paper_workload``, ``lm_workload``);
   * :mod:`repro_torch.api.cluster` — declarative ClusterSpec with typed
     membership-event schedules;
   * :mod:`repro_torch.api.backend` — ``SimBackend`` (simulated clock, real
     SGD on a PyTorch device);
-  * :mod:`repro_torch.api.session` — the Session step iterator + hooks;
+  * :mod:`repro_torch.api.session` — the Session step iterator + hooks
+    (logging, checkpoint-every-N, early stop, metric collection);
   * :mod:`repro_torch.api.experiment` — Experiment = workload + cluster +
     config, with ``run()`` / ``session()`` entry points.
 """
@@ -22,20 +24,32 @@ from repro_torch.api.cluster import (
 )
 from repro_torch.api.experiment import Experiment
 from repro_torch.api.session import (
+    CheckpointHook,
     EarlyStopHook,
     Hook,
     LoggingHook,
     MetricCollector,
     Session,
 )
-from repro_torch.api.workload import Workload, lm_workload, sum_loss_adapter
+from repro_torch.api.workload import (
+    CounterBatchSource,
+    Workload,
+    lm_workload,
+    mean_loss_adapter,
+    mean_loss_workload,
+    paper_workload,
+    sum_loss_adapter,
+    sum_loss_workload,
+)
 from repro_torch.train.loop import TrainConfig
 
 __all__ = [
     "AddWorker",
     "At",
     "Backend",
+    "CheckpointHook",
     "ClusterSpec",
+    "CounterBatchSource",
     "EarlyStopHook",
     "Experiment",
     "Hook",
@@ -49,5 +63,9 @@ __all__ = [
     "TrainConfig",
     "Workload",
     "lm_workload",
+    "mean_loss_adapter",
+    "mean_loss_workload",
+    "paper_workload",
     "sum_loss_adapter",
+    "sum_loss_workload",
 ]

@@ -76,7 +76,8 @@ class Experiment:
 
     def session(self, hooks: Sequence[Hook] = (),
                 resume_from: Optional[str] = None) -> Session:
-        """A fresh Session (``resume_from`` needs the checkpoint slice)."""
+        """A fresh Session, restored from the checkpoint at ``resume_from``
+        when given."""
         session = Session(
             self.build(),
             schedule=self.cluster.schedule,

@@ -5,10 +5,9 @@ A :class:`Session` is an *iterator* over
 (typed events from :mod:`repro_torch.api.cluster`) fires before the step
 whose index it names, ``target_loss`` early-stopping (EWMA-smoothed) applies
 in every mode, and :class:`Hook`s observe or act on the run.  ``run()``
-drains the iterator and returns the result dict.
-
-Checkpointing (``save`` / ``restore`` and the reference's CheckpointHook)
-waits for the port of ``checkpoint/``.
+drains the iterator and returns the result dict.  ``save`` / ``restore``
+(and :class:`CheckpointHook`) persist the whole session, so a resumed BSP
+run continues bit for bit.
 """
 
 from __future__ import annotations
@@ -16,6 +15,8 @@ from __future__ import annotations
 import time as _time
 from typing import Iterator, Optional, Sequence
 
+from repro_torch.checkpoint import load_checkpoint, save_checkpoint
+from repro_torch.core import controller_from_state_dict
 from repro_torch.train.loop import StepRecord
 from repro_torch.train.metrics import iteration_time_stats, straggler_waste
 
@@ -59,6 +60,28 @@ class LoggingHook(Hook):
 
     def on_membership(self, session, event):
         self.emit(f"  membership @ step {session.trainer.step_idx}: {event}")
+
+
+class CheckpointHook(Hook):
+    """``session.save(path)`` every N steps and (optionally) at run end."""
+
+    def __init__(self, path: str, every: int = 100, at_end: bool = True,
+                 extra_meta: Optional[dict] = None):
+        self.path = path
+        self.every = max(int(every), 1)
+        self.at_end = at_end
+        self.extra_meta = extra_meta
+        self.saves = 0
+
+    def on_step(self, session, rec):
+        if (rec.step + 1) % self.every == 0:
+            session.save(self.path, extra_meta=self.extra_meta)
+            self.saves += 1
+
+    def on_run_end(self, session, result):
+        if self.at_end:
+            session.save(self.path, extra_meta=self.extra_meta)
+            self.saves += 1
 
 
 class EarlyStopHook(Hook):
@@ -238,12 +261,114 @@ class Session:
 
     # ---------------------------------------------------------- checkpoint
 
-    def save(self, path: str, extra_meta: Optional[dict] = None) -> None:
+    def _require_checkpointable(self):
+        """Checkpointing needs the sim backend's state surface: the engine's
+        version counters and the simulator's clock and jitter RNG."""
+        t = self.trainer
+        if getattr(t, "backend_kind", None) == "sim" and hasattr(t, "engine") \
+                and hasattr(t.sim, "rng"):
+            return t
         raise NotImplementedError(
-            "Session.save is not ported yet: it needs checkpoint/ "
-            "(ROADMAP queue 1, checkpoint slice)")
+            "session checkpointing is implemented for SimBackend trainers; "
+            f"this trainer ({type(t).__name__!r}) does not expose their "
+            "state surface")
+
+    def save(self, path: str, extra_meta: Optional[dict] = None) -> None:
+        """Checkpoint the full session: params, the optimizer's state
+        (Adam's moments; its step is the session's), ``batches``,
+        ``smoothed_loss`` and ``step``, the controller, the engine's
+        counters, the simulator's clock, iteration and jitter RNG, and the
+        data source's cursors.
+
+        Enough for :meth:`restore` to continue a BSP run bit for bit.  (ASP
+        in-flight events and their stale parameter payloads are not
+        persisted: an ASP resume redispatches all workers from the current
+        params, like a real cluster restart would.)
+        """
+        t = self._require_checkpointable()
+        session_meta = {
+            "backend": t.backend_kind,
+            "step": t.step_idx,
+            "batches": list(t.batches),
+            "smoothed_loss": self.smoothed_loss,
+            "controller": (t.controller.state_dict()
+                           if t.controller is not None else None),
+            # the outer global-batch controller: None for the fixed kind,
+            # the only one this port runs (TrainConfig rejects the others)
+            "outer": (t.outer.state_dict()
+                      if getattr(t, "outer", None) is not None else None),
+            "engine": {
+                "version": t.engine.version,
+                "read_version": list(t.engine.read_version),
+            },
+            "workload": (self.workload.state_dict()
+                         if self.workload is not None
+                         and self.workload.state_dict else None),
+            "sim": {
+                "time": t.sim.time,
+                "iteration": t.sim.iteration,
+                "rng": t.sim.rng.bit_generator.state,
+            },
+        }
+        meta = {"session": session_meta, **(extra_meta or {})}
+        save_checkpoint(path, {"params": t.params, "opt_state": t.opt_state},
+                        meta)
 
     def restore(self, path: str) -> "Session":
-        raise NotImplementedError(
-            "Session.restore is not ported yet: it needs checkpoint/ "
-            "(ROADMAP queue 1, checkpoint slice)")
+        """Load a :meth:`save` checkpoint into this (freshly built) session,
+        on the trainer's device.
+
+        Raises ``ValueError`` when the checkpoint was written by another
+        backend kind, for another worker count, at a step past part of the
+        membership schedule, with an outer global-batch controller this
+        session does not run, or (from the data source) with another
+        seed.
+        """
+        t = self._require_checkpointable()
+        tree, meta = load_checkpoint(path, t.device)
+        st = meta["session"]
+        ckpt_kind = st.get("backend", "sim")
+        if ckpt_kind != t.backend_kind:
+            raise ValueError(
+                f"checkpoint was written by the {ckpt_kind!r} backend but "
+                f"this session runs {t.backend_kind!r} — rebuild the "
+                f"Experiment with the matching ClusterSpec(backend=...) or "
+                f"point at a {t.backend_kind!r} checkpoint")
+        if len(st["batches"]) != t.k:
+            raise ValueError(
+                f"checkpoint has {len(st['batches'])} workers, session has "
+                f"{t.k} — rebuild the Experiment with the matching cluster")
+        if any(ev.step < int(st["step"]) for ev in self.schedule):
+            raise ValueError(
+                "cannot resume past membership events: the checkpoint step "
+                "is after part of the cluster schedule")
+        ckpt_outer = st.get("outer")
+        if (ckpt_outer is not None) != (getattr(t, "outer", None) is not None):
+            raise ValueError(
+                "global-batch config mismatch: the checkpoint was written "
+                f"with kind={'fixed' if ckpt_outer is None else ckpt_outer['kind']!r} "
+                f"but this session runs kind={t.cfg.global_batch.kind!r} — "
+                "rebuild the Experiment with the matching GlobalBatchConfig")
+        if st["workload"] is not None and self.workload is not None \
+                and self.workload.load_state_dict:
+            self.workload.load_state_dict(st["workload"])
+        params = tree["params"]
+        if set(params) != set(t.params):
+            raise ValueError("checkpoint parameters do not match the "
+                             "session's model")
+        t.params = {k: params[k].to(p.dtype) for k, p in t.params.items()}
+        t.opt_state = tree["opt_state"]
+        t.step_idx = int(st["step"])
+        t.batches = [int(b) for b in st["batches"]]
+        self.smoothed_loss = st["smoothed_loss"]
+        if st["controller"] is not None and t.controller is not None:
+            t.controller = controller_from_state_dict(st["controller"])
+        t.sim.time = float(st["sim"]["time"])
+        t.sim.iteration = int(st["sim"]["iteration"])
+        t.sim.rng.bit_generator.state = st["sim"]["rng"]
+        t.engine.version = int(st["engine"]["version"])
+        t.engine.read_version = [int(v) for v in st["engine"]["read_version"]]
+        # the guard above rejected any event before the checkpoint step, and
+        # events scheduled AT the resume step have not fired yet
+        self._sched_i = 0
+        return self

@@ -4,7 +4,16 @@ The trainer's contract: ``loss_and_grad(params, batch, mask)`` returns the
 gradient of the *weighted SUM* loss, never the mean — gradient sums are
 accumulated across microbatches and divided by the total weight exactly
 once, which is what makes variable per-worker batch sizes weight examples
-correctly (paper Eq. 2-3).  :func:`sum_loss_adapter` implements it once.
+correctly (paper Eq. 2-3).  :func:`sum_loss_adapter` implements it once;
+every constructor below goes through it:
+
+  * :func:`mean_loss_workload` — a plain per-example loss
+    ``per_example_loss(params, batch) -> (n,)``;
+  * :func:`sum_loss_workload` — a loss in the ``(loss_sum, weight_sum,
+    aux)`` convention (``repro_torch.models.simple``);
+  * :func:`paper_workload` — the paper's LinReg / MNIST-CNN / ResNet by
+    name;
+  * :func:`lm_workload` — LM training from a model config + ``DataPipeline``.
 
 Parameters are flat ``dict[str, Tensor]``; ``init(generator)`` draws them on
 the generator's device.  ``to(device)`` (optional) moves the data feed to the
@@ -16,7 +25,10 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Optional
 
+import numpy as np
 import torch
+
+from repro_torch.device import DeviceLike, resolve_device
 
 
 @dataclasses.dataclass
@@ -30,6 +42,54 @@ class Workload:
     state_dict: Optional[Callable[[], dict]] = None
     load_state_dict: Optional[Callable[[dict], None]] = None
     to: Optional[Callable] = None
+
+
+class CounterBatchSource:
+    """Deterministic per-(worker, call) batch stream.
+
+    Call *i* of worker *k* draws its examples from
+    ``numpy.random.default_rng((seed + k, i))`` through ``make_batch(rng,
+    n)`` (numpy arrays), a pure function of (seed, worker, call index): a
+    controller batch-resize changes only ``n``, never which stream the
+    examples come from, the CPU and the card see the same examples, and a
+    checkpoint resumes the stream exactly (``state_dict`` round-trips the
+    per-worker counters).  The arrays become tensors on the device set by
+    :meth:`to`; with none set, on the card (raising when there is none).
+    """
+
+    def __init__(self, make_batch: Callable, seed: int = 0):
+        self.make_batch = make_batch
+        self.seed = seed
+        self.counters: dict[int, int] = {}
+        self.device = None
+
+    def to(self, device: DeviceLike) -> "CounterBatchSource":
+        self.device = resolve_device(device)
+        return self
+
+    def __call__(self, worker: int, n: int) -> dict:
+        if self.device is None:
+            self.device = resolve_device(None)
+        self.counters[worker] = self.counters.get(worker, 0) + 1
+        rng = np.random.default_rng((self.seed + worker,
+                                     self.counters[worker]))
+        return {k: torch.as_tensor(v, device=self.device)
+                for k, v in self.make_batch(rng, n).items()}
+
+    def state_dict(self) -> dict:
+        return {"seed": self.seed, "counters": dict(self.counters)}
+
+    def load_state_dict(self, state: dict) -> None:
+        if "seed" in state and int(state["seed"]) != self.seed:
+            raise ValueError(
+                f"checkpoint batch stream used seed {state['seed']}, this "
+                f"workload uses {self.seed} — resuming would silently train "
+                f"on a different data stream")
+        self.counters = {int(k): int(v)
+                         for k, v in state["counters"].items()}
+
+
+# --------------------------------------------------------------- adapters
 
 
 def _grads(total, leaves: dict) -> dict:
@@ -55,6 +115,54 @@ def sum_loss_adapter(loss_fn: Callable, aux_weight: float = 0.0) -> Callable:
         return (ls.detach(), ws.detach(), aux.detach()), _grads(total, leaves)
 
     return loss_and_grad
+
+
+def mean_loss_adapter(per_example_loss: Callable) -> Callable:
+    """Trainer-contract ``loss_and_grad`` from an ordinary per-example loss
+    ``per_example_loss(params, batch) -> (n,)``, written as if computing a
+    plain mean; masking and summation happen here, the SUM contract in
+    :func:`sum_loss_adapter`."""
+
+    def loss_fn(params, batch, mask):
+        ls = (per_example_loss(params, batch) * mask).sum()
+        return ls, mask.sum(), torch.zeros((), device=mask.device)
+
+    return sum_loss_adapter(loss_fn)
+
+
+# ----------------------------------------------------------- constructors
+
+
+def _counter_workload(name, init, loss_and_grad, make_batch, seed):
+    src = CounterBatchSource(make_batch, seed)
+    return Workload(name, init, loss_and_grad, src, src.state_dict,
+                    src.load_state_dict, src.to)
+
+
+def mean_loss_workload(name: str, init: Callable,
+                       per_example_loss: Callable, make_batch: Callable,
+                       *, seed: int = 0) -> Workload:
+    """Workload from an ordinary per-example mean-style loss (see
+    :func:`mean_loss_adapter`) + a ``make_batch(rng, n)`` sampler."""
+    return _counter_workload(name, init, mean_loss_adapter(per_example_loss),
+                             make_batch, seed)
+
+
+def sum_loss_workload(name: str, init: Callable, loss_fn: Callable,
+                      make_batch: Callable, *, seed: int = 0) -> Workload:
+    """Workload from a ``(loss_sum, weight_sum, aux)``-convention loss."""
+    return _counter_workload(name, init, sum_loss_adapter(loss_fn),
+                             make_batch, seed)
+
+
+def paper_workload(name: str, *, seed: int = 100) -> Workload:
+    """One of the paper's evaluation workloads ('linreg' | 'mnist-cnn' |
+    'resnet'), on synthetic data with a planted ground truth."""
+    from repro_torch.models.simple import paper_workloads
+
+    wl = paper_workloads()[name]
+    return sum_loss_workload(name, wl.init, wl.loss_fn, wl.make_batch,
+                             seed=seed)
 
 
 def lm_workload(model_cfg, pipe, *, aux_weight: float = 0.0,

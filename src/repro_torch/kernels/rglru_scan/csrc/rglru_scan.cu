@@ -35,22 +35,33 @@
 // memory's rate; the dependent chain itself (two rounded operations a step,
 // ~8 cycles) needs ~10 us for 2048 steps, a tenth of the bytes bound.
 //
-//   rglru_fwd: each thread loads UNROLL steps of a and bx into
-//   registers, then runs the chain over them.
+// Both kernels feed the chain from a ring in shared memory, one per warp,
+// of STAGES stages of STEPS steps of the warp's 32 columns of their inputs,
+// filled by cp.async (issue_rows: 16-byte copies, 8 lanes a 128-byte row,
+// when W % 4 == 0 and the inputs are 16-byte aligned; else each lane copies
+// its own column).  While the chain runs over one stage, the next STAGES - 1
+// are in flight; a wait and a __syncwarp open each stage, so its copies
+// have landed for every lane and every lane is done with the slot the next
+// copy refills.  Where ~25 KB an SM cover ~1 us of loaded latency at 3.35
+// TB/s:
 //
-//   rglru_bwd: a ring in shared memory of STAGES stages of STEPS steps of the
-//   warp's 32 columns of a, dh and h[t-1], filled by cp.async walking time
-//   backwards (16-byte copies, 8 lanes a 128-byte row, when W % 4 == 0 and
-//   the inputs are 16-byte aligned; else each lane copies its own column).
-//   While the chain runs over one stage, the next STAGES - 1 are in flight:
-//   3 x 16 = 48 steps, 18 KB a warp, ~36 KB an SM, where ~25 KB an SM cover
-//   ~1 us of loaded latency at 3.35 TB/s.  Occupancy: a block is BWD_WARPS
-//   warps (1), each with 24 KB of ring (4 x 16 x 3 x 32 floats), so every
-//   SM can hold all the warps it is given.  The chain is unchanged (same order, __fadd_rn,
-//   __fmul_rn, no FMA), so the kernel stays bit-equal to the plain version;
-//   a chunked scan would change the order of the roundings.  h0 enters at
-//   t = 0 in place of h[-1]; the last stage holds the first L % STEPS steps
-//   when L is no multiple of STEPS; lanes past W copy and store nothing.
+//   rglru_fwd: a and bx, walking time forwards, FWD_STAGES x FWD_STEPS
+//   steps (2 x 32 floats a step): 3 x 16 = 48 steps, 12 KB, in flight a
+//   warp, ~24 KB an SM (more stages in flight measured slower on the H100:
+//   tools/kernel_variants.py, PERF.md).  Stage k holds steps [k FWD_STEPS, (k + 1)
+//   FWD_STEPS); the last holds L % FWD_STEPS of them when L is no
+//   multiple; h0 (or 0) is the carry at t = 0.
+//
+//   rglru_bwd: a, dh and h[t-1], walking time backwards, STAGES x STEPS
+//   steps (3 x 32 floats a step): 3 x 16 = 48 steps, 18 KB, in flight a
+//   warp.  Stage k holds steps [L - (k + 1) STEPS, L - k STEPS); the last
+//   holds the first L % STEPS steps; h0 enters at t = 0 in place of h[-1].
+//
+// Blocks are one warp (BWD_WARPS 1), each with 16 KB (fwd) or 24 KB (bwd)
+// of ring, so every SM can hold all the warps it is given.  The chain is
+// unchanged from the plain version (same order, __fadd_rn, __fmul_rn, no
+// FMA), so the kernels stay bit-equal to it; a chunked scan would change
+// the order of the roundings.  Lanes past W copy and store nothing.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -62,74 +73,85 @@ namespace {
 
 bool aligned16(const void* p) { return (uintptr_t)p % 16 == 0; }
 
-constexpr int NT = 32;      // threads per block: one warp
-constexpr int UNROLL = 16;  // steps loaded ahead of the dependent chain
+// Copy S steps of Q (B,L,W) arrays into ring slot st: row u of array q
+// holds row t0 + u - shift[q] of src[q] (h[t-1] in the backward has shift
+// 1); rows outside [0, L) and columns past W are not copied.
+template <int Q, int S>
+__device__ __forceinline__ void issue_rows(float* st,
+                                           const float* const (&src)[Q],
+                                           const int (&shift)[Q], size_t base,
+                                           int w0, int t0, int L, int W,
+                                           bool vec) {
+  const int lane = threadIdx.x & 31;
+  if (vec) {
+    for (int i = lane; i < Q * S * 8; i += 32) {
+      const int q = i / (S * 8), u = i / 8 % S, c = 4 * (i % 8);
+      const int row = t0 + u - shift[q];
+      if (row >= 0 && row < L && w0 + c < W)
+        cp_async16(st + (q * S + u) * 32 + c,
+                   src[q] + base + (size_t)row * W + w0 + c, 16);
+    }
+  } else if (w0 + lane < W) {
+    for (int i = 0; i < Q * S; ++i) {
+      const int q = i / S, u = i % S, row = t0 + u - shift[q];
+      if (row >= 0 && row < L)
+        cp_async4(st + i * 32 + lane,
+                  src[q] + base + (size_t)row * W + w0 + lane, 4);
+    }
+  }
+}
 
-__global__ void __launch_bounds__(NT)
+constexpr int FWD_STEPS = 16;   // steps of one forward ring stage
+constexpr int FWD_STAGES = 4;   // forward ring stages: FWD_STAGES - 1 in flight
+constexpr int FWD_SLOT = 2 * FWD_STEPS * 32;  // floats a stage: a, bx
+
+// Forward walk: the carry starts at h0 (or 0) and runs over the stages.
+__global__ void __launch_bounds__(32)
 rglru_fwd_kernel(const float* __restrict__ a, const float* __restrict__ bx,
                  const float* __restrict__ h0, float* __restrict__ h,
-                 float* __restrict__ hT, int L, int W) {
-  const int w = blockIdx.x * NT + threadIdx.x;
-  if (w >= W) return;
+                 float* __restrict__ hT, int L, int W, int vec) {
+  extern __shared__ __align__(16) float ring[];
+  const int lane = threadIdx.x, w0 = blockIdx.x * 32, w = w0 + lane;
+  const bool live = w < W;
   const int b = blockIdx.y;
-  const size_t col = (size_t)b * L * W + w;
-  float carry = h0 != nullptr ? h0[(size_t)b * W + w] : 0.f;
-  int t = 0;
-  for (; t + UNROLL <= L; t += UNROLL) {
-    float av[UNROLL], bv[UNROLL];
+  const size_t base = (size_t)b * L * W;
+  const int stages = (L + FWD_STEPS - 1) / FWD_STEPS;
+  const float* const src[2] = {a, bx};
+  const int shift[2] = {0, 0};
 #pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      const size_t i = col + (size_t)(t + u) * W;
-      av[u] = __ldg(a + i);
-      bv[u] = __ldg(bx + i);
-    }
+  for (int k = 0; k < FWD_STAGES - 1; ++k) {
+    if (k < stages)
+      issue_rows<2, FWD_STEPS>(ring + k * FWD_SLOT, src, shift, base, w0,
+                               k * FWD_STEPS, L, W, vec);
+    cp_commit();
+  }
+  float carry = live && h0 != nullptr ? h0[(size_t)b * W + w] : 0.f;
+  for (int k = 0; k < stages; ++k) {
+    cp_wait<FWD_STAGES - 2>();  // stage k landed (the next ones in flight)
+    __syncwarp();               // ... for every lane; all are done with k - 1
+    const int next = k + FWD_STAGES - 1;
+    if (next < stages)
+      issue_rows<2, FWD_STEPS>(ring + next % FWD_STAGES * FWD_SLOT, src,
+                               shift, base, w0, next * FWD_STEPS, L, W, vec);
+    cp_commit();
+    const float* st = ring + k % FWD_STAGES * FWD_SLOT;
+    if (!live) continue;
 #pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      carry = __fadd_rn(__fmul_rn(av[u], carry), bv[u]);
-      h[col + (size_t)(t + u) * W] = carry;
+    for (int u = 0; u < FWD_STEPS; ++u) {
+      const int t = k * FWD_STEPS + u;
+      if (t >= L) break;  // only in the last stage
+      carry = __fadd_rn(__fmul_rn(st[u * 32 + lane], carry),
+                        st[(FWD_STEPS + u) * 32 + lane]);
+      h[base + (size_t)t * W + w] = carry;
     }
   }
-  for (; t < L; ++t) {
-    const size_t i = col + (size_t)t * W;
-    carry = __fadd_rn(__fmul_rn(__ldg(a + i), carry), __ldg(bx + i));
-    h[i] = carry;
-  }
-  hT[(size_t)b * W + w] = carry;
+  if (live) hT[(size_t)b * W + w] = carry;
 }
 
 constexpr int BWD_WARPS = 1;  // warps per block, each with its own ring
 constexpr int STEPS = 16;     // steps of one ring stage
 constexpr int STAGES = 4;     // ring stages: STAGES - 1 in flight
 constexpr int RING = STAGES * 3 * STEPS * 32;  // floats a warp: a, dh, h[t-1]
-
-// Copy stage k of the reverse walk, steps [max(0, hi - STEPS), hi) with hi
-// = L - k STEPS, into ring slot st: row u of array q (a, dh, h[t-1]) holds
-// step t = hi - STEPS + u.  h[-1] (h0) is not copied.
-__device__ __forceinline__ void issue_stage(float* st, const float* __restrict__ a,
-                                            const float* __restrict__ dh,
-                                            const float* __restrict__ h,
-                                            size_t base, int w0, int hi, int W,
-                                            bool vec) {
-  const int lane = threadIdx.x & 31;
-  const float* src[3] = {a, dh, h};
-  if (vec) {
-    for (int i = lane; i < 3 * STEPS * 8; i += 32) {
-      const int q = i / (STEPS * 8), u = i / 8 % STEPS, col = w0 + 4 * (i % 8);
-      const int t = hi - STEPS + u, row = q == 2 ? t - 1 : t;
-      if (row >= 0 && col < W)
-        cp_async16(st + (q * STEPS + u) * 32 + 4 * (i % 8),
-                   src[q] + base + (size_t)row * W + col, 16);
-    }
-  } else if (w0 + lane < W) {
-    for (int i = 0; i < 3 * STEPS; ++i) {
-      const int q = i / STEPS, u = i % STEPS;
-      const int t = hi - STEPS + u, row = q == 2 ? t - 1 : t;
-      if (row >= 0)
-        cp_async4(st + i * 32 + lane,
-                  src[q] + base + (size_t)row * W + w0 + lane, 4);
-    }
-  }
-}
 
 // Reverse walk.  c carries a_{t+1} g_{t+1} (dhT at the start); h_{t-1} comes
 // from the ring, h0 (or 0) at t = 0.
@@ -148,11 +170,13 @@ rglru_bwd_kernel(const float* __restrict__ a, const float* __restrict__ h,
   const int b = blockIdx.y;
   const size_t base = (size_t)b * L * W;
   const int stages = (L + STEPS - 1) / STEPS;
+  const float* const src[3] = {a, dh, h};
+  const int shift[3] = {0, 0, 1};
 #pragma unroll
   for (int k = 0; k < STAGES - 1; ++k) {
     if (k < stages)
-      issue_stage(ring + k * (RING / STAGES), a, dh, h, base, w0, L - k * STEPS,
-                  W, vec);
+      issue_rows<3, STEPS>(ring + k * (RING / STAGES), src, shift, base, w0,
+                           L - (k + 1) * STEPS, L, W, vec);
     cp_commit();
   }
   const float first = live && h0 != nullptr ? h0[(size_t)b * W + w] : 0.f;
@@ -162,8 +186,8 @@ rglru_bwd_kernel(const float* __restrict__ a, const float* __restrict__ h,
     __syncwarp();           // ... for every lane; all are done with stage k - 1
     const int next = k + STAGES - 1;
     if (next < stages)
-      issue_stage(ring + next % STAGES * (RING / STAGES), a, dh, h, base, w0,
-                  L - next * STEPS, W, vec);
+      issue_rows<3, STEPS>(ring + next % STAGES * (RING / STAGES), src, shift,
+                           base, w0, L - (next + 1) * STEPS, L, W, vec);
     cp_commit();
     const float* st = ring + k % STAGES * (RING / STAGES);
     if (!live) continue;
@@ -190,8 +214,14 @@ extern "C" {
 // launch.
 int rglru_fwd(const float* a, const float* bx, const float* h0, float* h,
               float* hT, int B, int L, int W, cudaStream_t stream) {
-  const dim3 grid((W + NT - 1) / NT, B);
-  rglru_fwd_kernel<<<grid, NT, 0, stream>>>(a, bx, h0, h, hT, L, W);
+  const dim3 grid((W + 31) / 32, B);
+  const size_t smem = FWD_STAGES * FWD_SLOT * sizeof(float);
+  if (int e = (int)cudaFuncSetAttribute(
+          rglru_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          (int)smem))
+    return e;
+  const int vec = W % 4 == 0 && aligned16(a) && aligned16(bx);
+  rglru_fwd_kernel<<<grid, 32, smem, stream>>>(a, bx, h0, h, hT, L, W, vec);
   return (int)cudaGetLastError();
 }
 

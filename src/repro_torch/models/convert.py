@@ -12,6 +12,12 @@ block j is the port's ``layers.{g * period + j}``, tail block i its
 (d_out, d_in).  Only leaves named ``w`` are transposed: ``conv_w`` (ssm and
 rec blocks) keeps the reference's (K, C) layout and ``rglru/lam`` is a
 vector.  Both directions are exact: no arithmetic touches a value.
+
+``paper_params_from_jax`` does the same for the paper workloads
+(``models/simple.py``), whose parameters are one flat dict on both sides:
+conv kernels go from the reference's HWIO to PyTorch's OIHW, every other
+leaf as it is (the port's CNN flattens NHWC activations, so ``w1``'s rows
+keep the reference's order).
 """
 
 from __future__ import annotations
@@ -69,6 +75,26 @@ def params_from_jax(tree: dict, cfg: ModelConfig,
             name, t = _leaf_to_torch(path, x)
             out[name] = t
     return {k: v.to(device) for k, v in out.items()}
+
+
+def paper_params_from_jax(name: str, tree: dict,
+                          device: DeviceLike = None) -> dict[str, torch.Tensor]:
+    """A paper workload's reference parameters (jax or numpy leaves) -> the
+    port's, on ``device`` (the card unless the caller asks for the CPU).
+    ``name`` is a ``paper_workloads()`` key; 4-d leaves are conv kernels."""
+    from repro_torch.models.simple import paper_workloads
+
+    if name not in paper_workloads():
+        raise ValueError(f"unknown paper workload {name!r}")
+    device = resolve_device(device)
+    out = {}
+    for key, x in tree.items():
+        x = np.asarray(x)
+        if x.ndim == 4:
+            x = x.transpose(3, 2, 0, 1)   # HWIO -> OIHW
+        out[key] = torch.from_numpy(np.array(x, order="C",
+                                             copy=True)).to(device)
+    return out
 
 
 def params_to_jax(params: dict[str, torch.Tensor], cfg: ModelConfig) -> dict:

@@ -28,16 +28,25 @@ index) determinism means re-assigned streams never skip or repeat examples.
 
 from __future__ import annotations
 
+from typing import Callable
+
 from repro_torch.core import cost_aware_allocation, largest_remainder_round
-from repro_torch.het.simulator import WorkerSpec
+from repro_torch.het.simulator import ClusterSim, WorkerSpec
 from repro_torch.train.loop import HeterogeneousTrainer
 
 
 class ElasticTrainer(HeterogeneousTrainer):
     """HeterogeneousTrainer + dynamic worker membership."""
 
-    def __init__(self, **kw):
-        super().__init__(**kw)
+    def __init__(self, *, worker_specs: list[WorkerSpec] | None = None,
+                 workload=None, sim_seed: int = 0, sim: ClusterSim | None = None,
+                 **kw):
+        if sim is None:
+            if worker_specs is None or workload is None:
+                raise ValueError(
+                    "pass either sim= or (worker_specs=, workload=)")
+            sim = ClusterSim(list(worker_specs), workload, seed=sim_seed)
+        super().__init__(sim=sim, **kw)
         self.membership_log: list[tuple[int, str, int]] = []
 
     # ------------------------------------------------------------ events
@@ -117,3 +126,25 @@ class ElasticTrainer(HeterogeneousTrainer):
         else:
             self.batches = plan
         return self.batches
+
+    # ------------------------------------------------------------- runs
+
+    def run_with_events(self, events: dict[int, Callable[["ElasticTrainer"],
+                                                         None]],
+                        max_steps: int) -> dict:
+        """events: {step: fn(trainer)} applied before that step executes."""
+        for step in range(max_steps):
+            if step in events:
+                events[step](self)
+            if self.cfg.sync == "bsp":
+                self.bsp_step()
+            else:
+                self.asp_step()
+        return {
+            "steps": self.step_idx,
+            "sim_time": self.sim.time,
+            "final_loss": self.history[-1].loss if self.history else None,
+            "final_batches": list(self.batches),
+            "membership_log": self.membership_log,
+            "history": self.history,
+        }

@@ -19,6 +19,7 @@ Synchronisation: 'bsp' or 'asp', both through train.engine.
 from __future__ import annotations
 
 import dataclasses
+import time as _time
 from typing import Callable, Optional
 
 import torch
@@ -286,3 +287,33 @@ class HeterogeneousTrainer(OuterBatchMixin):
         self.history.append(rec)
         self.step_idx += 1
         return rec
+
+    # ------------------------------------------------------------------ run
+
+    def run(self) -> dict:
+        """The closed loop: up to ``cfg.max_steps`` steps, stopping once the
+        EWMA-smoothed loss reaches ``cfg.target_loss``."""
+        cfg = self.cfg
+        smoothed = None
+        wall0 = _time.perf_counter()
+        for _ in range(cfg.max_steps):
+            rec = self.bsp_step() if cfg.sync == "bsp" else self.asp_step()
+            smoothed = rec.loss if smoothed is None else (
+                cfg.loss_ewma * rec.loss + (1 - cfg.loss_ewma) * smoothed)
+            if cfg.target_loss is not None and smoothed <= cfg.target_loss:
+                break
+        return {
+            "steps": self.step_idx,
+            "sim_time": self.sim.time,
+            "final_loss": smoothed,
+            "reached_target": (cfg.target_loss is not None
+                               and smoothed is not None
+                               and smoothed <= cfg.target_loss),
+            "wall_time": _time.perf_counter() - wall0,
+            "batch_adjustments": (self.controller.num_updates
+                                  if self.controller else 0),
+            "outer_resizes": (self.outer.num_resizes
+                              if self.outer is not None else 0),
+            "history": self.history,
+            "final_batches": list(self.batches),
+        }

@@ -96,3 +96,29 @@ def test_cuda_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
         rglru_linear_scan(a.transpose(1, 2), a.transpose(1, 2))
     with pytest.raises(ValueError, match="CUDA"):
         rglru_linear_scan(a, a.cpu())
+
+
+# (b, l, w) at the forward ring's edges: one step, one step past a stage,
+# an L that ends inside a stage after wrapping the ring, a W that is no
+# multiple of 32, and one that is no multiple of 4 (4-byte copies)
+RING_EDGES = [(2, 1, 64), (2, 17, 64), (2, 100, 128), (2, 100, 200),
+              (1, 300, 4097)]
+RING_IDS = ["l1", "l17", "l100", "w200", "w4097"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_h0", [True, False], ids=["h0", "no-h0"])
+@pytest.mark.parametrize("case", RING_EDGES, ids=RING_IDS)
+def test_cuda_rglru_fwd_ring_edges_repeat_and_equal_plain(case, with_h0,
+                                                          cuda_device):
+    a, bx, h0 = _inputs(case, cuda_device, seed=3)[:3]
+    h0 = h0 if with_h0 else None
+    reset_launches()
+    first = rglru_linear_scan(a, bx, h0)
+    again = rglru_linear_scan(a, bx, h0)
+    want = rglru_linear_scan_plain(a, bx, h0)
+    torch.cuda.synchronize()
+    for x, y, z in zip(first, again, want):
+        assert torch.equal(x, y), (x - y).abs().max()
+        assert torch.equal(x, z), (x - z).abs().max()
+    assert LAUNCHES == {"rglru_fwd": 2, "rglru_bwd": 0}
