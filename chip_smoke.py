@@ -61,7 +61,20 @@ Phases, each of which fails the run (nonzero exit) when it goes wrong:
   8. resume: resnet for 6 steps straight, and for 3 steps, ``Session.save``,
      a fresh session resumed from the file, 3 more steps; final params,
      Adam's moments and the resumed steps' records bit-identical (cuDNN
-     deterministic for this check).
+     deterministic for this check);
+  9. outer kinds: phase 4's gemma path (2 layers, seq 1024) twice more, 6
+     BSP steps each, with an outer global-batch controller on the ladder
+     [12, 24]: gns with adam(1e-3), where every step's three |g_k|^2 and
+     the combined |g|^2 must be finite and positive and the estimator must
+     accept every step, its last step profiled for the side statistics'
+     device time (the kernels aten::dot launched) against 4 passes over the
+     fp32 parameters at the memory's rate; then geometric with
+     adam(batch_coupled(1e-3, "sqrt")), which must resize 12 -> 24 once, at
+     its second step (resize log [[2, 24]]), leaving the LR scale at
+     sqrt(2); B stays on the ladder, and the flash kernels' launch counts
+     equal 2 layers x the microbatches each run ran, the resize included;
+     each step's wall ms is logged with the B it ran at, and one
+     ``tree_sqnorm`` pass over the path's parameters is timed alone.
 
 Each main path runs with every kernel's launch count set to 0 just before
 it and read just after.
@@ -855,15 +868,20 @@ def step_clock(profile_step=None, frags=None):
     return StepClock()
 
 
-def main_path(path: str) -> dict:
+def main_path(path: str, *, steps: int = STEPS, global_batch=None,
+              optimizer=None, profile: bool = True, hooks=()) -> dict:
     """One heterogeneous Experiment at the arch's full widths (depth cut),
-    STEPS BSP steps, three h-level workers; every launch count is set to 0
-    just before the run and read just after."""
+    ``steps`` BSP steps, three h-level workers, the fixed outer kind and
+    adam(1e-3) unless ``global_batch`` / ``optimizer`` say otherwise; every
+    launch count is set to 0 just before the run and read just after.  The
+    last step runs under torch.profiler when ``profile``; ``hooks`` are
+    extra session hooks."""
     import torch
     from repro_torch.api import (ClusterSpec, Experiment, TrainConfig,
                                  lm_workload)
     from repro_torch.configs import get_config
-    from repro_torch.core import ControllerConfig, plan_microbatches
+    from repro_torch.core import (ControllerConfig, GlobalBatchConfig,
+                                  plan_microbatches)
     from repro_torch.data import DataPipeline
     from repro_torch.optim import adam
 
@@ -876,15 +894,17 @@ def main_path(path: str) -> dict:
                              aux_weight=0.01, use_kernel=True),
         cluster=ClusterSpec.hlevel(39, 6.0, 3, workload="transformer",
                                    seed=0),
-        optimizer=adam(1e-3),
+        optimizer=optimizer or adam(1e-3),
         config=TrainConfig(b0=4, microbatch=MICROBATCH, batching="dynamic",
-                           sync="bsp", max_steps=STEPS,
-                           controller=ControllerConfig(kind="p")),
+                           sync="bsp", max_steps=steps,
+                           controller=ControllerConfig(kind="p"),
+                           global_batch=global_batch or GlobalBatchConfig()),
     )
-    clock = step_clock(profile_step=STEPS - 1, frags=frags)
+    clock = step_clock(profile_step=steps - 1 if profile else None,
+                       frags=frags)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    session = experiment.session(hooks=[clock])
+    session = experiment.session(hooks=[clock, *hooks])
     n_params = sum(p.numel() for p in session.params.values())
     initial = list(session.batches)
     reset_all_launches()
@@ -912,7 +932,7 @@ def main_path(path: str) -> dict:
            "profile": clock.profile}
     del session, experiment, out
     torch.cuda.empty_cache()
-    if len(hist) != STEPS or not all(math.isfinite(x) for x in losses):
+    if len(hist) != steps or not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"{path} path: bad losses {losses}")
     wrong = {k: c for k, c in counts.items() if c != want.get(k, 0)}
     if wrong or micro <= 0:
@@ -945,15 +965,26 @@ def profile_summary(prof, wall_us: float, own: dict, top: int = 8) -> dict:
     mine = {k: sum(by_frag[f] for f in frags) for k, frags in own.items()}
     gemm = sum(t for n, t in kernels.items()
                if "gemm" in n.lower() or "sgemm" in n.lower())
+    # device time of the kernels that the CPU op aten::dot launched: the
+    # GNS side statistics (core/grad.py::tree_sqnorm); nothing else on the
+    # main paths calls it
+    dots = [ev for ev in prof.events() if ev.name == "aten::dot"
+            and str(getattr(ev, "device_type", "")) != "DeviceType.CUDA"]
     return {"step_wall_us": wall_us, "device_busy_us": busy,
             "idle_share": (1 - busy / wall_us) if busy else None,
             "kernels_us": mine, "fragments_us": by_frag, "gemm_us": gemm,
+            "sqnorm_us": sum(ev.device_time_total for ev in dots),
+            "sqnorm_calls": len(dots),
+            "sqnorm_kernels": sorted({k.name[:60] for ev in dots
+                                      for k in getattr(ev, "kernels", ())}),
             "top": [(n[:90], t) for n, t in ranked[:top]]}
 
 
 def log_path(mp: dict) -> None:
     pr = mp["profile"]
-    if pr and pr["device_busy_us"]:
+    if pr is None:
+        log("  no step profiled")
+    elif pr["device_busy_us"]:
         log(f"  profiled step: wall {pr['step_wall_us'] / 1e3:.1f} ms, device "
             f"busy {pr['device_busy_us'] / 1e3:.1f} ms (idle share "
             f"{pr['idle_share']:.3f}); gemm {pr['gemm_us'] / 1e3:.1f} ms, "
@@ -967,6 +998,156 @@ def log_path(mp: dict) -> None:
         f"step {mp['microbatches_per_step']}), launches "
         f"{ {k: v for k, v in mp['launches'].items() if v} }, "
         f"max_memory_allocated {mp['max_memory_allocated'] / 2**30:.2f} GiB")
+
+
+# ------------------------------------------------------ phase 9, outer kinds
+
+# (name, GlobalBatchConfig knobs, LR coupling rule or None): the gemma path
+# with the outer controller walking B along the ladder [12, 24]
+OUTER_RUNS = [
+    ("gns", dict(kind="gns", warmup=2, cooldown=2, gns_min_samples=2,
+                 ladder_growth=2.0, max_factor=2.0), None),
+    ("geometric", dict(kind="geometric", warmup=2, cooldown=2, geo_every=2,
+                       ladder_growth=2.0, max_factor=2.0), "sqrt"),
+]
+OUTER_STEPS = 6
+
+
+def outer_probe():
+    """A session hook that records, every step, B and the split, the
+    outer controller's rung, resize log and estimator, the coupled LR's
+    scale, and the |g_k|^2 / |g|^2 side statistics fed to the controller
+    (its ``observe`` is wrapped at the run's start)."""
+    from repro_torch.api import Hook
+
+    class OuterProbe(Hook):
+        def __init__(self):
+            self.steps, self.stats = [], []
+
+        def on_run_start(self, session):
+            outer = session.trainer.outer
+            observe = outer.observe
+
+            def spy(**kw):
+                self.stats.append(kw["stats"])
+                return observe(**kw)
+
+            outer.observe = spy
+
+        def on_step(self, session, rec):
+            t = session.trainer
+            est = getattr(t.outer, "estimator", None)
+            sched = getattr(t.optimizer, "schedule", None)
+            st = self.stats[-1]
+            self.steps.append({
+                "step": rec.step, "batches": list(rec.batches),
+                "b_global": sum(rec.batches), "rung": t.outer.rung,
+                "rungs": list(t.outer.rungs),
+                "resize_log": [list(x) for x in t.outer.resize_log],
+                "b_noise": est.b_noise if est else None,
+                "samples": est.samples if est else None,
+                "lr_scale": getattr(sched, "scale", None),
+                "sqnorms": None if st is None else list(st.per_worker_sqnorm),
+                "combined_sqnorm": None if st is None
+                else st.combined_sqnorm})
+
+    return OuterProbe()
+
+
+def outer_run(name: str, knobs: dict, rule, bytes_per_pass: int,
+              peak_bw: float) -> dict:
+    """One 6-step run of the gemma path with an outer kind: launch counts
+    and the rest of ``main_path``'s checks, then this kind's own."""
+    from repro_torch.core import GlobalBatchConfig
+    from repro_torch.optim import adam, batch_coupled
+
+    probe = outer_probe()
+    lr = 1e-3 if rule is None else batch_coupled(1e-3, rule=rule)
+    mp = main_path("gemma", steps=OUTER_STEPS,
+                   global_batch=GlobalBatchConfig(**knobs),
+                   optimizer=adam(lr), profile=name == "gns", hooks=[probe])
+    steps = probe.steps
+    for st, ms in zip(steps, mp["step_wall_ms"]):
+        log(f"  {name} step {st['step']}: wall {ms:.1f} ms, B "
+            f"{st['b_global']} {st['batches']}, rung {st['rung']}, b_noise "
+            f"{st['b_noise']}, samples {st['samples']}, lr scale "
+            f"{st['lr_scale']}, |g_k|^2 {st['sqnorms']}, |g|^2 "
+            f"{st['combined_sqnorm']}")
+    res = {**mp, "kind": name, "outer_steps": steps}
+    rungs = steps[0]["rungs"]
+    bad = [st["step"] for st in steps if st["b_global"] not in rungs]
+    if rungs != [12, 24] or bad:
+        raise AssertionError(f"{name}: ladder {rungs}, off-ladder B at "
+                             f"steps {bad}")
+    if name == "gns":
+        sq = [x for st in steps
+              for x in st["sqnorms"] + [st["combined_sqnorm"]]]
+        if not (len(sq) == 4 * OUTER_STEPS
+                and all(math.isfinite(x) and x > 0 for x in sq)):
+            raise AssertionError(f"gns: side statistics {sq}")
+        if steps[-1]["samples"] != OUTER_STEPS:
+            raise AssertionError(f"gns: the estimator accepted "
+                                 f"{steps[-1]['samples']} of {OUTER_STEPS}")
+        prof = mp["profile"] or {}
+        res["sqnorm_bound_ms"] = 4 * bytes_per_pass / peak_bw * 1e3
+        res["sqnorm_ms"] = (prof["sqnorm_us"] / 1e3
+                            if prof.get("device_busy_us") else None)
+        log(f"  gns side statistics in the profiled step: "
+            + ("not measured (no device time recorded)"
+               if res["sqnorm_ms"] is None else
+               f"{res['sqnorm_ms']:.3f} ms device over "
+               f"{prof['sqnorm_calls']} aten::dot calls "
+               f"({prof['sqnorm_kernels']})")
+            + f"; bytes bound {res['sqnorm_bound_ms']:.3f} ms (4 passes over "
+            f"{bytes_per_pass / 1e9:.2f} GB)")
+    else:
+        at = [st["step"] for st in steps if st["b_global"] == 24]
+        scale = steps[-1]["lr_scale"]
+        res["resize_fired_in_step"] = at[0] if at else None
+        res["resize_log"] = steps[-1]["resize_log"]
+        # each step's wall ms by the B it ran at (step 0, the warm-up, out)
+        ran_at = [12] + [st["b_global"] for st in steps[:-1]]
+        res["step_wall_ms_at_b"] = {
+            b: [w for w, r in zip(mp["step_wall_ms"][1:], ran_at[1:])
+                if r == b] for b in (12, 24)}
+        log(f"  geometric: B 12 -> 24 fired in step "
+            f"{res['resize_fired_in_step']} (resize log "
+            f"{res['resize_log']}), lr scale {scale}; step wall ms by the B "
+            f"each step ran at (step 0 left out): "
+            f"{res['step_wall_ms_at_b']}")
+        if res["resize_log"] != [[2, 24]] or scale != math.sqrt(2):
+            raise AssertionError(f"geometric: resize log "
+                                 f"{res['resize_log']}, lr scale {scale}")
+    return res
+
+
+def check_outer_kinds(peak_bw: float) -> dict:
+    """Phase 9: the gemma path at full width with the gns and geometric
+    outer kinds (see the module docstring)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import tree_sqnorm
+    from repro_torch.models import init_lm
+
+    # the side statistics' bytes: every fp32 parameter of the path, read
+    # once a pass; and one pass timed alone at the path's shapes
+    cfg = get_config(PATHS["gemma"][0], num_layers=PATHS["gemma"][1])
+    params = init_lm(torch.Generator(device="cuda").manual_seed(0), cfg)
+    n = sum(p.numel() for p in params.values())
+    pass_ms = time_ms(lambda: tree_sqnorm(params), 5)
+    del params
+    torch.cuda.empty_cache()
+    log(f"  tree_sqnorm alone over {n} fp32 parameters: {pass_ms:.3f} ms a "
+        f"pass (bytes bound {4 * n / peak_bw * 1e3:.3f} ms)")
+    res = {"params": n, "sqnorm_pass_ms": pass_ms,
+           "sqnorm_pass_bound_ms": 4 * n / peak_bw * 1e3}
+    for name, knobs, rule in OUTER_RUNS:
+        log(f"  {name}: GlobalBatchConfig({knobs}), adam("
+            + ("1e-3" if rule is None else f"batch_coupled(1e-3, {rule!r})")
+            + f"), {OUTER_STEPS} BSP steps")
+        res[name] = outer_run(name, knobs, rule, 4 * n, peak_bw)
+        log_path(res[name])
+    return res
 
 
 # ------------------------------------------------- phases 7-8, paper workloads
@@ -1209,6 +1390,9 @@ def main() -> int:
     report["paper"] = check_paper_workloads()
     log("[8] checkpoint and resume on the card")
     report["resume"] = check_resume(args.out)
+    log(f"[9] outer kinds: gemma-2b widths, 2 layers, seq 1024, microbatch "
+        f"{MICROBATCH}, the gns and geometric outer controllers")
+    report["outer"] = check_outer_kinds(peak_bw)
 
     replaces = {
         "flash_fwd": "src/repro/kernels/flash_attention/kernel.py:280",

@@ -293,8 +293,7 @@ class Session:
             "smoothed_loss": self.smoothed_loss,
             "controller": (t.controller.state_dict()
                            if t.controller is not None else None),
-            # the outer global-batch controller: None for the fixed kind,
-            # the only one this port runs (TrainConfig rejects the others)
+            # the outer global-batch controller: None for the fixed kind
             "outer": (t.outer.state_dict()
                       if getattr(t, "outer", None) is not None else None),
             "engine": {
@@ -318,11 +317,16 @@ class Session:
         """Load a :meth:`save` checkpoint into this (freshly built) session,
         on the trainer's device.
 
+        The outer global-batch controller, if the session runs one, is
+        rebuilt from the checkpoint's payload (``load_outer_state``), which
+        also re-couples a batch-coupled LR schedule to the restored B_global.
+
         Raises ``ValueError`` when the checkpoint was written by another
         backend kind, for another worker count, at a step past part of the
-        membership schedule, with an outer global-batch controller this
-        session does not run, or (from the data source) with another
-        seed.
+        membership schedule, with an outer controller where this session
+        runs the fixed kind (or without one where it does not), or (from
+        the data source) with another seed; every check comes before the
+        trainer's state changes.
         """
         t = self._require_checkpointable()
         tree, meta = load_checkpoint(path, t.device)
@@ -356,6 +360,10 @@ class Session:
         if set(params) != set(t.params):
             raise ValueError("checkpoint parameters do not match the "
                              "session's model")
+        if ckpt_outer is not None:
+            # rebuilds the controller before assigning it: a payload whose
+            # ladder does not match its config raises here
+            t.load_outer_state(ckpt_outer)
         t.params = {k: params[k].to(p.dtype) for k, p in t.params.items()}
         t.opt_state = tree["opt_state"]
         t.step_idx = int(st["step"])

@@ -10,18 +10,32 @@ law keeps its per-worker shares, EWMA windows, and adaptive bounds.
 
 B_global only ever takes values on a GLOBAL bucket ladder built once at
 construction from the initial global batch (`core/batching.bucket_ladder`
-with quantum = worker count).
+with quantum = worker count).  Because per-worker shares are roughly
+B_global/K and each worker pads to its own per-worker ladder (DESIGN.md
+§11), a B_global walk of R rungs costs at most R recompiles per worker —
+the slew-rate limit (`max_rungs_per_resize`) plus the warmup/cooldown gates
+bound how fast that walk can happen.
 
-The port holds ``GlobalBatchConfig`` (every kind's knobs, so a config moves
-between the packages unchanged), the shared controller machinery and the
-``fixed`` kind, which never resizes; the trainer does not even instantiate
-an outer controller for it.  The ``geometric``, ``gns``, ``bandit`` and
-``dynamix`` kinds, and the gradient-noise-scale estimator behind ``gns``,
-are the non-fixed-outer-kinds slice of the port (ROADMAP queue 1): asking
-for one raises ``NotImplementedError``.
+Kinds (`GlobalBatchConfig.kind`):
+  * ``fixed``     — never resizes; the trainer does not even instantiate an
+                    outer controller for this kind, so today's behaviour is
+                    reproduced bit-for-bit (golden-tested).
+  * ``geometric`` — GeoDamp: B = b0 * geo_factor^(step // geo_every),
+                    snapped up to the ladder.
+  * ``gns``       — tracks the critical batch from the in-graph
+                    gradient-noise-scale estimator (`gns.py`) with a
+                    hysteresis band and the slew-rate limit.
+  * ``bandit``    — epsilon-greedy over ladder rungs on loss-per-second
+                    reward (the DYNAMIX-shaped learned-schedule plug point).
+  * ``dynamix``   — learned contextual policy (`policy.py`, DESIGN.md §18):
+                    a small Q-head over a normalized system+statistical
+                    state vector picks {down, hold, up} on the same ladder.
 
-Pure host-side python; all state is JSON-serializable for the checkpoint
-payload.
+Every kind of the reference is here, copied bit for bit.  Pure host-side
+python; the ``dynamix`` kind lives in `policy.py` (its Q-head is a few fp32
+torch tensors on the CPU) and is resolved lazily, as the reference resolves
+it.  All state is JSON-serializable for the checkpoint payload, in the
+reference's layout, so an outer payload loads in either package.
 """
 
 from __future__ import annotations
@@ -30,7 +44,10 @@ import dataclasses
 import math
 from typing import Optional
 
+import numpy as np
+
 from repro_torch.core.batching import bucket_ladder, bucket_up
+from repro_torch.core.control.global_batch.gns import GNSEstimator, GradStats
 
 GLOBAL_BATCH_KINDS = ("fixed", "geometric", "gns", "bandit", "dynamix")
 
@@ -131,6 +148,11 @@ class GlobalBatchConfig:
                 f"time_signal must be 'measured' or 'steps', "
                 f"got {self.time_signal!r}")
 
+    @property
+    def needs_grad_stats(self) -> bool:
+        """Does this kind need the in-graph |g|^2 side stats?"""
+        return self.kind in ("gns", "dynamix")
+
 
 class GlobalBatchController:
     """Shared outer-loop machinery: ladder, warmup/cooldown, slew limit.
@@ -164,6 +186,9 @@ class GlobalBatchController:
         self.last_resize_step: Optional[int] = None
         self.num_resizes = 0
         self.resize_log: list[list[int]] = []  # [outer_step, new B_global]
+        # transient system context (worker times / prices / queue) for
+        # context-aware kinds; refreshed every observe(), never checkpointed
+        self._last_context: dict = {}
 
     # ------------------------------------------------------------------ api
 
@@ -171,18 +196,22 @@ class GlobalBatchController:
     def b_global(self) -> int:
         return self.rungs[self.rung]
 
-    def observe(self, *, loss: float, seconds: float, stats=None,
+    def observe(self, *, loss: float, seconds: float,
+                stats: Optional[GradStats] = None,
                 context: Optional[dict] = None) -> Optional[int]:
         """Feed one outer step; return the new B_global iff a resize fires.
 
         ``loss`` is the step's (smoothed or raw) training loss, ``seconds``
         the wall/simulated time the step cost, ``stats`` the in-graph
-        gradient moments (only the non-fixed kinds consume them), and
-        ``context`` an optional dict of system signals that the dynamix
-        policy folds into its state vector.  Warmup, cooldown, and the
-        slew-rate limit gate every kind identically.
+        gradient moments (the gns and dynamix kinds consume them), and
+        ``context`` an optional dict of system signals — ``worker_times``
+        (the round's per-worker seconds), ``prices`` (per-worker spot
+        prices) and ``queue`` (serve queue depth) — that the dynamix policy
+        folds into its state vector.  Warmup, cooldown, and the slew-rate
+        limit gate every kind identically.
         """
         self.step_count += 1
+        self._last_context = dict(context) if context else {}
         self._ingest(float(loss), float(seconds), stats)
         cfg = self.config
         if self.step_count < cfg.warmup:
@@ -205,9 +234,17 @@ class GlobalBatchController:
         self.resize_log.append([self.step_count, self.b_global])
         return self.b_global
 
+    def _rung_covering(self, b: float) -> int:
+        """Index of the smallest rung >= b (clamped to the ladder)."""
+        for i, r in enumerate(self.rungs):
+            if r >= b:
+                return i
+        return len(self.rungs) - 1
+
     # ------------------------------------------------------------ overrides
 
-    def _ingest(self, loss: float, seconds: float, stats) -> None:
+    def _ingest(self, loss: float, seconds: float,
+                stats: Optional[GradStats]) -> None:
         """Hook: fold one step's signals into kind-specific state."""
 
     def _target_rung(self) -> Optional[int]:
@@ -263,16 +300,162 @@ class FixedGlobalBatch(GlobalBatchController):
         return None
 
 
-_KIND_TO_CLS = {"fixed": FixedGlobalBatch}
+class GeometricGlobalBatch(GlobalBatchController):
+    """GeoDamp schedule: B multiplies by geo_factor every geo_every steps."""
+
+    kind = "geometric"
+
+    def _target_rung(self) -> Optional[int]:
+        cfg = self.config
+        ideal = self.b0 * cfg.geo_factor ** (self.step_count // cfg.geo_every)
+        return self._rung_covering(min(ideal, self.rungs[-1]))
+
+
+class GNSGlobalBatch(GlobalBatchController):
+    """Track the critical batch with hysteresis around the current rung.
+
+    Grow toward the rung covering b_noise only when the estimate exceeds
+    (1 + hysteresis) * B; shrink (if allowed) only when it falls below
+    (1 - hysteresis) * B.  The band prevents rung-flapping when b_noise
+    hovers near a rung boundary; the base-class slew limit turns a large
+    jump in b_noise into a bounded ladder walk.
+    """
+
+    kind = "gns"
+
+    def __init__(self, config: GlobalBatchConfig, b0: int,
+                 quantum: int = 1) -> None:
+        super().__init__(config, b0, quantum)
+        self.estimator = GNSEstimator(alpha=config.gns_alpha,
+                                      min_samples=config.gns_min_samples)
+
+    def _ingest(self, loss: float, seconds: float,
+                stats: Optional[GradStats]) -> None:
+        if stats is not None:
+            self.estimator.observe(stats)
+
+    def _target_rung(self) -> Optional[int]:
+        if not self.estimator.ready:
+            return None
+        bn = self.estimator.b_noise
+        if bn is None:
+            return None
+        cfg = self.config
+        b = float(self.b_global)
+        if bn > (1.0 + cfg.hysteresis) * b:
+            return self._rung_covering(min(bn, self.rungs[-1]))
+        if cfg.allow_shrink and bn < (1.0 - cfg.hysteresis) * b:
+            return self._rung_covering(max(bn, float(self.rungs[0])))
+        return None
+
+    def _extra_state(self) -> dict:
+        return {"estimator": self.estimator.state_dict()}
+
+    def _load_extra_state(self, state: dict) -> None:
+        if "estimator" in state:
+            self.estimator = GNSEstimator.from_state_dict(state["estimator"])
+
+
+class BanditGlobalBatch(GlobalBatchController):
+    """Epsilon-greedy over ladder rungs on loss-per-second reward.
+
+    Each rung is an arm; an episode holds the current arm for
+    ``bandit_window`` outer steps, then scores it by EWMA-smoothed loss
+    drop per second and epsilon-greedily picks the next arm among the
+    rungs within slew distance (so exploration also walks the ladder with
+    bounded recompiles).  This is the DYNAMIX-shaped plug point: replace
+    the value table with a learned policy and the trainer-side wiring is
+    identical.
+    """
+
+    kind = "bandit"
+
+    def __init__(self, config: GlobalBatchConfig, b0: int,
+                 quantum: int = 1) -> None:
+        super().__init__(config, b0, quantum)
+        n = len(self.rungs)
+        self.counts = [0] * n
+        self.values = [0.0] * n          # running mean reward per arm
+        self._rng = np.random.default_rng(config.seed)
+        self._loss_ewma: Optional[float] = None
+        self._ep_steps = 0
+        self._ep_seconds = 0.0
+        self._ep_loss0: Optional[float] = None
+
+    def _ingest(self, loss: float, seconds: float,
+                stats: Optional[GradStats]) -> None:
+        self._loss_ewma = loss if self._loss_ewma is None else (
+            0.2 * loss + 0.8 * self._loss_ewma)
+        if self._ep_loss0 is None:
+            self._ep_loss0 = self._loss_ewma
+        self._ep_steps += 1
+        self._ep_seconds += max(seconds, 0.0)
+
+    def _target_rung(self) -> Optional[int]:
+        cfg = self.config
+        if self._ep_steps < cfg.bandit_window:
+            return None
+        # score the finished episode: smoothed loss drop per time unit
+        # (seconds, or the step count under time_signal='steps' so the
+        # reward — and hence the arm walk — is backend-independent)
+        denom = (self._ep_seconds if cfg.time_signal == "measured"
+                 else float(self._ep_steps))
+        reward = (self._ep_loss0 - self._loss_ewma) / max(denom, 1e-9)
+        arm = self.rung
+        self.counts[arm] += 1
+        self.values[arm] += (reward - self.values[arm]) / self.counts[arm]
+        self._ep_steps = 0
+        self._ep_seconds = 0.0
+        self._ep_loss0 = self._loss_ewma
+        # candidate arms: within slew distance of the current rung
+        m = cfg.max_rungs_per_resize
+        cand = list(range(max(0, arm - m), min(len(self.rungs), arm + m + 1)))
+        if float(self._rng.random()) < cfg.epsilon:
+            return int(self._rng.choice(cand))
+        # greedy with optimistic init: prefer unvisited candidates
+        unvisited = [i for i in cand if self.counts[i] == 0]
+        if unvisited:
+            return unvisited[0]
+        return max(cand, key=lambda i: self.values[i])
+
+    def _extra_state(self) -> dict:
+        return {
+            "counts": list(self.counts),
+            "values": [float(v) for v in self.values],
+            "rng_state": self._rng.bit_generator.state,
+            "loss_ewma": self._loss_ewma,
+            "ep_steps": self._ep_steps,
+            "ep_seconds": self._ep_seconds,
+            "ep_loss0": self._ep_loss0,
+        }
+
+    def _load_extra_state(self, state: dict) -> None:
+        self.counts = [int(c) for c in state["counts"]]
+        self.values = [float(v) for v in state["values"]]
+        self._rng = np.random.default_rng(self.config.seed)
+        self._rng.bit_generator.state = state["rng_state"]
+        self._loss_ewma = state["loss_ewma"]
+        self._ep_steps = int(state["ep_steps"])
+        self._ep_seconds = float(state["ep_seconds"])
+        self._ep_loss0 = state["ep_loss0"]
+
+
+_KIND_TO_CLS = {
+    "fixed": FixedGlobalBatch,
+    "geometric": GeometricGlobalBatch,
+    "gns": GNSGlobalBatch,
+    "bandit": BanditGlobalBatch,
+}
 
 
 def _controller_cls(kind: str):
-    """Class for ``kind``.  Every other kind is the non-fixed-outer-kinds
-    slice of the port ('dynamix' also needs policy.py's TD step in torch)."""
-    if kind not in _KIND_TO_CLS:
-        raise NotImplementedError(
-            f"global_batch kind {kind!r} is not ported yet (ROADMAP queue 1, "
-            "non-fixed outer kinds with policy.py's TD step in torch)")
+    """Class for ``kind`` — 'dynamix' resolves lazily because `policy.py`
+    imports torch (the rest of this package is numpy and pure python)."""
+    if kind == "dynamix":
+        from repro_torch.core.control.global_batch.policy import (
+            DynamixGlobalBatch,
+        )
+        return DynamixGlobalBatch
     return _KIND_TO_CLS[kind]
 
 

@@ -18,11 +18,20 @@ Grads = dict[str, torch.Tensor]
 
 
 def tree_sqnorm(tree: Grads) -> torch.Tensor:
-    """Squared L2 norm of a gradient dict, |g|^2 = sum over leaves of sum(x^2),
-    accumulated in fp32 on the leaves' device."""
+    """Squared L2 norm of a gradient dict, |g|^2 = sum over leaves of sum(x^2).
+
+    Accumulated in fp32 over the leaves in sorted-key order (the order of
+    the reference's ``tree_leaves``), on the leaves' device, with no host
+    sync.  Each leaf's term is one ``torch.dot`` of the flattened leaf with
+    itself, so no leaf-sized temporary is made (gemma-2b's tied embedding
+    alone is 2.1 GB in fp32).  This is the side statistic the
+    gradient-noise-scale estimator (DESIGN.md §15) needs from each worker's
+    mean gradient and from the combined gradient.
+    """
     out = None
-    for leaf in tree.values():
-        term = leaf.float().square().sum()
+    for name in sorted(tree):
+        flat = tree[name].float().reshape(-1)
+        term = torch.dot(flat, flat)
         out = term if out is None else out + term
     return torch.zeros((), dtype=torch.float32) if out is None else out
 
@@ -46,7 +55,12 @@ def combine_weighted(grads: Sequence[Grads], batches: Sequence[int]) -> Grads:
 
 def combine_weighted_with_sqnorm(grads: Sequence[Grads],
                                  batches: Sequence[int]):
-    """`combine_weighted` plus the combined gradient's squared norm."""
+    """`combine_weighted` plus the combined gradient's squared norm.
+
+    Returns ``(g, |g|^2)``: with the per-worker |g_k|^2 side stats, the
+    large-batch half of the small-batch/large-batch critical-batch
+    estimator (DESIGN.md §15).
+    """
     g = combine_weighted(grads, batches)
     return g, tree_sqnorm(g)
 

@@ -8,9 +8,14 @@ controller (core.control) replans {b_k} online.
 
 Execution: per worker step, one Python loop over the stacked microbatches
 (`core.grad.accumulate_microbatch_grads`) keeps gradient, loss and weight
-sums on the device; the loss and weight sums come back to the host once per
-worker step.  The reference's trace counters and per-LR-scale jit cache
-have no counterpart in eager PyTorch; ``accum_calls`` stays.
+sums on the device; the loss and weight sums (and, for the outer kinds that
+need it, the mean gradient's |g_k|^2) come back to the host once per worker
+step.  The reference's trace counters and per-LR-scale jit cache have no
+counterpart in eager PyTorch; ``accum_calls`` stays.
+
+Two-level batch control (DESIGN.md §15): a non-fixed
+``TrainConfig.global_batch`` kind adds the outer controller, which walks
+the global batch along its ladder while the inner law splits it.
 
 Batching policies (paper §III): 'uniform', 'static', 'dynamic'.
 Synchronisation: 'bsp' or 'asp', both through train.engine.
@@ -27,15 +32,23 @@ import torch
 from repro_torch.core import (
     ControllerConfig,
     GlobalBatchConfig,
+    GradStats,
     accumulate_microbatch_grads,
     combine_weighted,
+    combine_weighted_with_sqnorm,
+    cost_aware_allocation,
+    global_batch_from_state_dict,
+    largest_remainder_round,
     make_controller,
+    make_global_controller,
     plan_microbatches,
     static_allocation,
+    tree_sqnorm,
 )
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.het.simulator import ClusterSim
 from repro_torch.optim.optimizers import Optimizer
+from repro_torch.optim.schedules import BatchCoupledSchedule
 from repro_torch.train.engine import EventEngine
 
 
@@ -88,11 +101,12 @@ class TrainConfig:
             raise TypeError(
                 f"global_batch must be a GlobalBatchConfig, "
                 f"got {type(self.global_batch).__name__}")
-        if self.global_batch.kind != "fixed":
-            raise NotImplementedError(
-                f"global_batch kind={self.global_batch.kind!r} is not ported "
-                "yet: this slice runs kind='fixed' only (ROADMAP queue 1, "
-                "non-fixed outer kinds with policy.py's TD step in torch)")
+        if (self.global_batch.kind in ("gns", "dynamix")
+                and self.sync != "bsp"):
+            raise ValueError(
+                f"global_batch kind={self.global_batch.kind!r} consumes "
+                "per-worker gradient moments of one BSP round; use "
+                "sync='bsp' ('geometric'/'bandit' also run on ASP)")
 
 
 @dataclasses.dataclass
@@ -110,16 +124,105 @@ class StepRecord:
 class OuterBatchMixin:
     """Two-level batch control glue (the outer B_global controller).
 
-    This slice runs ``GlobalBatchConfig(kind="fixed")`` only (``TrainConfig``
-    rejects the others), for which the outer controller does not exist and
-    the paper's per-worker split is the whole story.  The hooks stay at the
-    reference's call sites so the non-fixed slice fills them in.
+    Owns the outer controller (DESIGN.md §15): construction (only for
+    non-'fixed' kinds, so the fixed path stays bit-for-bit the pre-existing
+    code), applying resizes through the inner controller's
+    `set_global_batch`, coupling the LR schedule to the batch ratio, and
+    checkpoint serde.  Host-side only; expects the host class to provide
+    ``cfg``, ``batches``, ``controller``, ``optimizer`` and ``k``.
     """
 
     outer = None
 
-    def _observe_outer(self, **_) -> bool:
-        return False
+    def _init_outer(self) -> None:
+        """Construct the outer controller (call once batches/controller exist).
+
+        The ladder quantum is 1 so rung 0 equals the exact initial global
+        batch — the first resize, not construction, is the first deviation
+        from the fixed-batch trajectory.
+        """
+        cfg = self.cfg
+        self.outer = None
+        self._need_grad_stats = cfg.global_batch.needs_grad_stats
+        if cfg.global_batch.kind == "fixed":
+            return
+        self.outer = make_global_controller(
+            cfg.global_batch, b0=sum(self.batches), quantum=1)
+        sched = getattr(self.optimizer, "schedule", None)
+        if isinstance(sched, BatchCoupledSchedule):
+            # reset a (possibly reused) coupled schedule to ratio 1
+            sched.set_batch_ratio(1.0)
+
+    def _apply_global_batch(self, total: int) -> list[int]:
+        """Commit an outer resize: rescale the split, re-couple the LR."""
+        if self.controller is not None:
+            self.batches = list(self.controller.set_global_batch(total))
+        else:
+            cur = sum(self.batches)
+            self.batches = largest_remainder_round(
+                [b * total / max(cur, 1) for b in self.batches],
+                int(total), lo=1)
+        self._couple_lr(total)
+        return self.batches
+
+    def _couple_lr(self, total: int) -> None:
+        """Re-evaluate a batch-coupled LR schedule at the new B_global.
+
+        The optimizers read ``schedule(step)`` at every update, so the new
+        scale takes effect at the next one; no per-scale copy of the update
+        is kept (the reference needs one per jit trace).
+        """
+        if self.outer is None:
+            return
+        sched = getattr(self.optimizer, "schedule", None)
+        if isinstance(sched, BatchCoupledSchedule):
+            sched.set_batch_ratio(total / self.outer.b0)
+
+    def _worker_prices(self) -> Optional[list]:
+        """Hook: per-worker spot prices for the outer context (or None)."""
+        return None
+
+    def _queue_signal(self) -> Optional[float]:
+        """Hook: serve-queue depth for the outer context (or None)."""
+        return None
+
+    def _outer_context(self, worker_times=None) -> dict:
+        """System context for context-aware outer kinds (DESIGN.md §18)."""
+        ctx = {}
+        if worker_times:
+            ctx["worker_times"] = [float(t) for t in worker_times]
+        prices = self._worker_prices()
+        if prices:
+            ctx["prices"] = [float(p) for p in prices]
+        q = self._queue_signal()
+        if q is not None:
+            ctx["queue"] = float(q)
+        return ctx
+
+    def _observe_outer(self, *, loss: float, seconds: float,
+                       sqnorms=None, pre_batches=None,
+                       combined_sqnorm=None, worker_times=None) -> bool:
+        """Feed the outer controller one step; apply a resize if it fires."""
+        if self.outer is None:
+            return False
+        stats = None
+        if self._need_grad_stats and sqnorms is not None:
+            stats = GradStats(per_worker_sqnorm=list(sqnorms),
+                              batches=list(pre_batches),
+                              combined_sqnorm=float(combined_sqnorm))
+        new_total = self.outer.observe(
+            loss=loss, seconds=seconds, stats=stats,
+            context=self._outer_context(worker_times))
+        if new_total is None:
+            return False
+        self._apply_global_batch(new_total)
+        return True
+
+    def load_outer_state(self, state: dict) -> None:
+        """Rebuild the outer controller from a checkpoint payload."""
+        self.outer = global_batch_from_state_dict(state)
+        self._need_grad_stats = self.outer.config.needs_grad_stats
+        self._couple_lr(self.outer.b_global)
 
 
 class HeterogeneousTrainer(OuterBatchMixin):
@@ -166,11 +269,28 @@ class HeterogeneousTrainer(OuterBatchMixin):
         self.controller = None
         if cfg.batching == "dynamic":
             self.controller = make_controller(self.batches, cfg.controller)
+        self._init_outer()
+        self._outer_last_time = self.sim.time
 
     # ------------------------------------------------------------- planning
 
+    def _worker_prices(self) -> Optional[list]:
+        # spot prices live on the worker specs; the outer policy reads them
+        # as context
+        return [w.price for w in self.sim.workers]
+
     def _initial_batches(self) -> list[int]:
         cfg = self.cfg
+        if cfg.batching == "dynamic" and cfg.global_batch.kind != "fixed":
+            # the outer controller's initial B_global goes through the
+            # price/capacity-aware allocator (DESIGN.md §15): the same
+            # RNG-free peek throughputs, plus each worker's memory-cliff
+            # capacity and spot price from its spec
+            xput = [self.sim.peek_throughput(i, cfg.b0) for i in range(self.k)]
+            return cost_aware_allocation(
+                xput, self.k * cfg.b0,
+                capacities=[w.b_mem for w in self.sim.workers],
+                prices=[w.price for w in self.sim.workers])
         if cfg.batching == "uniform" or (
             cfg.batching == "dynamic" and cfg.init_allocation == "uniform"
         ):
@@ -197,7 +317,9 @@ class HeterogeneousTrainer(OuterBatchMixin):
 
     def _worker_grad(self, worker: int, batch_size: int):
         """Mean gradient over worker's b_k examples, plus its loss and
-        weight sums as host floats (one device->host transfer)."""
+        weight sums as host floats (one device->host transfer, which also
+        carries |g_k|^2 into ``_last_sqnorm`` when the outer kind needs
+        it)."""
         cfg = self.cfg
         plan = plan_microbatches(batch_size, cfg.microbatch)
         data = self.next_batch(worker, plan.padded_examples)
@@ -211,31 +333,52 @@ class HeterogeneousTrainer(OuterBatchMixin):
         for g in g_sum.values():
             g.div_(denom)
         self.accum_calls += 1
-        ls, ws = torch.stack([loss_sum, w_sum]).tolist()
+        if self._need_grad_stats:
+            ls, ws, sq = torch.stack(
+                [loss_sum, w_sum, tree_sqnorm(g_sum)]).tolist()
+            self._last_sqnorm = float(sq)
+        else:
+            ls, ws = torch.stack([loss_sum, w_sum]).tolist()
+            self._last_sqnorm = None
         return g_sum, float(ls), float(ws)
 
     # ------------------------------------------------------------------ BSP
 
     def bsp_step(self) -> StepRecord:
         grads, losses, weights = [], 0.0, 0.0
+        pre_batches = list(self.batches)
+        sqnorms = []
         for k in range(self.k):
             g, ls, ws = self._worker_grad(k, self.batches[k])
             grads.append(g)
             losses += ls
             weights += ws
+            if self._need_grad_stats:
+                sqnorms.append(self._last_sqnorm)
         # Eq. 2-3: lambda-weighted combine
-        g = combine_weighted(grads, self.batches)
+        if self._need_grad_stats:
+            g, g_sqnorm = combine_weighted_with_sqnorm(grads, self.batches)
+        else:
+            g = combine_weighted(grads, self.batches)
+            g_sqnorm = None
         del grads
         self.params, self.opt_state = self.optimizer.update(
             self.params, g, self.opt_state, self.step_idx)
+        if g_sqnorm is not None:
+            # read back after the update is queued: one sync per step
+            g_sqnorm = float(g_sqnorm)
         info = self.engine.bsp_round(self.batches)
         adjusted = False
         if self.controller is not None:
             upd = self.controller.observe(info["worker_times"])
             adjusted = upd.updated
             self.batches = upd.batches
-        if self._observe_outer(loss=losses / max(weights, 1e-9),
-                               seconds=info["iteration_time"]):
+        if self._observe_outer(
+                loss=losses / max(weights, 1e-9),
+                seconds=info["iteration_time"],
+                sqnorms=sqnorms or None, pre_batches=pre_batches,
+                combined_sqnorm=g_sqnorm,
+                worker_times=info["worker_times"]):
             adjusted = True
         rec = StepRecord(
             step=self.step_idx,
@@ -278,6 +421,15 @@ class HeterogeneousTrainer(OuterBatchMixin):
             upd = self.controller.observe(times)
             adjusted = upd.updated
             self.batches = upd.batches
+        if self.outer is not None and eng.version % self.k == 0:
+            # outer cadence matches the inner one: every K pushed versions
+            # (~one whole-cluster sweep); gns is BSP-only (config-validated),
+            # so no stats here — seconds are the simulated span of the sweep
+            elapsed = self.sim.time - self._outer_last_time
+            self._outer_last_time = self.sim.time
+            if self._observe_outer(loss=ls / max(ws, 1e-9),
+                                   seconds=max(elapsed, 0.0)):
+                adjusted = True
         rec = StepRecord(
             step=self.step_idx, sim_time=self.sim.time,
             iteration_time=float(ev.time), loss=ls / max(ws, 1e-9),

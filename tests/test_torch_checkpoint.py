@@ -245,7 +245,7 @@ def test_restore_rejects_a_step_past_membership_events(tmp_path):
 def test_restore_rejects_other_backend_or_outer_kind(tmp_path, field, value,
                                                      match):
     """A checkpoint written by another backend kind, or with an outer
-    global-batch controller (this port runs the fixed kind only), is
+    global-batch controller into a session that runs the fixed kind, is
     refused."""
     path = str(tmp_path / "sess5.npz")
     sess = _experiment(_cfg(max_steps=4)).session()

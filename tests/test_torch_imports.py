@@ -52,7 +52,9 @@ def test_scan_sees_the_whole_port():
                  "kernels/ssd_scan/ref.py", "models/ssm.py",
                  "configs/mamba2_1_3b.py", "kernels/rglru_scan/kernel.py",
                  "kernels/rglru_scan/ops.py", "kernels/rglru_scan/ref.py",
-                 "models/recurrent.py", "configs/recurrentgemma_9b.py"):
+                 "models/recurrent.py", "configs/recurrentgemma_9b.py",
+                 "core/control/global_batch/gns.py",
+                 "core/control/global_batch/policy.py"):
         assert must in names
 
 

@@ -87,10 +87,25 @@ def test_experiment_matches_reference(sync, steps):
 
 
 def test_non_fixed_outer_kinds_name_their_slice():
+    """Slice 4 landed: every outer kind constructs through
+    ``make_global_controller`` and ``TrainConfig``, and gns / dynamix on
+    ASP raise the reference's ``ValueError``, as the reference does."""
+    from repro.core import GlobalBatchConfig as RefGlobalBatchConfig
     from repro_torch.core import GlobalBatchConfig, make_global_controller
 
     for kind in ("gns", "geometric", "bandit", "dynamix"):
-        with pytest.raises(NotImplementedError, match="non-fixed outer"):
-            T.TrainConfig(global_batch=GlobalBatchConfig(kind=kind))
-        with pytest.raises(NotImplementedError, match="policy.py"):
-            make_global_controller(GlobalBatchConfig(kind=kind), b0=8)
+        ctrl = make_global_controller(GlobalBatchConfig(kind=kind), b0=8)
+        assert ctrl.kind == kind and ctrl.b_global == 8
+        cfg = T.TrainConfig(global_batch=GlobalBatchConfig(kind=kind))
+        assert cfg.global_batch.kind == kind
+        if kind in ("gns", "dynamix"):
+            with pytest.raises(ValueError, match="sync='bsp'") as port:
+                T.TrainConfig(sync="asp",
+                              global_batch=GlobalBatchConfig(kind=kind))
+            with pytest.raises(ValueError) as ref:
+                R.TrainConfig(sync="asp",
+                              global_batch=RefGlobalBatchConfig(kind=kind))
+            assert str(port.value) == str(ref.value)
+        else:
+            T.TrainConfig(sync="asp",
+                          global_batch=GlobalBatchConfig(kind=kind))
