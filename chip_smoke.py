@@ -74,7 +74,24 @@ Phases, each of which fails the run (nonzero exit) when it goes wrong:
      sqrt(2); B stays on the ladder, and the flash kernels' launch counts
      equal 2 layers x the microbatches each run ran, the resize included;
      each step's wall ms is logged with the B it ran at, and one
-     ``tree_sqnorm`` pass over the path's parameters is timed alone.
+     ``tree_sqnorm`` pass over the path's parameters is timed alone;
+ 10. churn: a spot-market storm (``storm_market(4, zones=2, seed=11,
+     horizon=12)``) lowered by ``compile_churn(min_workers=2)`` into two
+     preemptions, two rejoins, a straggler and its restore, each followed
+     by a cost-aware Reallocate: (a) phase 4's gemma path (2 layers, seq
+     1024, b0 4 on the market's 4-worker fleet) for 13 BSP steps, where
+     sum(b_k) must stay 16 at every step, the membership log and the live
+     worker count of each step must follow the compiled schedule, every
+     loss be finite and the flash kernels' launch counts equal 2 layers x
+     the microbatches each step ran; each step's wall ms is logged with its
+     worker and microbatch counts; (b) mnist-cnn at phase 7's settings on
+     the same storm, saved at step 5 (where a worker rejoins) and resumed
+     on the fleet as of the save with the schedule's rest: final params,
+     Adam's moments, the tail's records and membership logs bit-identical;
+     (c) ``run_chaos`` twice with ``make_fault_plan(11, horizon=30)`` on
+     mnist-cnn over 30 steps: equal, non-empty injection logs, equal
+     histories, sum(b_k) constant.  (b) and (c) run with cuDNN
+     deterministic and launch none of the port's kernels.
 
 Each main path runs with every kernel's launch count set to 0 just before
 it and read just after.
@@ -869,13 +886,17 @@ def step_clock(profile_step=None, frags=None):
 
 
 def main_path(path: str, *, steps: int = STEPS, global_batch=None,
-              optimizer=None, profile: bool = True, hooks=()) -> dict:
+              optimizer=None, profile: bool = True, hooks=(), cluster=None,
+              workers: int = 3) -> dict:
     """One heterogeneous Experiment at the arch's full widths (depth cut),
     ``steps`` BSP steps, three h-level workers, the fixed outer kind and
-    adam(1e-3) unless ``global_batch`` / ``optimizer`` say otherwise; every
-    launch count is set to 0 just before the run and read just after.  The
-    last step runs under torch.profiler when ``profile``; ``hooks`` are
-    extra session hooks."""
+    adam(1e-3) unless ``global_batch`` / ``optimizer`` / ``cluster`` (with
+    the data pipeline's ``workers``) say otherwise; every launch count is
+    set to 0 just before the run and read just after, and held against the
+    microbatches of the batches each step ran with (recorded as the step
+    starts, after the membership events due at it).  The last step runs
+    under torch.profiler when ``profile``; ``hooks`` are extra session
+    hooks."""
     import torch
     from repro_torch.api import (ClusterSpec, Experiment, TrainConfig,
                                  lm_workload)
@@ -890,10 +911,10 @@ def main_path(path: str, *, steps: int = STEPS, global_batch=None,
     cfg = get_config(arch, num_layers=layers)
     experiment = Experiment(
         workload=lm_workload(cfg, DataPipeline(cfg, seq_len=seq,
-                                               num_workers=3),
+                                               num_workers=workers),
                              aux_weight=0.01, use_kernel=True),
-        cluster=ClusterSpec.hlevel(39, 6.0, 3, workload="transformer",
-                                   seed=0),
+        cluster=cluster or ClusterSpec.hlevel(39, 6.0, 3,
+                                              workload="transformer", seed=0),
         optimizer=optimizer or adam(1e-3),
         config=TrainConfig(b0=4, microbatch=MICROBATCH, batching="dynamic",
                            sync="bsp", max_steps=steps,
@@ -906,14 +927,23 @@ def main_path(path: str, *, steps: int = STEPS, global_batch=None,
     torch.cuda.reset_peak_memory_stats()
     session = experiment.session(hooks=[clock, *hooks])
     n_params = sum(p.numel() for p in session.params.values())
-    initial = list(session.batches)
+    trainer, ran = session.trainer, []
+    bsp_step = trainer.bsp_step
+
+    def recorded_step():
+        ran.append(list(trainer.batches))
+        return bsp_step()
+
+    trainer.bsp_step = recorded_step
     reset_all_launches()
-    out = session.run()
+    try:
+        out = session.run()
+    finally:
+        del trainer.bsp_step        # no cycle holds the trainer's tensors
     counts = all_launches()
     hist = out["history"]
-    pre = [initial] + [r.batches for r in hist[:-1]]
     per_step = [sum(plan_microbatches(b_, MICROBATCH).n_steps for b_ in bs)
-                for bs in pre]
+                for bs in ran]
     micro = sum(per_step)
     want = {k: n_layers * micro for k, (_, n_layers) in own.items()}
     losses = [r.loss for r in hist]
@@ -922,7 +952,9 @@ def main_path(path: str, *, steps: int = STEPS, global_batch=None,
             f"batches {r.batches}  sim_time {r.sim_time:.4f}  "
             f"adjusted {r.adjusted}")
     res = {"arch": arch, "layers": layers, "seq": seq, "params": n_params,
-           "initial_batches": initial,
+           "ran_batches": ran,
+           "membership_log": [list(e) for e in
+                              out.get("membership_log", [])],
            "losses": losses, "batches": [r.batches for r in hist],
            "sim_time": [r.sim_time for r in hist],
            "step_wall_ms": clock.ms, "microbatches": micro,
@@ -930,7 +962,7 @@ def main_path(path: str, *, steps: int = STEPS, global_batch=None,
            "microbatches_per_step": per_step,
            "max_memory_allocated": torch.cuda.max_memory_allocated(),
            "profile": clock.profile}
-    del session, experiment, out
+    del session, experiment, out, trainer, bsp_step
     torch.cuda.empty_cache()
     if len(hist) != steps or not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"{path} path: bad losses {losses}")
@@ -1153,17 +1185,18 @@ def check_outer_kinds(peak_bw: float) -> dict:
 # ------------------------------------------------- phases 7-8, paper workloads
 
 
-def paper_experiment(name: str, batching: str, steps: int):
+def paper_experiment(name: str, batching: str, steps: int, cluster=None):
     """One of the paper's workloads as ``tests/test_system.py`` runs it:
-    three CPU-core workers of h-level 8 over 39 cores, b0 32, microbatch 8,
-    BSP, adam(2e-3), the batch stream's seed 100; on the card."""
+    three CPU-core workers of h-level 8 over 39 cores unless ``cluster``
+    says otherwise, b0 32, microbatch 8, BSP, adam(2e-3), the batch
+    stream's seed 100; on the card."""
     from repro_torch.api import (ClusterSpec, Experiment, TrainConfig,
                                  paper_workload)
     from repro_torch.optim import adam
 
     return Experiment(
         workload=paper_workload(name, seed=100),
-        cluster=ClusterSpec.hlevel(39, 8, workload=name, seed=0),
+        cluster=cluster or ClusterSpec.hlevel(39, 8, workload=name, seed=0),
         optimizer=adam(2e-3),
         config=TrainConfig(b0=32, microbatch=8, batching=batching,
                            sync="bsp", max_steps=steps))
@@ -1266,6 +1299,225 @@ def check_resume(out_dir: str) -> dict:
         f"off for this check): bit-identical {same}")
     if not all(same.values()):
         raise AssertionError(f"resumed run differs: {res}")
+    return res
+
+
+# ------------------------------------------------------------ phase 10, churn
+
+# the spot market every part of phase 10 replays: 4 workers over 2 zones,
+# 12 market steps; compiled with a floor of 2 workers it preempts two
+# workers at step 1, rejoins one at 5 and one at 6, slows worker 1 at 9 and
+# restores it at 12, with a cost-aware Reallocate after each of those steps
+STORM = dict(workers=4, zones=2, seed=11, horizon=12, degrade_rate=0.01,
+             straggle_rate=0.02)
+STORM_STEPS = 13        # the step-12 restore fires before the last step
+RESUME_AT = 5           # an AddWorker sits exactly at this step
+CHAOS = dict(seed=11, horizon=30, steps=30)
+
+
+def storm():
+    from repro_torch.api import compile_churn
+    from repro_torch.het import storm_market
+
+    kw = dict(STORM)
+    market = storm_market(kw.pop("workers"), **kw)
+    return market, compile_churn(market.simulate(), min_workers=2)
+
+
+def expected_membership(churn, workers: int):
+    """The trainer's membership log and the live worker count of each step
+    that the compiled schedule implies (events fire as their step starts)."""
+    from repro_torch.api import AddWorker, Reallocate, RemoveWorker
+
+    log_, live, k = [], [], workers
+    for step in range(STORM_STEPS):
+        for ev in churn.events:
+            if ev.step != step:
+                continue
+            if isinstance(ev, RemoveWorker):
+                log_.append([step, "remove", ev.worker])
+                k -= 1
+            elif isinstance(ev, AddWorker):
+                log_.append([step, "add", k])
+                k += 1
+            elif isinstance(ev, Reallocate):
+                log_.append([step, "reallocate", -1])
+        live.append(k)
+    return log_, live
+
+
+def check_churn_storm() -> dict:
+    """Phase 10(a): the compiled storm through the gemma path's kernels."""
+    from repro_torch.api import ClusterSpec
+
+    market, churn = storm()
+    fleet = market.initial_fleet()
+    log(f"  storm: {churn.summary()}, dropped {len(churn.dropped)}; events "
+        + ", ".join(f"{type(ev).__name__}@{ev.step}" for ev in churn.events))
+    cluster = ClusterSpec.explicit(fleet, workload="transformer",
+                                   seed=0).with_churn(churn)
+    mp = main_path("gemma", steps=STORM_STEPS, cluster=cluster,
+                   workers=len(fleet), profile=False)
+    want_log, want_live = expected_membership(churn, len(fleet))
+    total = 4 * len(fleet)
+    live = [len(b) for b in mp["ran_batches"]]
+    per_step = mp["microbatches_per_step"]
+    for step, (bs, ms, n) in enumerate(zip(mp["ran_batches"],
+                                           mp["step_wall_ms"], per_step)):
+        log(f"  storm step {step}: wall {ms:.1f} ms, {len(bs)} workers, "
+            f"{n} microbatches, ran with {bs}")
+    by_k = {}
+    for k, ms in zip(live[1:], mp["step_wall_ms"][1:]):   # step 0 warms up
+        by_k.setdefault(k, []).append(ms)
+    res = {**mp, "storm": STORM, "events": [
+        [type(ev).__name__, ev.step] for ev in churn.events],
+        "live_workers": live, "expected_live_workers": want_live,
+        "expected_membership_log": want_log,
+        "step_wall_ms_by_workers": by_k}
+    log(f"  step wall ms by live workers (step 0 left out): {by_k}")
+    bad = [i for i, bs in enumerate(mp["ran_batches"] + mp["batches"])
+           if sum(bs) != total]
+    if bad:
+        raise AssertionError(f"storm: sum(b_k) != {total} at {bad}: "
+                             f"{mp['ran_batches']} / {mp['batches']}")
+    if mp["membership_log"] != want_log:
+        raise AssertionError(f"storm: membership log {mp['membership_log']}"
+                             f", compiled {want_log}")
+    if live != want_live:
+        raise AssertionError(f"storm: live workers {live}, schedule "
+                             f"{want_live}")
+    return res
+
+
+def paper_storm(workers, schedule):
+    """mnist-cnn at phase 7's settings on an explicit fleet with a
+    membership schedule."""
+    from repro_torch.api import ClusterSpec
+
+    cluster = ClusterSpec.explicit(list(workers), workload="mnist-cnn",
+                                   seed=0).with_schedule(*schedule)
+    return paper_experiment("mnist-cnn", "dynamic", STORM_STEPS,
+                            cluster).session()
+
+
+def check_storm_resume(out_dir: str) -> dict:
+    """Phase 10(b): the storm on mnist-cnn, saved at step RESUME_AT and
+    resumed on the fleet as of the save with the schedule's suffix; both
+    sessions run to the end, which must agree bit for bit."""
+    import torch
+
+    market, churn = storm()
+    path = os.path.join(out_dir, "storm_resume.ckpt")
+    a = paper_storm(market.initial_fleet(), churn.events)
+    for _ in a:
+        if a.step_idx >= RESUME_AT:
+            break
+    a.save(path)
+    suffix = [ev for ev in churn.events if ev.step >= RESUME_AT]
+    b = paper_storm(a.trainer.sim.workers, suffix)
+    try:
+        b.restore(path)
+    finally:
+        os.remove(path)
+    a.run()
+    b.run()
+    ta, tb = a.trainer, b.trainer
+    same = {
+        "params": all(torch.equal(b.params[k], p)
+                      for k, p in a.params.items()),
+        "adam_moments": all(torch.equal(tb.opt_state[m][k], x)
+                            for m in ("m", "v")
+                            for k, x in ta.opt_state[m].items()),
+        "records": [(r.step, r.loss, r.batches, r.iteration_time)
+                    for r in b.history]
+        == [(r.step, r.loss, r.batches, r.iteration_time)
+            for r in a.history[RESUME_AT:]],
+        "membership_log": [e for e in ta.membership_log
+                           if e[0] >= RESUME_AT] == tb.membership_log,
+    }
+    res = {"resumed_at": RESUME_AT, "steps": b.step_idx,
+           "events_at_resume": [type(ev).__name__ for ev in suffix
+                                if ev.step == RESUME_AT],
+           "membership_log": [list(e) for e in tb.membership_log],
+           "bit_identical": same}
+    log(f"  mnist-cnn storm resumed at step {RESUME_AT} (events there: "
+        f"{res['events_at_resume']}), {b.step_idx} steps: bit-identical "
+        f"{same}")
+    if not all(same.values()) or b.step_idx != STORM_STEPS \
+            or not any(e[0] == RESUME_AT and e[1] == "add"
+                       for e in tb.membership_log):
+        raise AssertionError(f"storm resume differs: {res}")
+    return res
+
+
+def check_chaos(out_dir: str) -> dict:
+    """Phase 10(c): ``run_chaos`` twice with one seeded fault plan on
+    mnist-cnn; the two injection logs and histories must be equal."""
+    from repro_torch.api import ClusterSpec
+    from repro_torch.het import make_fault_plan, run_chaos
+
+    def make_session():
+        cluster = ClusterSpec.hlevel(24, 3.0, 3, workload="mnist-cnn",
+                                     seed=0)
+        return paper_experiment("mnist-cnn", "dynamic", CHAOS["steps"],
+                                cluster).session()
+
+    plan = make_fault_plan(CHAOS["seed"], horizon=CHAOS["horizon"])
+    path = os.path.join(out_dir, "chaos.ckpt")
+    runs = []
+    try:
+        for _ in range(2):
+            t0 = time.perf_counter()
+            result, _hook = run_chaos(make_session, plan,
+                                      checkpoint_path=path)
+            runs.append((result, time.perf_counter() - t0))
+    finally:
+        if os.path.exists(path):
+            os.remove(path)
+    (r1, s1), (r2, s2) = runs
+    hist = [[(r.step, r.loss, tuple(r.batches)) for r in res["history"]]
+            for res, _ in runs]
+    totals = [sum(r.batches) for r in r1["history"]]
+    res = {"plan": plan.summary(), "chaos_log": [list(e) for e in
+                                                 r1["chaos_log"]],
+           "pending": r1["chaos_pending"], "steps": r1["steps"],
+           "seconds": [s1, s2], "sum_b": sorted(set(totals))}
+    log(f"  chaos plan {res['plan']}: log {res['chaos_log']}, "
+        f"{res['pending']} pending, {r1['steps']} steps, sum(b_k) "
+        f"{res['sum_b']}; {s1:.2f} s and {s2:.2f} s a run")
+    if not (r1["chaos_log"] and r1["chaos_log"] == r2["chaos_log"]):
+        raise AssertionError(f"chaos logs differ or are empty: "
+                             f"{r1['chaos_log']} / {r2['chaos_log']}")
+    if hist[0] != hist[1]:
+        raise AssertionError("chaos replay histories differ")
+    if len(set(totals)) != 1 or r1["steps"] != CHAOS["steps"]:
+        raise AssertionError(f"chaos: sum(b_k) {totals}, {r1['steps']} "
+                             f"steps")
+    return res
+
+
+def check_churn(out_dir: str) -> dict:
+    """Phase 10: (a) the storm at gemma width through the kernels, then on
+    mnist-cnn with cuDNN deterministic (restored afterwards) and no launch
+    of the port's kernels, (b) checkpoint under fire and (c) the chaos
+    harness."""
+    import torch
+
+    res = {"storm": check_churn_storm()}
+    log_path(res["storm"])
+    flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    reset_all_launches()
+    try:
+        res["resume"] = check_storm_resume(out_dir)
+        res["chaos"] = check_chaos(out_dir)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+            flags
+    launched = {k: v for k, v in all_launches().items() if v}
+    if launched:
+        raise AssertionError(f"mnist-cnn churn launched {launched}")
     return res
 
 
@@ -1393,6 +1645,11 @@ def main() -> int:
     log(f"[9] outer kinds: gemma-2b widths, 2 layers, seq 1024, microbatch "
         f"{MICROBATCH}, the gns and geometric outer controllers")
     report["outer"] = check_outer_kinds(peak_bw)
+    log(f"[10] churn: the seed-{STORM['seed']} storm compiled from "
+        f"storm_market, at gemma-2b widths (2 layers, seq 1024, b0 4, "
+        f"microbatch {MICROBATCH}), then checkpoint under fire and the chaos "
+        f"harness on mnist-cnn")
+    report["churn"] = check_churn(args.out)
 
     replaces = {
         "flash_fwd": "src/repro/kernels/flash_attention/kernel.py:280",

@@ -4,7 +4,8 @@
     the SUM-gradient contract once (``mean_loss_workload``,
     ``sum_loss_workload``, ``paper_workload``, ``lm_workload``);
   * :mod:`repro_torch.api.cluster` — declarative ClusterSpec with typed
-    membership-event schedules;
+    membership-event schedules, and ``compile_churn``, which lowers a
+    spot-market trace into one;
   * :mod:`repro_torch.api.backend` — ``SimBackend`` (simulated clock, real
     SGD on a PyTorch device);
   * :mod:`repro_torch.api.session` — the Session step iterator + hooks
@@ -17,10 +18,12 @@ from repro_torch.api.backend import Backend, SimBackend
 from repro_torch.api.cluster import (
     At,
     AddWorker,
+    ChurnSchedule,
     ClusterSpec,
     Reallocate,
     RemoveWorker,
     SlowWorker,
+    compile_churn,
 )
 from repro_torch.api.experiment import Experiment
 from repro_torch.api.session import (
@@ -48,6 +51,7 @@ __all__ = [
     "At",
     "Backend",
     "CheckpointHook",
+    "ChurnSchedule",
     "ClusterSpec",
     "CounterBatchSource",
     "EarlyStopHook",
@@ -62,6 +66,7 @@ __all__ = [
     "SlowWorker",
     "TrainConfig",
     "Workload",
+    "compile_churn",
     "lm_workload",
     "mean_loss_adapter",
     "mean_loss_workload",

@@ -5,9 +5,9 @@ availability traces) plus a first-class *membership schedule* of typed
 events.  A spec is data: every ``build()`` returns a fresh
 :class:`~repro_torch.het.simulator.ClusterSim` with a fresh jitter stream.
 
-Not ported yet: co-located serving (``serve=``) and spot-market churn
-lowering (``compile_churn`` / ``with_churn``), which belong to the serving
-and churn slices of the port.
+Spot-market churn is lowered into that schedule by :func:`compile_churn`
+and attached with ``ClusterSpec.with_churn``.  Not ported yet: co-located
+serving (``serve=``), which belongs to the serving slice of the port.
 """
 
 from __future__ import annotations
@@ -115,6 +115,153 @@ class At:
 ClusterEvent = Union[AddWorker, RemoveWorker, SlowWorker, Reallocate, At]
 
 
+# ----------------------------------------------------- churn-trace lowering
+
+
+@dataclasses.dataclass
+class ChurnSchedule:
+    """A spot-market churn trace lowered into typed membership events.
+
+    ``events`` is ready for :meth:`ClusterSpec.with_schedule`; ``dropped``
+    records market events the compiler had to skip (a preemption that
+    would take the fleet below ``min_workers``, a degradation aimed at an
+    emptied zone) so storms are auditable rather than silently truncated.
+    Both backends replay the same compiled schedule, so a churn storm is
+    bit-reproducible across ``SimBackend`` and ``MeshBackend`` (the
+    measured backend is slice 5 of the port).
+    """
+
+    events: list
+    trace: object        # the source repro_torch.het.spot.ChurnTrace
+    dropped: list = dataclasses.field(default_factory=list)
+
+    def summary(self) -> dict:
+        kinds: dict[str, int] = {}
+        for ev in self.events:
+            kinds[type(ev).__name__] = kinds.get(type(ev).__name__, 0) + 1
+        return {"events": len(self.events), "dropped": len(self.dropped),
+                **kinds}
+
+
+def compile_churn(trace, *, start_step: int = 0, min_workers: int = 1,
+                  reallocate: bool = True, ramp_stairs: int = 3,
+                  spec_for=None) -> ChurnSchedule:
+    """Lower a :class:`repro_torch.het.spot.ChurnTrace` into the typed
+    schedule.
+
+    The compiler tracks a model of the live fleet (zone-major initial
+    order, matching ``SpotMarket.initial_fleet()``) so market events keyed
+    by (zone, slot) become events keyed by the *worker index valid at that
+    step* — the same index arithmetic both trainers apply:
+
+      * ``Preempt(zone)``      -> ``RemoveWorker`` of the zone's
+        most-recently-acquired instance (LIFO, how spot reclaims behave);
+        skipped (recorded in ``dropped``) if it would leave fewer than
+        ``min_workers``;
+      * ``Rejoin(zone, price)`` -> ``AddWorker`` with a spec carrying the
+        rejoin-time spot price (feeds cost-aware reallocation);
+      * ``Degrade``            -> a ``ramp_stairs``-deep staircase of
+        multiplicative :class:`SlowWorker` events (geometric sub-factors)
+        plus a full restore after the hold — the ramp composition of
+        DESIGN.md §16; dropped early if the target is preempted mid-ramp;
+      * ``Straggle``           -> one ``SlowWorker`` + its reciprocal.
+
+    After every step that changed the cluster one :class:`Reallocate` is
+    appended (unless ``reallocate=False``), routing the new split through
+    ``cost_aware_allocation``.  ``start_step`` offsets the whole schedule,
+    e.g. to replay a trace against a warm checkpoint.
+    """
+    zones = {z.name: z for z in trace.zones}
+    if spec_for is None:
+        def spec_for(zone, price):
+            return WorkerSpec(cores=zone.cores, kind=zone.kind,
+                              b_mem=zone.b_mem,
+                              price=max(float(price), 1e-3))
+    # live fleet model: (zone_name, entry_id), zone-major like initial_fleet
+    fleet: list[tuple[str, int]] = []
+    next_id = 0
+    for z in trace.zones:
+        for _ in range(z.workers):
+            fleet.append((z.name, next_id))
+            next_id += 1
+    by_step: dict[int, list] = {}
+    for ev in trace.events:
+        by_step.setdefault(ev.step, []).append(ev)
+    # pending slowdown staircase entries: (fire_step, entry_id, factor)
+    pending: list[tuple[int, int, float]] = []
+    out: list = []
+    dropped: list = []
+
+    def index_of(eid: int):
+        for i, (_, e) in enumerate(fleet):
+            if e == eid:
+                return i
+        return None
+
+    step = 1
+    while step < trace.horizon or pending:
+        changed = False
+        # market membership first, so a preemption this step cancels the
+        # departed worker's pending slowdown entries before they fire
+        for ev in by_step.get(step, ()):
+            kind = type(ev).__name__
+            if kind == "Preempt":
+                live = [i for i, (zn, _) in enumerate(fleet)
+                        if zn == ev.zone]
+                if not live or len(fleet) <= min_workers:
+                    dropped.append(ev)
+                    continue
+                idx = live[-1]          # LIFO within the zone
+                _, eid = fleet.pop(idx)
+                pending = [p for p in pending if p[1] != eid]
+                out.append(RemoveWorker(step=start_step + step, worker=idx))
+                changed = True
+            elif kind == "Rejoin":
+                out.append(AddWorker(step=start_step + step,
+                                     spec=spec_for(zones[ev.zone],
+                                                   ev.price)))
+                fleet.append((ev.zone, next_id))
+                next_id += 1
+                changed = True
+            elif kind in ("Degrade", "Straggle"):
+                live = [i for i, (zn, _) in enumerate(fleet)
+                        if zn == ev.zone]
+                if not live:
+                    dropped.append(ev)
+                    continue
+                eid = fleet[live[ev.slot % len(live)]][1]
+                if kind == "Straggle":
+                    pending.append((step, eid, float(ev.factor)))
+                    pending.append((step + max(ev.hold_steps, 1), eid,
+                                    1.0 / float(ev.factor)))
+                else:
+                    stairs = max(1, min(ramp_stairs, ev.ramp_steps))
+                    sub = float(ev.factor) ** (1.0 / stairs)
+                    for i in range(stairs):
+                        pending.append(
+                            (step + i * ev.ramp_steps // stairs, eid, sub))
+                    pending.append(
+                        (step + ev.ramp_steps + max(ev.hold_steps, 1), eid,
+                         1.0 / float(ev.factor)))
+            else:
+                raise TypeError(f"unknown churn event {ev!r}")
+        # slowdown staircase entries due now (for still-live workers)
+        due = sorted((p for p in pending if p[0] <= step),
+                     key=lambda p: p[0])
+        pending = [p for p in pending if p[0] > step]
+        for _, eid, factor in due:
+            idx = index_of(eid)
+            if idx is None:
+                continue
+            out.append(SlowWorker(step=start_step + step, worker=idx,
+                                  factor=factor))
+            changed = True
+        if changed and reallocate:
+            out.append(Reallocate(step=start_step + step))
+        step += 1
+    return ChurnSchedule(events=out, trace=trace, dropped=dropped)
+
+
 # ------------------------------------------------------------ cluster spec
 
 
@@ -185,6 +332,14 @@ class ClusterSpec:
         self.schedule = sorted([*self.schedule, *events],
                                key=lambda e: e.step)
         return self
+
+    def with_churn(self, churn: "ChurnSchedule") -> "ClusterSpec":
+        """Append a compiled spot-market churn schedule (DESIGN.md §16).
+
+        ``churn`` comes from :func:`compile_churn` over a
+        ``repro_torch.het.spot.ChurnTrace``; the spec's worker list should
+        be the market's ``initial_fleet()`` so compiled indices line up."""
+        return self.with_schedule(*churn.events)
 
     # ------------------------------------------------------------- build
 

@@ -16,7 +16,8 @@ import time as _time
 from typing import Iterator, Optional, Sequence
 
 from repro_torch.checkpoint import load_checkpoint, save_checkpoint
-from repro_torch.core import controller_from_state_dict
+from repro_torch.core import (controller_from_state_dict,
+                              global_batch_from_state_dict)
 from repro_torch.train.loop import StepRecord
 from repro_torch.train.metrics import iteration_time_stats, straggler_waste
 
@@ -318,8 +319,9 @@ class Session:
         on the trainer's device.
 
         The outer global-batch controller, if the session runs one, is
-        rebuilt from the checkpoint's payload (``load_outer_state``), which
-        also re-couples a batch-coupled LR schedule to the restored B_global.
+        rebuilt from the checkpoint's payload and installed with
+        ``set_outer``, which also re-couples a batch-coupled LR schedule to
+        the restored B_global.
 
         Raises ``ValueError`` when the checkpoint was written by another
         backend kind, for another worker count, at a step past part of the
@@ -353,24 +355,31 @@ class Session:
                 f"with kind={'fixed' if ckpt_outer is None else ckpt_outer['kind']!r} "
                 f"but this session runs kind={t.cfg.global_batch.kind!r} — "
                 "rebuild the Experiment with the matching GlobalBatchConfig")
-        if st["workload"] is not None and self.workload is not None \
-                and self.workload.load_state_dict:
-            self.workload.load_state_dict(st["workload"])
         params = tree["params"]
         if set(params) != set(t.params):
             raise ValueError("checkpoint parameters do not match the "
                              "session's model")
-        if ckpt_outer is not None:
-            # rebuilds the controller before assigning it: a payload whose
-            # ladder does not match its config raises here
-            t.load_outer_state(ckpt_outer)
+        # rebuilt into locals before anything is assigned: a payload whose
+        # ladder does not match its config raises here
+        outer = (global_batch_from_state_dict(ckpt_outer)
+                 if ckpt_outer is not None else None)
+        controller = (controller_from_state_dict(st["controller"])
+                      if st["controller"] is not None
+                      and t.controller is not None else None)
+        # the data source's seed check is the last check and its load the
+        # first change of state
+        if st["workload"] is not None and self.workload is not None \
+                and self.workload.load_state_dict:
+            self.workload.load_state_dict(st["workload"])
+        if outer is not None:
+            t.set_outer(outer)
         t.params = {k: params[k].to(p.dtype) for k, p in t.params.items()}
         t.opt_state = tree["opt_state"]
         t.step_idx = int(st["step"])
         t.batches = [int(b) for b in st["batches"]]
         self.smoothed_loss = st["smoothed_loss"]
-        if st["controller"] is not None and t.controller is not None:
-            t.controller = controller_from_state_dict(st["controller"])
+        if controller is not None:
+            t.controller = controller
         t.sim.time = float(st["sim"]["time"])
         t.sim.iteration = int(st["sim"]["iteration"])
         t.sim.rng.bit_generator.state = st["sim"]["rng"]

@@ -95,8 +95,13 @@ class ElasticTrainer(HeterogeneousTrainer):
         else:
             self.batches = self._static_replan(total)
         # the newcomer reads the CURRENT params (no staleness debt) and, if
-        # an ASP schedule is live, dispatches immediately
-        self.engine.add_worker(self.batches[-1], payload=self.params)
+        # an ASP schedule is live, dispatches immediately.  Only a live ASP
+        # schedule reads payloads (``asp_schedule`` sets them all when it
+        # starts); holding the params here otherwise would keep a full copy
+        # of them alive on the card for as long as the newcomer stays
+        self.engine.add_worker(
+            self.batches[-1],
+            payload=self.params if self.engine.scheduled else None)
 
     def reallocate_cost_aware(self) -> list[int]:
         """Churn replan (DESIGN.md §16): re-split the invariant global batch

@@ -37,7 +37,6 @@ from repro_torch.core import (
     combine_weighted,
     combine_weighted_with_sqnorm,
     cost_aware_allocation,
-    global_batch_from_state_dict,
     largest_remainder_round,
     make_controller,
     make_global_controller,
@@ -218,11 +217,13 @@ class OuterBatchMixin:
         self._apply_global_batch(new_total)
         return True
 
-    def load_outer_state(self, state: dict) -> None:
-        """Rebuild the outer controller from a checkpoint payload."""
-        self.outer = global_batch_from_state_dict(state)
-        self._need_grad_stats = self.outer.config.needs_grad_stats
-        self._couple_lr(self.outer.b_global)
+    def set_outer(self, outer) -> None:
+        """Install an outer controller rebuilt from a checkpoint payload
+        (``global_batch_from_state_dict``) and re-couple the LR to its
+        B_global."""
+        self.outer = outer
+        self._need_grad_stats = outer.config.needs_grad_stats
+        self._couple_lr(outer.b_global)
 
 
 class HeterogeneousTrainer(OuterBatchMixin):

@@ -54,7 +54,8 @@ def test_scan_sees_the_whole_port():
                  "kernels/rglru_scan/ops.py", "kernels/rglru_scan/ref.py",
                  "models/recurrent.py", "configs/recurrentgemma_9b.py",
                  "core/control/global_batch/gns.py",
-                 "core/control/global_batch/policy.py"):
+                 "core/control/global_batch/policy.py", "het/traces.py",
+                 "het/spot.py", "het/chaos.py", "core/placement.py"):
         assert must in names
 
 
