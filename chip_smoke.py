@@ -91,10 +91,33 @@ Phases, each of which fails the run (nonzero exit) when it goes wrong:
      (c) ``run_chaos`` twice with ``make_fault_plan(11, horizon=30)`` on
      mnist-cnn over 30 steps: equal, non-empty injection logs, equal
      histories, sum(b_k) constant.  (b) and (c) run with cuDNN
-     deterministic and launch none of the port's kernels.
+     deterministic and launch none of the port's kernels;
+ 11. the measured backend: (a) phase 4's gemma path on
+     ``MeshBackend(dilation="from-spec")``, MESH_STEPS BSP steps: the three
+     workers take the card one after another, each gradient call over the
+     worker's whole bucket timed by CUDA events; each step's wall ms, split,
+     buckets, worker event ms raw and dilated and loss are logged, and each
+     warm-up rerun's event ms beside its first call's; sum(b_k) must stay
+     12, the split must be ragged with the most
+     dilated worker smallest, each worker's buckets and the warm-up reruns
+     within the ladder bound ceil(log_1.25(b_max/b_min)) + 1, and each
+     flash kernel's launch count equal 2 layers x every gradient call of
+     the session (probe and reruns included); (b) one more step under
+     torch.profiler; then the flash kernels against their plain versions
+     at every (bucket, num_valid) the path's calls ran, and at B 7 with
+     num_valid 5 and 6 (padded rows exact zeros); (c) a checkpoint after 2 steps restored into a new
+     session and run to step 4: params, Adam's moments, records and
+     ``exec_state_dict`` bit-identical to the uninterrupted run (both with
+     their times from FakeClock, since measured times differ between
+     runs); (d) mnist-cnn under ASP on the mesh, MESH_ASP_UPDATES updates,
+     staleness logged and at least 1 somewhere; (e) phase 10's storm on
+     mnist-cnn through the mesh trainer's membership methods: membership
+     log and live workers as compiled, sum(b_k) kept, the straggler's
+     slowdown in the dilation.
 
 Each main path runs with every kernel's launch count set to 0 just before
-it and read just after.
+it and read just after (phase 11(a): before its session is built, whose
+probe round launches too).
 
 The last three lines of standard output are the ``kernels`` JSON line, the
 card's name and power limit, and ``{"ok": true, "device": {...}}``.  Longer
@@ -111,6 +134,7 @@ import os
 import subprocess
 import sys
 import time
+import zlib
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -182,65 +206,75 @@ CASES = [
 ]
 
 
-def check_kernels(report: dict) -> dict:
+def check_kernels(report: dict, cases=CASES) -> dict:
+    """Each flash kernel against its plain version at ``cases``; returns
+    each kernel's largest error."""
+    errs = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
+    for case in cases:
+        check_flash_case(case, report, errs)
+    return errs
+
+
+def check_flash_case(case: tuple, report: dict, errs: dict) -> None:
+    """One case shaped as ``CASES``'s: the three flash kernels against their plain
+    versions (padded rows exact zeros, backward launches repeating bit for
+    bit); raises on a miss, folds the errors into ``errs``."""
     import torch
     from repro_torch.kernels.flash_attention import kernel as K
 
     dev = torch.device("cuda")
-    errs = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
-    for name, b, s, t, h, hkv, d, causal, window, cap, nv in CASES:
-        g = torch.Generator(device=dev).manual_seed(len(name))
-        q = torch.randn((b, s, h, d), generator=g, device=dev)
-        k = torch.randn((b, t, hkv, d), generator=g, device=dev)
-        v = torch.randn((b, t, hkv, d), generator=g, device=dev)
-        do = torch.randn((b, s, h, d), generator=g, device=dev)
-        nvt = None if nv is None else torch.tensor(nv, dtype=torch.int32,
-                                                   device=dev)
-        kw = dict(causal=causal, window=window, softcap=cap)
-        out, lse = K.flash_fwd(q, k, v, nvt, **kw)
-        out_p, lse_p = K.flash_fwd_plain(q, k, v, nvt, **kw)
-        delta = (do * out_p).sum(-1).transpose(1, 2).contiguous()
-        dq = K.flash_bwd_dq(q, k, v, do, lse_p, delta, nvt, **kw)
-        dq_p = K.flash_bwd_dq_plain(q, k, v, do, lse_p, delta, nvt, **kw)
-        dk, dv = K.flash_bwd_dkv(q, k, v, do, lse_p, delta, nvt, **kw)
-        dk_p, dv_p = K.flash_bwd_dkv_plain(q, k, v, do, lse_p, delta, nvt,
-                                           **kw)
-        dk2, dv2 = K.flash_bwd_dkv(q, k, v, do, lse_p, delta, nvt, **kw)
-        dq2 = K.flash_bwd_dq(q, k, v, do, lse_p, delta, nvt, **kw)
-        torch.cuda.synchronize()
-        case = {"dkv_repeats_bit_for_bit": bool(torch.equal(dk, dk2)
-                                                and torch.equal(dv, dv2)),
-                "dq_repeats_bit_for_bit": bool(torch.equal(dq, dq2))}
-        for label, x, ref in (("out", out, out_p), ("lse", lse, lse_p)):
-            err = (x - ref).abs().max().item()
-            ok = torch.allclose(x, ref, atol=FWD_TOL, rtol=FWD_TOL)
-            case[label] = {"max_abs_err": err, "ok": ok}
-            errs["flash_fwd"] = max(errs["flash_fwd"], err)
-        for label, x, ref, kname in (("dq", dq, dq_p, "flash_bwd_dq"),
-                                     ("dk", dk, dk_p, "flash_bwd_dkv"),
-                                     ("dv", dv, dv_p, "flash_bwd_dkv")):
-            err = (x - ref).abs().max().item()
-            scale = ref.abs().max().item()
-            case[label] = {"max_abs_err": err, "ref_max": scale,
-                           "ok": err <= BWD_TOL * max(scale, 1e-30)}
-            errs[kname] = max(errs[kname], err)
-        if nv is not None and nv < b:
-            pads = [out[nv:], lse[nv:], dq[nv:], dk[nv:], dv[nv:]]
-            case["padded_rows_zero"] = all(bool((x == 0).all()) for x in pads)
-        bad = [key for key, val in case.items()
-               if (isinstance(val, dict) and not val["ok"])
-               or (isinstance(val, bool) and not val)]
-        log(f"  case {name}: " + ", ".join(
-            f"{key} err {val['max_abs_err']:.3g}" for key, val in case.items()
-            if isinstance(val, dict))
-            + (f", padded rows zero {case['padded_rows_zero']}"
-               if "padded_rows_zero" in case else "")
-            + f", dk/dv repeat bit for bit {case['dkv_repeats_bit_for_bit']}"
-            + f", dq {case['dq_repeats_bit_for_bit']}")
-        report["cases"][name] = case
-        if bad:
-            raise AssertionError(f"kernel case {name} failed on {bad}: {case}")
-    return errs
+    name, b, s, t, h, hkv, d, causal, window, cap, nv = case
+    g = torch.Generator(device=dev).manual_seed(zlib.crc32(name.encode()))
+    q = torch.randn((b, s, h, d), generator=g, device=dev)
+    k = torch.randn((b, t, hkv, d), generator=g, device=dev)
+    v = torch.randn((b, t, hkv, d), generator=g, device=dev)
+    do = torch.randn((b, s, h, d), generator=g, device=dev)
+    nvt = None if nv is None else torch.tensor(nv, dtype=torch.int32,
+                                               device=dev)
+    kw = dict(causal=causal, window=window, softcap=cap)
+    out, lse = K.flash_fwd(q, k, v, nvt, **kw)
+    out_p, lse_p = K.flash_fwd_plain(q, k, v, nvt, **kw)
+    delta = (do * out_p).sum(-1).transpose(1, 2).contiguous()
+    dq = K.flash_bwd_dq(q, k, v, do, lse_p, delta, nvt, **kw)
+    dq_p = K.flash_bwd_dq_plain(q, k, v, do, lse_p, delta, nvt, **kw)
+    dk, dv = K.flash_bwd_dkv(q, k, v, do, lse_p, delta, nvt, **kw)
+    dk_p, dv_p = K.flash_bwd_dkv_plain(q, k, v, do, lse_p, delta, nvt,
+                                       **kw)
+    dk2, dv2 = K.flash_bwd_dkv(q, k, v, do, lse_p, delta, nvt, **kw)
+    dq2 = K.flash_bwd_dq(q, k, v, do, lse_p, delta, nvt, **kw)
+    torch.cuda.synchronize()
+    res = {"dkv_repeats_bit_for_bit": bool(torch.equal(dk, dk2)
+                                            and torch.equal(dv, dv2)),
+           "dq_repeats_bit_for_bit": bool(torch.equal(dq, dq2))}
+    for label, x, ref in (("out", out, out_p), ("lse", lse, lse_p)):
+        err = (x - ref).abs().max().item()
+        ok = torch.allclose(x, ref, atol=FWD_TOL, rtol=FWD_TOL)
+        res[label] = {"max_abs_err": err, "ok": ok}
+        errs["flash_fwd"] = max(errs["flash_fwd"], err)
+    for label, x, ref, kname in (("dq", dq, dq_p, "flash_bwd_dq"),
+                                 ("dk", dk, dk_p, "flash_bwd_dkv"),
+                                 ("dv", dv, dv_p, "flash_bwd_dkv")):
+        err = (x - ref).abs().max().item()
+        scale = ref.abs().max().item()
+        res[label] = {"max_abs_err": err, "ref_max": scale,
+                      "ok": err <= BWD_TOL * max(scale, 1e-30)}
+        errs[kname] = max(errs[kname], err)
+    if nv is not None and nv < b:
+        pads = [out[nv:], lse[nv:], dq[nv:], dk[nv:], dv[nv:]]
+        res["padded_rows_zero"] = all(bool((x == 0).all()) for x in pads)
+    bad = [key for key, val in res.items()
+           if (isinstance(val, dict) and not val["ok"])
+           or (isinstance(val, bool) and not val)]
+    log(f"  case {name}: " + ", ".join(
+        f"{key} err {val['max_abs_err']:.3g}" for key, val in res.items()
+        if isinstance(val, dict))
+        + (f", padded rows zero {res['padded_rows_zero']}"
+           if "padded_rows_zero" in res else "")
+        + f", dk/dv repeat bit for bit {res['dkv_repeats_bit_for_bit']}"
+        + f", dq {res['dq_repeats_bit_for_bit']}")
+    report["cases"][name] = res
+    if bad:
+        raise AssertionError(f"kernel case {name} failed on {bad}: {res}")
 
 
 def attention64(q, k, v):
@@ -1013,7 +1047,14 @@ def profile_summary(prof, wall_us: float, own: dict, top: int = 8) -> dict:
 
 
 def log_path(mp: dict) -> None:
-    pr = mp["profile"]
+    log_profile(mp["profile"])
+    log(f"  params {mp['params']}, microbatches {mp['microbatches']} (per "
+        f"step {mp['microbatches_per_step']}), launches "
+        f"{ {k: v for k, v in mp['launches'].items() if v} }, "
+        f"max_memory_allocated {mp['max_memory_allocated'] / 2**30:.2f} GiB")
+
+
+def log_profile(pr) -> None:
     if pr is None:
         log("  no step profiled")
     elif pr["device_busy_us"]:
@@ -1026,10 +1067,6 @@ def log_path(mp: dict) -> None:
             log(f"    {us / 1e3:8.2f} ms  {name}")
     else:
         log("  profiled step: no device time recorded (not measured)")
-    log(f"  params {mp['params']}, microbatches {mp['microbatches']} (per "
-        f"step {mp['microbatches_per_step']}), launches "
-        f"{ {k: v for k, v in mp['launches'].items() if v} }, "
-        f"max_memory_allocated {mp['max_memory_allocated'] / 2**30:.2f} GiB")
 
 
 # ------------------------------------------------------ phase 9, outer kinds
@@ -1521,6 +1558,421 @@ def check_churn(out_dir: str) -> dict:
     return res
 
 
+# ----------------------------------------------- phase 11, measured backend
+
+MESH_STEPS = 8          # (a)'s BSP steps; one more runs under the profiler
+MESH_RESUME = (2, 4)    # (c): saved after 2 steps, resumed and run to 4
+MESH_ASP_UPDATES = 18   # (d)
+# the flash kernels' shapes on the gemma path at bucket B with num_valid
+# rows (the ladder at microbatch 2 is 2, 3, 4, 5, 7, 9, ...); phase 11
+# checks every (B, num_valid) its path ran, and B 7 with 5 and 6 valid
+# rows, which a split moving off [1, 4, 7] would run
+BUCKET_EXTRA = [(7, 5), (7, 6)]
+
+
+def bucket_case(b: int, nv: int) -> tuple:
+    """A ``CASES`` row at the gemma path's attention shapes."""
+    return (f"mesh-b{b}-nv{nv}", b, 1024, 1024, 8, 1, 256, True, None,
+            None, nv)
+
+
+class FakeClock:
+    """A host clock whose ``perf_counter()`` advances exactly 1.0 a read."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def perf_counter(self):
+        self.t += 1.0
+        return self.t
+
+
+def mesh_experiment(steps: int):
+    """Phase 4's gemma path (2 layers, seq 1024, three h-level workers, b0
+    4, microbatch 2, P controller, adam(1e-3)) on the measured backend,
+    with the fleet's declared speeds emulated by dilation."""
+    from repro_torch.api import (ClusterSpec, Experiment, MeshBackend,
+                                 TrainConfig, lm_workload)
+    from repro_torch.configs import get_config
+    from repro_torch.core import ControllerConfig
+    from repro_torch.data import DataPipeline
+    from repro_torch.optim import adam
+
+    arch, layers, seq, _ = PATHS["gemma"]
+    cfg = get_config(arch, num_layers=layers)
+    return Experiment(
+        workload=lm_workload(cfg, DataPipeline(cfg, seq_len=seq,
+                                               num_workers=3),
+                             aux_weight=0.01, use_kernel=True),
+        cluster=ClusterSpec.hlevel(39, 6.0, 3, workload="transformer",
+                                   seed=0,
+                                   backend=MeshBackend(dilation="from-spec")),
+        optimizer=adam(1e-3),
+        config=TrainConfig(b0=4, microbatch=MICROBATCH, batching="dynamic",
+                           sync="bsp", max_steps=steps,
+                           controller=ControllerConfig(kind="p")))
+
+
+def check_mesh_path() -> dict:
+    """Phase 11(a)-(b): the gemma path on the measured backend, MESH_STEPS
+    sequential BSP steps and one more under torch.profiler.  The launch
+    counts are set to 0 before the session is built (its probe round
+    launches too) and must equal 2 layers x every gradient call, warm-up
+    reruns included.  Every gradient call is logged (step, worker, batch,
+    bucket, each event ms, and the caching allocator's new device
+    allocations and reserved bytes across it), so a warm-up rerun's time
+    stands beside its first call's."""
+    import torch
+    from repro_torch.train import mesh as M
+
+    steps = MESH_STEPS + 1
+    clock = step_clock(profile_step=MESH_STEPS, frags=FLASH)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ran, calls_log, timed, measured = [], [], M._timed, \
+        M.MeshTrainer._measured_worker_grad
+
+    def logged_timed(fn, device):
+        stats = torch.cuda.memory_stats(device)
+        allocs, reserved = stats.get("num_device_alloc", 0), \
+            torch.cuda.memory_reserved(device)
+        out, dt = timed(fn, device)
+        calls_log[-1]["ms"].append(dt * 1e3)
+        calls_log[-1]["device_allocs"].append(
+            torch.cuda.memory_stats(device).get("num_device_alloc", 0)
+            - allocs)
+        calls_log[-1]["reserved_mib"].append(
+            (torch.cuda.memory_reserved(device) - reserved) / 2**20)
+        return out, dt
+
+    def logged_grad(trainer, worker, batch_size):
+        calls_log.append({"step": len(ran) - 1, "worker": worker,
+                          "batch": batch_size,
+                          "bucket": trainer.bucket_for(worker, batch_size),
+                          "ms": [], "device_allocs": [],
+                          "reserved_mib": []})
+        return measured(trainer, worker, batch_size)
+
+    reset_all_launches()
+    M._timed, M.MeshTrainer._measured_worker_grad = logged_timed, logged_grad
+    try:
+        session = mesh_experiment(steps).session(hooks=[clock])
+    except BaseException:
+        M._timed, M.MeshTrainer._measured_worker_grad = timed, measured
+        raise
+    t = session.trainer
+    probe = {"batches": list(t.batches), "calls": t.accum_calls,
+             "reruns": t.timing_reruns, "buckets": [sorted(b) for b in
+                                                    t.worker_buckets]}
+    bsp_step = t.bsp_step
+
+    def recorded_step():
+        ran.append(list(t.batches))
+        return bsp_step()
+
+    t.bsp_step = recorded_step
+    try:
+        out = session.run()
+    finally:
+        del t.bsp_step
+        M._timed, M.MeshTrainer._measured_worker_grad = timed, measured
+    counts = all_launches()
+    hist = out["history"]
+    dil = list(t.dilation)
+    total = 4 * t.k
+    rows = []
+    for r, bs, ms in zip(hist, ran, clock.ms):
+        row = {"step": r.step, "wall_ms": ms, "ran": bs,
+               "buckets": [t.bucket_for(k, b) for k, b in enumerate(bs)],
+               "dilated_ms": [x * 1e3 for x in r.worker_times],
+               "raw_ms": [x * 1e3 / d for x, d in zip(r.worker_times, dil)],
+               "loss": r.loss}
+        rows.append(row)
+        log(f"  step {r.step}: wall {ms:.1f} ms, ran {bs} in buckets "
+            f"{row['buckets']}, worker event ms raw " + ", ".join(
+                f"{x:.1f}" for x in row["raw_ms"]) + " (sum "
+            f"{sum(row['raw_ms']):.1f}) dilated " + ", ".join(
+                f"{x:.1f}" for x in row["dilated_ms"])
+            + f", loss {r.loss:.4f}")
+    calls = t.accum_calls + t.timing_reruns
+    layers = PATHS["gemma"][1]
+    res = {"probe": probe, "steps": rows, "dilation": dil,
+           "final_batches": list(t.batches),
+           "worker_buckets": [sorted(b) for b in t.worker_buckets],
+           "accum_calls": t.accum_calls, "timing_reruns": t.timing_reruns,
+           "launches": counts,
+           "expected_launches": {k: layers * calls for k in FLASH},
+           "exec_state": t.exec_state_dict(),
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "profile": clock.profile,
+           "steady_step_wall_ms": sorted(clock.ms[1:MESH_STEPS])[
+               (MESH_STEPS - 1) // 2]}
+    bounds = []
+    for k, buckets in enumerate(t.worker_buckets):
+        seen = [4, probe["batches"][k]] + [bs[k] for bs in ran]
+        lo, hi = min(seen), max(seen)
+        bounds.append(math.ceil(math.log(hi / lo, 1.25)) + 1 if hi > lo
+                      else 1)
+    res["bucket_bounds"] = bounds
+    res["calls"] = calls_log
+    res["visited"] = sorted({(c["bucket"], c["batch"]) for c in calls_log})
+    res["reruns"] = log_reruns(calls_log)
+    log(f"  probe plan {probe['batches']} ({probe['calls']} calls, "
+        f"{probe['reruns']} reruns, buckets {probe['buckets']}); dilation "
+        f"{[round(d, 4) for d in dil]}; {t.accum_calls} calls, "
+        f"{t.timing_reruns} reruns, buckets {res['worker_buckets']} (bounds "
+        f"{bounds}); median step wall (steps 1-{MESH_STEPS - 1}) "
+        f"{res['steady_step_wall_ms']:.1f} ms; launches "
+        f"{ {k: v for k, v in counts.items() if v} }; peak "
+        f"{res['max_memory_allocated'] / 2**30:.2f} GiB")
+    del session, out, hist, t, bsp_step
+    torch.cuda.empty_cache()
+    losses = [row["loss"] for row in rows]
+    if len(rows) != steps or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"mesh path: bad losses {losses}")
+    bad = [row["step"] for row in rows if sum(row["ran"]) != total]
+    if bad or sum(res["final_batches"]) != total:
+        raise AssertionError(f"mesh path: sum(b_k) != {total} at {bad}")
+    last = ran[MESH_STEPS - 1]
+    slowest = max(range(len(dil)), key=dil.__getitem__)
+    if len(set(last)) < 2 or last[slowest] != min(last):
+        raise AssertionError(f"mesh path: split {last} is not ragged with "
+                             f"the slowest worker ({slowest}, dilation "
+                             f"{dil}) smallest")
+    over = [k for k, b in enumerate(res["worker_buckets"])
+            if len(b) > bounds[k]]
+    if over or res["timing_reruns"] > sum(bounds):
+        raise AssertionError(f"mesh path: buckets {res['worker_buckets']} / "
+                             f"reruns {res['timing_reruns']} over the "
+                             f"ladder bounds {bounds}")
+    want = res["expected_launches"]
+    if {k: counts.get(k, 0) for k in want} != want or calls <= 0 or any(
+            v for k, v in counts.items() if k not in want):
+        raise AssertionError(f"mesh path launches {counts}: want {want} "
+                             f"(2 layers x {calls} gradient calls)")
+    prof = res["profile"]
+    if prof and prof["device_busy_us"]:
+        missing = [f for f, us in prof["fragments_us"].items() if not us > 0]
+        if missing:
+            raise AssertionError(f"mesh path: {missing} absent from the "
+                                 f"profiled step: {prof}")
+    return res
+
+
+def log_reruns(calls_log: list) -> list:
+    """Each warm-up rerun's event ms beside its first call's, and beside
+    the warm calls of the same worker at the same bucket and step kind
+    (the probe's calls are the same work for every worker, so the probe
+    compares across workers)."""
+    rows = []
+    for c in calls_log:
+        if len(c["ms"]) != 2:
+            continue
+        same = [w["ms"][0] for w in calls_log if len(w["ms"]) == 1
+                and w["bucket"] == c["bucket"] and w["batch"] == c["batch"]
+                and (w["worker"] == c["worker"]
+                     or (c["step"] < 0 and w["step"] < 0))]
+        row = {"step": c["step"], "worker": c["worker"],
+               "bucket": c["bucket"], "batch": c["batch"],
+               "first_ms": c["ms"][0], "rerun_ms": c["ms"][1],
+               "first_over_rerun": c["ms"][0] / c["ms"][1],
+               "device_allocs": c["device_allocs"],
+               "reserved_mib": c["reserved_mib"],
+               "warm_ms": [min(same), max(same)] if same else None}
+        rows.append(row)
+        log(f"  rerun at step {'probe' if c['step'] < 0 else c['step']}, "
+            f"worker {c['worker']}, b {c['batch']} in bucket {c['bucket']}: "
+            f"first call {row['first_ms']:.2f} ms, rerun "
+            f"{row['rerun_ms']:.2f} ms (x{row['first_over_rerun']:.4f}); "
+            f"new device allocations {c['device_allocs']}, reserved "
+            f"+{c['reserved_mib'][0]:.0f} / +{c['reserved_mib'][1]:.0f} MiB"
+            + ("; warm calls at this bucket "
+               f"{row['warm_ms'][0]:.2f}-{row['warm_ms'][1]:.2f} ms"
+               if same else "; no warm call at this bucket"))
+    return rows
+
+
+def check_mesh_resume(out_dir: str) -> dict:
+    """Phase 11(c): the gemma mesh path saved after MESH_RESUME[0] steps,
+    restored into a new session and run to MESH_RESUME[1], against the
+    uninterrupted run: params, Adam's moments, the records and
+    ``exec_state_dict`` bit-identical.  Measured times differ from run to
+    run, so both runs take their times from ``FakeClock`` (the trainer's
+    timer swapped for the host clock, as tests/test_torch_mesh.py does): the
+    check is of the checkpoint, not of the clock."""
+    import torch
+    from repro_torch.train import mesh as M
+
+    at, steps = MESH_RESUME
+    path = os.path.join(out_dir, "mesh_resume.ckpt")
+    timer = M._timed, M._time
+    M._timed, M._time = M._host_timed, FakeClock()
+    try:
+        first = mesh_experiment(steps).session()
+        for rec in first:
+            if rec.step == at - 1:
+                first.save(path)
+                break
+        first.run()
+        t = first.trainer
+        want = {"params": {k: p.cpu() for k, p in t.params.items()},
+                "adam": {m: {k: x.cpu() for k, x in t.opt_state[m].items()}
+                         for m in ("m", "v")},
+                "records": [(r.step, r.loss, r.batches, r.worker_times,
+                             r.sim_time) for r in first.history[at:]],
+                "exec": t.exec_state_dict()}
+        del first, t
+        torch.cuda.empty_cache()
+        resumed = mesh_experiment(steps).session(resume_from=path)
+        resumed.run()
+    finally:
+        M._timed, M._time = timer
+        if os.path.exists(path):
+            os.remove(path)
+    t = resumed.trainer
+    same = {
+        "params": all(torch.equal(t.params[k].cpu(), p)
+                      for k, p in want["params"].items()),
+        "adam_moments": all(torch.equal(t.opt_state[m][k].cpu(), x)
+                            for m, xs in want["adam"].items()
+                            for k, x in xs.items()),
+        "records": [(r.step, r.loss, r.batches, r.worker_times, r.sim_time)
+                    for r in resumed.history] == want["records"],
+        "exec_state": t.exec_state_dict() == want["exec"],
+    }
+    res = {"saved_after": at, "steps": t.step_idx, "bit_identical": same,
+           "exec_state": want["exec"],
+           "records": [list(r) for r in want["records"]]}
+    log(f"  gemma mesh checkpoint after {at} steps, resumed to step "
+        f"{t.step_idx} (FakeClock times): bit-identical {same}; exec state "
+        f"{want['exec']}")
+    del resumed, t
+    torch.cuda.empty_cache()
+    if not all(same.values()) or res["steps"] != steps:
+        raise AssertionError(f"mesh resume differs: {res}")
+    return res
+
+
+def mesh_paper_session(steps: int, sync: str, cluster=None):
+    """mnist-cnn at phase 7's settings on the measured backend (dilation
+    from the fleet's declared speeds)."""
+    from repro_torch.api import (ClusterSpec, Experiment, MeshBackend,
+                                 TrainConfig, paper_workload)
+    from repro_torch.optim import adam
+
+    cluster = cluster or ClusterSpec.hlevel(39, 8, workload="mnist-cnn",
+                                            seed=0)
+    cluster.backend = MeshBackend(dilation="from-spec")
+    return Experiment(
+        workload=paper_workload("mnist-cnn", seed=100), cluster=cluster,
+        optimizer=adam(2e-3),
+        config=TrainConfig(b0=32, microbatch=8, batching="dynamic",
+                           sync=sync, max_steps=steps)).session()
+
+
+def check_mesh_asp() -> dict:
+    """Phase 11(d): mnist-cnn under ASP, MESH_ASP_UPDATES updates through
+    the event engine fed by the measured rates."""
+    t0 = time.perf_counter()
+    session = mesh_paper_session(MESH_ASP_UPDATES, "asp")
+    out = session.run()
+    hist = out["history"]
+    stale = [int(r.straggler_waste) for r in hist]
+    res = {"updates": out["steps"], "staleness": stale,
+           "batches": [r.batches for r in hist],
+           "final_batches": out["final_batches"],
+           "dilation": session.trainer.dilation,
+           "losses": [r.loss for r in hist],
+           "seconds": time.perf_counter() - t0}
+    log(f"  mnist-cnn ASP: {out['steps']} updates, staleness {stale}, final "
+        f"batches {out['final_batches']} (dilation "
+        f"{[round(d, 3) for d in res['dilation']]}), "
+        f"{res['seconds']:.2f} s")
+    total = sum(hist[0].batches)
+    if out["steps"] != MESH_ASP_UPDATES or not all(
+            math.isfinite(x) for x in res["losses"]) or max(stale) < 1 \
+            or any(sum(r.batches) != total for r in hist):
+        raise AssertionError(f"mesh ASP: {res}")
+    return res
+
+
+def check_mesh_storm() -> dict:
+    """Phase 11(e): phase 10's seed-11 storm, compiled by compile_churn,
+    replayed through the mesh trainer's membership methods on mnist-cnn:
+    the membership log and live workers as compiled, sum(b_k) kept, and
+    the straggler's SlowWorker seen in the dilation its steps ran with."""
+    from repro_torch.api import ClusterSpec
+
+    market, churn = storm()
+    cluster = ClusterSpec.explicit(market.initial_fleet(),
+                                   workload="mnist-cnn",
+                                   seed=0).with_churn(churn)
+    session = mesh_paper_session(STORM_STEPS, "bsp", cluster)
+    t, live, dilation = session.trainer, [], []
+    bsp_step = t.bsp_step
+
+    def recorded_step():
+        live.append(t.k)
+        dilation.append([round(d, 4) for d in t.dilation])
+        return bsp_step()
+
+    t.bsp_step = recorded_step
+    try:
+        out = session.run()
+    finally:
+        del t.bsp_step
+    want_log, want_live = expected_membership(churn, len(
+        market.initial_fleet()))
+    got_log = [list(e) for e in out["membership_log"]]
+    totals = sorted({sum(r.batches) for r in out["history"]})
+    res = {"membership_log": got_log, "live_workers": live,
+           "sum_b": totals, "dilation_per_step": dilation,
+           "batches": [r.batches for r in out["history"]],
+           "timing_reruns": t.timing_reruns}
+    log(f"  mnist-cnn storm on the mesh: {out['steps']} steps, live workers "
+        f"{live}, sum(b_k) {totals}, membership log {got_log}; dilation "
+        f"each step ran with {dilation}; batches {res['batches']}")
+    slowed = max(max(d) for d in dilation) > max(dilation[0])
+    if got_log != want_log or live != want_live or len(totals) != 1 \
+            or not slowed:
+        raise AssertionError(f"mesh storm: {res}; compiled log {want_log}, "
+                             f"live {want_live}, a SlowWorker reached the "
+                             f"dilation: {slowed}")
+    return res
+
+
+def check_mesh_kernels(report: dict, errs: dict, visited: list) -> list:
+    """The flash kernels against their plain versions at every (bucket,
+    num_valid) the mesh path ran and at BUCKET_EXTRA; each case draws its
+    own inputs (seeded by its name)."""
+    shapes = sorted(set(map(tuple, visited)) | set(BUCKET_EXTRA))
+    log("  flash kernels at the mesh path's (bucket, num_valid) "
+        f"{[list(x) for x in visited]} and {BUCKET_EXTRA}")
+    errs.update({k: max(v, errs[k]) for k, v in check_kernels(
+        report, [bucket_case(b, nv) for b, nv in shapes]).items()})
+    return [list(x) for x in shapes]
+
+
+def check_mesh(report: dict, errs: dict, out_dir: str) -> dict:
+    """Phase 11: (a)-(b) the gemma path, the flash kernels at the shapes it
+    ran, (c) resume, (d) ASP and (e) the storm."""
+    res, seconds = {}, {}
+    for part, check in (("path", check_mesh_path),
+                        ("kernels", lambda: check_mesh_kernels(
+                            report, errs, res["path"]["visited"])),
+                        ("resume", lambda: check_mesh_resume(out_dir)),
+                        ("asp", check_mesh_asp), ("storm", check_mesh_storm)):
+        t0 = time.perf_counter()
+        res[part] = check()
+        seconds[part] = time.perf_counter() - t0
+        if part == "path":
+            log_profile(res["path"]["profile"])
+    res["seconds"] = seconds
+    log("  phase 11 seconds: " + ", ".join(f"{k} {v:.1f}"
+                                            for k, v in seconds.items()))
+    return res
+
+
 # --------------------------------------------------------------------- main
 
 
@@ -1650,6 +2102,11 @@ def main() -> int:
         f"microbatch {MICROBATCH}), then checkpoint under fire and the chaos "
         f"harness on mnist-cnn")
     report["churn"] = check_churn(args.out)
+    log(f"[11] measured backend: gemma-2b widths (2 layers, seq 1024, b0 4, "
+        f"microbatch {MICROBATCH}) on MeshBackend(dilation='from-spec'), "
+        f"workers timed by CUDA events one after another; then mnist-cnn "
+        f"ASP and the phase-10 storm on the mesh")
+    report["mesh"] = check_mesh(report, errs, args.out)
 
     replaces = {
         "flash_fwd": "src/repro/kernels/flash_attention/kernel.py:280",

@@ -7,14 +7,14 @@
     membership-event schedules, and ``compile_churn``, which lowers a
     spot-market trace into one;
   * :mod:`repro_torch.api.backend` — ``SimBackend`` (simulated clock, real
-    SGD on a PyTorch device);
+    SGD on a PyTorch device) and ``MeshBackend`` (measured times);
   * :mod:`repro_torch.api.session` — the Session step iterator + hooks
     (logging, checkpoint-every-N, early stop, metric collection);
   * :mod:`repro_torch.api.experiment` — Experiment = workload + cluster +
     config, with ``run()`` / ``session()`` entry points.
 """
 
-from repro_torch.api.backend import Backend, SimBackend
+from repro_torch.api.backend import Backend, MeshBackend, SimBackend
 from repro_torch.api.cluster import (
     At,
     AddWorker,
@@ -58,6 +58,7 @@ __all__ = [
     "Experiment",
     "Hook",
     "LoggingHook",
+    "MeshBackend",
     "MetricCollector",
     "Reallocate",
     "RemoveWorker",

@@ -127,8 +127,7 @@ class ChurnSchedule:
     would take the fleet below ``min_workers``, a degradation aimed at an
     emptied zone) so storms are auditable rather than silently truncated.
     Both backends replay the same compiled schedule, so a churn storm is
-    bit-reproducible across ``SimBackend`` and ``MeshBackend`` (the
-    measured backend is slice 5 of the port).
+    bit-reproducible across ``SimBackend`` and ``MeshBackend``.
     """
 
     events: list
@@ -277,7 +276,10 @@ class ClusterSpec:
     ``backend`` selects the execution substrate: ``None`` means
     ``SimBackend()`` on the CUDA card (iteration times from the calibrated
     simulator); ``SimBackend(device="cpu")`` runs the same experiment on the
-    CPU.  The measured backend is a later slice of the port.
+    CPU; ``MeshBackend(...)`` runs it with measured iteration times
+    (``repro_torch.train.mesh``), replaying the membership schedule through
+    the mesh trainer's ``remove_worker`` / ``add_worker`` / ``slow_worker``
+    / ``reallocate_cost_aware``.
 
     """
 

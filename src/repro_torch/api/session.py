@@ -263,25 +263,31 @@ class Session:
     # ---------------------------------------------------------- checkpoint
 
     def _require_checkpointable(self):
-        """Checkpointing needs the sim backend's state surface: the engine's
-        version counters and the simulator's clock and jitter RNG."""
+        """Checkpointing needs a trainer with a known state surface: the sim
+        backend's (engine counters, the simulator's clock and jitter RNG) or
+        the mesh backend's (``exec_state_dict``: EWMAs, rate model and
+        clock, buckets visited, slice assignment, dilations)."""
         t = self.trainer
-        if getattr(t, "backend_kind", None) == "sim" and hasattr(t, "engine") \
-                and hasattr(t.sim, "rng"):
+        kind = getattr(t, "backend_kind", None)
+        if kind == "sim" and hasattr(t, "engine") and hasattr(t.sim, "rng"):
+            return t
+        if kind == "mesh" and hasattr(t, "exec_state_dict"):
             return t
         raise NotImplementedError(
-            "session checkpointing is implemented for SimBackend trainers; "
-            f"this trainer ({type(t).__name__!r}) does not expose their "
-            "state surface")
+            "session checkpointing is implemented for SimBackend and "
+            f"MeshBackend trainers; this trainer ({type(t).__name__!r}) "
+            "exposes neither state surface")
 
     def save(self, path: str, extra_meta: Optional[dict] = None) -> None:
         """Checkpoint the full session: params, the optimizer's state
         (Adam's moments; its step is the session's), ``batches``,
         ``smoothed_loss`` and ``step``, the controller, the engine's
         counters, the simulator's clock, iteration and jitter RNG, and the
-        data source's cursors.
+        data source's cursors.  The mesh backend writes its
+        ``exec_state_dict`` in place of the simulator's state.
 
-        Enough for :meth:`restore` to continue a BSP run bit for bit.  (ASP
+        Enough for :meth:`restore` to continue a BSP run bit for bit (on the
+        mesh backend, given the same measured times).  (ASP
         in-flight events and their stale parameter payloads are not
         persisted: an ASP resume redispatches all workers from the current
         params, like a real cluster restart would.)
@@ -304,12 +310,15 @@ class Session:
             "workload": (self.workload.state_dict()
                          if self.workload is not None
                          and self.workload.state_dict else None),
-            "sim": {
+        }
+        if t.backend_kind == "sim":
+            session_meta["sim"] = {
                 "time": t.sim.time,
                 "iteration": t.sim.iteration,
                 "rng": t.sim.rng.bit_generator.state,
-            },
-        }
+            }
+        else:
+            session_meta["mesh"] = t.exec_state_dict()
         meta = {"session": session_meta, **(extra_meta or {})}
         save_checkpoint(path, {"params": t.params, "opt_state": t.opt_state},
                         meta)
@@ -326,9 +335,9 @@ class Session:
         Raises ``ValueError`` when the checkpoint was written by another
         backend kind, for another worker count, at a step past part of the
         membership schedule, with an outer controller where this session
-        runs the fixed kind (or without one where it does not), or (from
-        the data source) with another seed; every check comes before the
-        trainer's state changes.
+        runs the fixed kind (or without one where it does not), on another
+        mesh (mesh backend), or (from the data source) with another seed;
+        every check comes before the trainer's state changes.
         """
         t = self._require_checkpointable()
         tree, meta = load_checkpoint(path, t.device)
@@ -366,6 +375,8 @@ class Session:
         controller = (controller_from_state_dict(st["controller"])
                       if st["controller"] is not None
                       and t.controller is not None else None)
+        if t.backend_kind == "mesh":
+            t.check_exec_state_dict(st["mesh"])
         # the data source's seed check is the last check and its load the
         # first change of state
         if st["workload"] is not None and self.workload is not None \
@@ -380,9 +391,12 @@ class Session:
         self.smoothed_loss = st["smoothed_loss"]
         if controller is not None:
             t.controller = controller
-        t.sim.time = float(st["sim"]["time"])
-        t.sim.iteration = int(st["sim"]["iteration"])
-        t.sim.rng.bit_generator.state = st["sim"]["rng"]
+        if t.backend_kind == "sim":
+            t.sim.time = float(st["sim"]["time"])
+            t.sim.iteration = int(st["sim"]["iteration"])
+            t.sim.rng.bit_generator.state = st["sim"]["rng"]
+        else:
+            t.load_exec_state_dict(st["mesh"])
         t.engine.version = int(st["engine"]["version"])
         t.engine.read_version = [int(v) for v in st["engine"]["read_version"]]
         # the guard above rejected any event before the checkpoint step, and

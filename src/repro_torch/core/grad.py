@@ -3,9 +3,9 @@
     g_k   = lambda_k * grad_k,  lambda_k = b_k / sum_i b_i
     x_t+1 = x_t - eta * sum_k g_k
 
-Gradients are flat ``dict[str, Tensor]`` keyed like the parameters.  The
-masked in-graph ``weighted_psum`` of the reference belongs to the measured
-(multi-device) backend and is not part of this module yet.
+Gradients are flat ``dict[str, Tensor]`` keyed like the parameters.
+``weighted_psum`` is the measured backend's masked mean: a worker's
+gradient SUM over its padded bucket divided once by its mask-weight sum.
 """
 
 from __future__ import annotations
@@ -62,6 +62,33 @@ def combine_weighted_with_sqnorm(grads: Sequence[Grads],
     estimator (DESIGN.md §15).
     """
     g = combine_weighted(grads, batches)
+    return g, tree_sqnorm(g)
+
+
+def weighted_psum(local_grad_sum: Grads,
+                  local_weight_sum: torch.Tensor) -> Grads:
+    """Weighted mean of a worker's gradient on its one device.
+
+    ``local_grad_sum`` holds sum_i w_i * grad_i over the worker's rows,
+    ``local_weight_sum`` the scalar sum_i w_i.  Returns the gradient divided
+    by max(weight sum, 1e-8): exactly Eq. 3 with lambda weighting when the
+    w_i are the bucket's validity mask.  The sums are the caller's scratch
+    and are divided in place (no second copy of the gradient is made); the
+    returned dict holds the same tensors.  (The reference also sums over
+    the worker's data-axis slice; one device is a slice of one.)
+    """
+    denom = torch.clamp(local_weight_sum, min=1e-8)
+    for g in local_grad_sum.values():
+        g.div_(denom)
+    return local_grad_sum
+
+
+def weighted_psum_with_sqnorm(local_grad_sum: Grads,
+                              local_weight_sum: torch.Tensor):
+    """`weighted_psum` plus the squared norm of the worker's mean gradient:
+    the |g_k|^2 side statistic of the GNS estimator (DESIGN.md §15).
+    Returns ``(g, |g|^2)``."""
+    g = weighted_psum(local_grad_sum, local_weight_sum)
     return g, tree_sqnorm(g)
 
 

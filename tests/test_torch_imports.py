@@ -55,7 +55,8 @@ def test_scan_sees_the_whole_port():
                  "models/recurrent.py", "configs/recurrentgemma_9b.py",
                  "core/control/global_batch/gns.py",
                  "core/control/global_batch/policy.py", "het/traces.py",
-                 "het/spot.py", "het/chaos.py", "core/placement.py"):
+                 "het/spot.py", "het/chaos.py", "core/placement.py",
+                 "train/mesh.py"):
         assert must in names
 
 
