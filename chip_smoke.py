@@ -113,7 +113,28 @@ Phases, each of which fails the run (nonzero exit) when it goes wrong:
      staleness logged and at least 1 somewhere; (e) phase 10's storm on
      mnist-cnn through the mesh trainer's membership methods: membership
      log and live workers as compiled, sum(b_k) kept, the straggler's
-     slowdown in the dilation.
+     slowdown in the dilation;
+ 12. serving: (a) gemma-2b at full width and depth (18 layers, random
+     weights from seed 0) behind a ``ContinuousBatcher`` of SERVE_SLOTS
+     slots x SERVE_CACHE positions, SERVE_REQUESTS requests from
+     ``make_traffic("poisson")`` (prompts of 1..SERVE_PROMPT tokens,
+     SERVE_NEW new tokens each), submitted at their arrival steps: every
+     request finishes; each step's host wall ms (pure decode p50 / p95
+     against the step's bytes bound, admitting steps apart), tokens/s and
+     peak memory logged; (e) one pure decode step with every slot live
+     under torch.profiler, three untraced steps timed before and after it;
+     (b) the same requests through a ``KVSlotManager`` over one ``LMShard``
+     behind a ``PrefillProgram``, all on the same parameter tensors: each
+     stream equal to (a)'s, peak under 11 GiB, prefill ms a token by ladder
+     rung; (c) gemma-2b (2 layers), mamba2-1.3b (4) and recurrentgemma-9b
+     (3) at full width: 256 tokens decoded one by one through the caches
+     against ``apply_lm`` over all of them through the kernels, within
+     DECODE_TOL (atol raised to DECODE_ULPS x max|logit| where larger),
+     each kernel launched once a layer that runs it and none in decode;
+     (d) phase 11(a)'s path with a shared-mode ``ServeSpec`` (the reduced
+     gemma-2b decode model), once per engine, COLO_STEPS steps: the decode
+     seconds charged to worker 2, sum(b_k) 12, each flash kernel launched
+     2 layers x every gradient call.
 
 Each main path runs with every kernel's launch count set to 0 just before
 it and read just after (phase 11(a): before its session is built, whose
@@ -1973,6 +1994,393 @@ def check_mesh(report: dict, errs: dict, out_dir: str) -> dict:
     return res
 
 
+# ------------------------------------------------------ phase 12, serving
+
+SERVE_SLOTS, SERVE_CACHE = 8, 1024       # (a)-(b): 8 KV slots of 1024
+SERVE_REQUESTS = 16
+SERVE_PROMPT, SERVE_NEW = 64, 32         # prompts of 1..64 tokens (ragged)
+SERVE_RATE, SERVE_SEED = 1.0, 12         # poisson arrivals per step
+# tests/test_models.py's atol and rtol for decode against the full pass; at
+# full width the logits reach 1000-4200, where fp32 resolves ~1e-4-5e-4, so
+# the atol becomes 4 x 2^-23 x max|logit| (2-4 ulps of the largest logit)
+# where that is larger (the two full passes, kernel and plain, differ by
+# more than 2e-4 at mamba2's width: PERF.md, PR 24)
+DECODE_TOL = (2e-4, 2e-3)
+DECODE_ULPS = 4 * 2.0 ** -23
+DECODE_SEQ = 256
+# (c): arch, layers, the kernels its full pass launches and their layers
+DECODE_PATHS = {"gemma-2b": (2, {"flash_fwd": 2}),
+                "mamba2-1.3b": (4, {"ssd_fwd": 4}),
+                "recurrentgemma-9b": (3, {"rglru_fwd": 2, "flash_fwd": 1})}
+COLO_STEPS = 3                           # (d): BSP steps an engine
+COLO_SERVE = dict(mode="shared", arch="gemma-2b", slots=4, cache_len=64,
+                  requests_per_round=2.0, prompt_len=16, max_new_tokens=24,
+                  decode_steps_per_round=16, seed=3)
+
+
+def serve_arrivals(vocab: int) -> list:
+    """SERVE_REQUESTS requests from ``make_traffic("poisson")``, each with
+    the batcher step it arrives at."""
+    from repro_torch.serve import make_traffic
+
+    traffic = make_traffic("poisson", rate=SERVE_RATE,
+                           prompt_len=SERVE_PROMPT,
+                           max_new_tokens=SERVE_NEW, vocab_size=vocab,
+                           seed=SERVE_SEED)
+    out, step = [], 0
+    while len(out) < SERVE_REQUESTS:
+        out += [(step, r) for r in traffic.next_round()]
+        step += 1
+    return out[:SERVE_REQUESTS]
+
+
+def serve_drive(engine, arrivals) -> tuple:
+    """Submit each request at its step and step ``engine`` until idle; each
+    step's host wall ms (the step reads its tokens back, which waits for
+    the card), and whether it admitted or prefilled a request."""
+    from repro_torch.serve import Request
+
+    reqs = [Request(uid=r.uid, prompt=r.prompt.copy(),
+                    max_new_tokens=r.max_new_tokens) for _, r in arrivals]
+    prefill = getattr(engine, "prefill", None)
+    rows, i = [], 0
+    while i < len(reqs) or not engine.idle:
+        while i < len(reqs) and arrivals[i][0] <= engine.step_count:
+            engine.submit(reqs[i])
+            i += 1
+        work = (sum(r.started_step is not None for r in reqs),
+                getattr(prefill, "calls", 0))
+        t0 = time.perf_counter()
+        engine.step()
+        ms = (time.perf_counter() - t0) * 1e3
+        rows.append((ms, (sum(r.started_step is not None for r in reqs),
+                          getattr(prefill, "calls", 0)) != work))
+    return reqs, rows
+
+
+def step_stats(rows) -> dict:
+    import numpy as np
+
+    dec = [ms for ms, admitted in rows if not admitted]
+    adm = [ms for ms, admitted in rows if admitted]
+    pct = (lambda xs, q: float(np.percentile(xs, q)) if xs else None)
+    return {"steps": len(rows), "decode_steps": len(dec),
+            "decode_ms_p50": pct(dec, 50), "decode_ms_p95": pct(dec, 95),
+            "admission_steps": len(adm), "admission_ms_p50": pct(adm, 50),
+            "admission_ms_max": max(adm) if adm else None,
+            "seconds": sum(ms for ms, _ in rows) / 1e3}
+
+
+def check_serve_engines(peak_bw: float) -> dict:
+    """Phase 12(a), (e), (b): gemma-2b at full width and depth behind a
+    ContinuousBatcher, one pure decode step of it profiled, then the same
+    requests through the disaggregated KVSlotManager sharing the same
+    parameter tensors; the streams must match."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_lm
+    from repro_torch.serve import (ContinuousBatcher, KVSlotManager,
+                                   LMShard, PrefillProgram, Request)
+
+    dev = torch.device("cuda")
+    cfg = get_config("gemma-2b")
+    torch.cuda.empty_cache()
+    params = init_lm(torch.Generator(device=dev).manual_seed(0), cfg)
+    n_params = sum(p.numel() for p in params.values())
+    param_bytes = sum(p.numel() * p.element_size() for p in params.values())
+    arrivals = serve_arrivals(cfg.vocab_size)
+    res = {"layers": cfg.num_layers, "params": n_params,
+           "prompt_lens": [len(r.prompt) for _, r in arrivals],
+           "arrival_steps": [s for s, _ in arrivals]}
+    # (a) the batcher
+    reset_all_launches()
+    torch.cuda.reset_peak_memory_stats()
+    batcher = ContinuousBatcher(params, cfg, slots=SERVE_SLOTS,
+                                cache_len=SERVE_CACHE, device=dev)
+    batcher.warmup()
+    cache_bytes = sum(x.numel() * x.element_size()
+                      for x in batcher.caches.values())
+    reqs, rows = serve_drive(batcher, arrivals)
+    a = step_stats(rows)
+    a["tokens"] = sum(len(r.tokens) for r in reqs)
+    a["tokens_per_s"] = a["tokens"] / a["seconds"]
+    a["finished"] = len(batcher.finished)
+    a["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    a["launches"] = {k: v for k, v in all_launches().items() if v}
+    a["cache_mib"] = cache_bytes / 2**20
+    # the least bytes a pure decode step moves: every parameter and the
+    # whole KV cache read once (the plain scores read all 1024 slots)
+    a["bound_ms"] = (param_bytes + cache_bytes) / peak_bw * 1e3
+    streams = {r.uid: list(r.tokens) for r in reqs}
+    log(f"  (a) batcher: {a['finished']}/{SERVE_REQUESTS} requests, prompts "
+        f"{res['prompt_lens']}; {a['steps']} steps: {a['decode_steps']} "
+        f"pure decode p50 {a['decode_ms_p50']:.3f} / p95 "
+        f"{a['decode_ms_p95']:.3f} ms (bound {a['bound_ms']:.3f} ms: "
+        f"{param_bytes / 1e9:.3f} GB of parameters + "
+        f"{a['cache_mib']:.0f} MiB of KV cache), {a['admission_steps']} "
+        f"admitting p50 {a['admission_ms_p50']:.1f} / max "
+        f"{a['admission_ms_max']:.1f} ms; {a['tokens']} tokens in "
+        f"{a['seconds']:.2f} s ({a['tokens_per_s']:.1f} tokens/s); peak "
+        f"{a['peak_gib']:.2f} GiB; launches {a['launches']}")
+    # (e) one pure decode step under torch.profiler: all slots live
+    for uid in range(SERVE_SLOTS):
+        batcher.submit(Request(uid=100 + uid, prompt=arrivals[uid][1]
+                               .prompt[:4].copy(), max_new_tokens=8))
+    batcher.step()
+
+    def pure_steps(n):
+        out = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            batcher.step()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    before = pure_steps(3)
+    torch.cuda.synchronize()
+    prof = torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA])
+    with prof:
+        t0 = time.perf_counter()
+        batcher.step()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    e = profile_summary(prof, wall_us, {})
+    e["bound_ms"] = a["bound_ms"]
+    log_profile(e)
+    after = pure_steps(3)
+    e["decode_ms_around_profiler"] = (before, after)
+    log("  pure decode steps before the profiler: " + ", ".join(
+        f"{x:.2f}" for x in before) + " ms; after: " + ", ".join(
+        f"{x:.2f}" for x in after) + " ms")
+    del batcher, prof
+    torch.cuda.empty_cache()
+    # (b) the disaggregated engine on the same parameter tensors
+    reset_all_launches()
+    torch.cuda.reset_peak_memory_stats()
+    prefill = PrefillProgram(params, cfg, cache_len=SERVE_CACHE, device=dev)
+    shard = LMShard(params, cfg, slots=SERVE_SLOTS, cache_len=SERVE_CACHE,
+                    device=dev)
+    shared = all(prefill.params[k] is params[k] and shard.params[k] is
+                 params[k] for k in params)
+    mgr = KVSlotManager([shard], prefill, cache_len=SERVE_CACHE, extent=1)
+    rung_ms: dict = {}
+    run = prefill.run
+
+    def timed_run(fed):
+        t0 = time.perf_counter()
+        out = run(fed)
+        torch.cuda.synchronize()
+        rung_ms.setdefault(prefill.bucket_for(len(fed)), []).append(
+            (len(fed), (time.perf_counter() - t0) * 1e3))
+        return out
+
+    prefill.run = timed_run
+    mgr.warmup()
+    rung_ms.clear()
+    try:
+        reqs_b, rows_b = serve_drive(mgr, arrivals)
+    finally:
+        del prefill.run          # no cycle holds the parameters after this
+
+    b = step_stats(rows_b)
+    b["finished"] = len(mgr.finished)
+    b["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    b["launches"] = {k: v for k, v in all_launches().items() if v}
+    b["prefill_traces"] = mgr.stats()["prefill_traces"]
+    b["prefill_ms_by_rung"] = {
+        rung: {"runs": len(xs), "tokens": [n for n, _ in xs],
+               "ms": [ms for _, ms in xs],
+               "ms_per_token": sum(ms for _, ms in xs)
+               / sum(n for n, _ in xs)}
+        for rung, xs in sorted(rung_ms.items())}
+    b["one_param_copy"] = shared
+    b["streams_equal_a"] = {r.uid: list(r.tokens) for r in reqs_b} == streams
+    log(f"  (b) KVSlotManager + PrefillProgram: {b['finished']}/"
+        f"{SERVE_REQUESTS} requests; {b['decode_steps']} pure decode steps "
+        f"p50 {b['decode_ms_p50']:.3f} / p95 {b['decode_ms_p95']:.3f} ms; "
+        f"prefill traces {b['prefill_traces']}, ms per token by rung "
+        + ", ".join(f"{k}: {v['ms_per_token']:.3f} ({v['runs']} runs)"
+                    for k, v in b["prefill_ms_by_rung"].items())
+        + f"; peak {b['peak_gib']:.2f} GiB; one parameter copy {shared}; "
+        f"streams equal (a)'s {b['streams_equal_a']}; launches "
+        f"{b['launches']}")
+    del mgr, shard, prefill, params
+    torch.cuda.empty_cache()
+    res.update(batcher=a, profile=e, disaggregated=b, streams=streams)
+    bad = []
+    if a["finished"] != SERVE_REQUESTS or b["finished"] != SERVE_REQUESTS:
+        bad.append("unfinished requests")
+    if any(len(s) != SERVE_NEW for s in streams.values()):
+        bad.append("short streams")
+    if not b["streams_equal_a"]:
+        bad.append("disaggregated streams differ from the batcher's")
+    if a["launches"] or b["launches"]:
+        bad.append("decode launched a kernel of the port")
+    if not shared or b["peak_gib"] >= 11.0:
+        bad.append("more than one parameter copy")
+    if bad:
+        raise AssertionError(f"serving: {bad}: {res}")
+    return res
+
+
+def check_decode_vs_kernels() -> dict:
+    """Phase 12(c): per model at full width, a prompt decoded token by
+    token through the caches against ``apply_lm`` over the whole prompt,
+    which runs the port's kernels: logits within DECODE_TOL (with the atol
+    raised to DECODE_ULPS x max|logit| where larger), each kernel launched
+    once a layer that runs it in the full pass, none in decode.
+    The plain full pass (no kernel) is logged beside it.  Every model runs
+    before the phase fails on any."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import apply_lm, init_caches, init_lm
+
+    dev = torch.device("cuda")
+
+    def excess(got, ref):
+        """max(|got - ref| - (atol + rtol |ref|)): <= 0 passes; with the
+        |ref| and |got - ref| where it is largest, and the same at the
+        reference's atol alone."""
+        atol, rtol = DECODE_TOL
+        plain = ((got - ref).abs() - atol - rtol * ref.abs()).max().item()
+        atol = max(atol, DECODE_ULPS * ref.abs().max().item())
+        e = (got - ref).abs() - atol - rtol * ref.abs()
+        k = int(e.argmax())
+        return {"excess": e.max().item(), "atol": atol,
+                "excess_at_atol_2e-4": plain,
+                "at_abs_ref": ref.flatten()[k].abs().item(),
+                "at_abs_err": (got - ref).flatten()[k].abs().item(),
+                "max_abs_err": (got - ref).abs().max().item()}
+
+    res, failed = {}, []
+    for arch, (layers, want) in DECODE_PATHS.items():
+        cfg = get_config(arch, num_layers=layers).with_(use_pallas=True)
+        params = init_lm(torch.Generator(device=dev).manual_seed(1), cfg)
+        toks = torch.randint(0, cfg.vocab_size, (1, DECODE_SEQ),
+                             generator=torch.Generator(device=dev)
+                             .manual_seed(2), device=dev)
+        reset_all_launches()
+        with torch.no_grad():
+            full, _ = apply_lm(params, cfg, toks)
+        full_launches = {k: v for k, v in all_launches().items() if v}
+        reset_all_launches()
+        caches, dec = init_caches(cfg, 1, DECODE_SEQ, device=dev), []
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            for i in range(DECODE_SEQ):
+                lg, caches, _ = apply_lm(
+                    params, cfg, toks[:, i:i + 1], caches=caches,
+                    positions=torch.full((1, 1), i, device=dev))
+                dec.append(lg)
+        seconds = time.perf_counter() - t0
+        dec_launches = {k: v for k, v in all_launches().items() if v}
+        dec = torch.cat(dec, dim=1)
+        with torch.no_grad():
+            plain, _ = apply_lm(params, cfg.with_(use_pallas=False), toks)
+        res[arch] = {"layers": layers, "full_pass_launches": full_launches,
+                     "decode_launches": dec_launches,
+                     "decode_vs_kernel_path": excess(dec, full),
+                     "decode_vs_plain_path": excess(dec, plain),
+                     "kernel_vs_plain_path": excess(full, plain),
+                     "max_abs_logit": full.abs().max().item(),
+                     "decode_seconds": seconds}
+        r = res[arch]
+        log(f"  (c) {arch}, {layers} layers, {DECODE_SEQ} tokens: full pass "
+            f"launches {full_launches} (want {want}), decode launches "
+            f"{dec_launches}; max |logit| {r['max_abs_logit']:.1f}; "
+            f"max(|a - b| - (atol + rtol|b|)) (<= 0 passes): " + ", ".join(
+                f"{k} {v['excess']:.3g} at atol {v['atol']:.3g} "
+                f"({v['excess_at_atol_2e-4']:.3g} at atol 2e-4; there |b| "
+                f"{v['at_abs_ref']:.3g}, |a - b| {v['at_abs_err']:.3g}; max "
+                f"|a - b| {v['max_abs_err']:.3g})"
+                for k, v in r.items() if k.endswith("_path"))
+            + f"; decode {seconds:.2f} s")
+        del params, full, plain, caches, dec, lg
+        torch.cuda.empty_cache()
+        if full_launches != want or dec_launches or \
+                r["decode_vs_kernel_path"]["excess"] > 0:
+            failed.append(arch)
+    if failed:
+        raise AssertionError(f"decode vs kernel path ({failed}): {res}")
+    return res
+
+
+def check_serve_colocated() -> dict:
+    """Phase 12(d): phase 11(a)'s gemma path on
+    ``MeshBackend(dilation="from-spec")`` with a shared-mode ServeSpec, once
+    per engine, COLO_STEPS BSP steps; the decode seconds are charged to
+    worker 2 (the last), Σb_k stays 12, and each flash kernel launches 2
+    layers x every gradient call."""
+    import torch
+    from repro_torch.serve import ServeSpec
+
+    res = {}
+    for engine in ("batcher", "disaggregated"):
+        exp = mesh_experiment(COLO_STEPS)
+        exp.cluster.serve = ServeSpec(engine=engine, **COLO_SERVE)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_all_launches()
+        clock = step_clock()
+        session = exp.session(hooks=[clock])
+        out = session.run()
+        t = session.trainer
+        counts = all_launches()
+        calls = t.accum_calls + t.timing_reruns
+        want = {k: 2 * calls for k in FLASH}
+        rows = []
+        for r, ms, charge in zip(out["history"], clock.ms, t.round_charges):
+            rows.append({"step": r.step, "wall_ms": ms,
+                         "worker_ms": [x * 1e3 for x in r.worker_times],
+                         "charge_ms": charge * 1e3,
+                         "batches_after": r.batches})
+            log(f"  (d) {engine} step {r.step}: wall {ms:.1f} ms, worker ms "
+                "(dilated, charge included) " + ", ".join(
+                    f"{x * 1e3:.1f}" for x in r.worker_times)
+                + f", decode charge {charge * 1e3:.1f} ms to worker "
+                f"{t.serve_slice.shared_with}; split after {r.batches}")
+        serve = out["serve"]
+        res[engine] = {"steps": rows, "serve": serve,
+                       "ran_first": out["history"][0].batches,
+                       "launches": counts, "expected_launches": want,
+                       "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        log(f"  (d) {engine}: charged {serve['charged_seconds'] * 1e3:.1f} "
+            f"ms over {serve['decode_steps']} decode steps (p50 "
+            f"{serve['decode_step_ms']['p50']:.2f} ms), "
+            f"{serve['requests_finished']} of "
+            f"{serve['requests_submitted']} requests finished; launches "
+            f"{ {k: v for k, v in counts.items() if v} }; peak "
+            f"{res[engine]['peak_gib']:.2f} GiB")
+        bad = [row["step"] for row in rows
+               if sum(row["batches_after"]) != 12
+               or row["worker_ms"][2] < row["charge_ms"]]
+        del session, out, t, exp
+        torch.cuda.empty_cache()
+        if bad or not serve["charged_seconds"] > 0 or serve[
+                "shared_with"] != 2 or {k: counts.get(k, 0) for k in want} \
+                != want or any(v for k, v in counts.items()
+                               if k not in want):
+            raise AssertionError(f"co-located {engine}: {res[engine]}")
+    return res
+
+
+def check_serving(peak_bw: float) -> dict:
+    """Phase 12: (a), (e), (b) the engines on gemma-2b, (c) decode against
+    the kernel path, (d) co-located serving in shared mode."""
+    res, seconds = {}, {}
+    for part, check in (("engines", lambda: check_serve_engines(peak_bw)),
+                        ("decode", check_decode_vs_kernels),
+                        ("colocated", check_serve_colocated)):
+        t0 = time.perf_counter()
+        res[part] = check()
+        seconds[part] = time.perf_counter() - t0
+    res["seconds"] = seconds
+    log("  phase 12 seconds: " + ", ".join(f"{k} {v:.1f}"
+                                            for k, v in seconds.items()))
+    return res
+
+
 # --------------------------------------------------------------------- main
 
 
@@ -2107,6 +2515,12 @@ def main() -> int:
         f"workers timed by CUDA events one after another; then mnist-cnn "
         f"ASP and the phase-10 storm on the mesh")
     report["mesh"] = check_mesh(report, errs, args.out)
+    log(f"[12] serving: gemma-2b at full width and depth behind the "
+        f"ContinuousBatcher ({SERVE_SLOTS} slots of {SERVE_CACHE}) and the "
+        f"disaggregated KVSlotManager, {SERVE_REQUESTS} poisson requests; "
+        f"decode against the kernel path on three models; co-located "
+        f"serving in shared mode on phase 11's mesh path")
+    report["serving"] = check_serving(peak_bw)
 
     replaces = {
         "flash_fwd": "src/repro/kernels/flash_attention/kernel.py:280",

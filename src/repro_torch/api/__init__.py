@@ -4,8 +4,9 @@
     the SUM-gradient contract once (``mean_loss_workload``,
     ``sum_loss_workload``, ``paper_workload``, ``lm_workload``);
   * :mod:`repro_torch.api.cluster` — declarative ClusterSpec with typed
-    membership-event schedules, and ``compile_churn``, which lowers a
-    spot-market trace into one;
+    membership-event schedules, ``compile_churn``, which lowers a
+    spot-market trace into one, and optional co-located serving
+    (``ServeSpec``);
   * :mod:`repro_torch.api.backend` — ``SimBackend`` (simulated clock, real
     SGD on a PyTorch device) and ``MeshBackend`` (measured times);
   * :mod:`repro_torch.api.session` — the Session step iterator + hooks
@@ -44,6 +45,7 @@ from repro_torch.api.workload import (
     sum_loss_adapter,
     sum_loss_workload,
 )
+from repro_torch.serve.colocate import ServeSpec
 from repro_torch.train.loop import TrainConfig
 
 __all__ = [
@@ -63,6 +65,7 @@ __all__ = [
     "Reallocate",
     "RemoveWorker",
     "Session",
+    "ServeSpec",
     "SimBackend",
     "SlowWorker",
     "TrainConfig",

@@ -44,6 +44,12 @@ class SimBackend:
     name: str = dataclasses.field(default="sim", init=False)
 
     def build_trainer(self, *, workload, cluster, optimizer, cfg):
+        if getattr(cluster, "serve", None) is not None:
+            raise ValueError(
+                "co-located serving (ClusterSpec.serve) needs real devices "
+                "to share — use ClusterSpec(backend=MeshBackend(...)); the "
+                "sim backend has no mesh to carve a serve slice from "
+                "(DESIGN.md §13)")
         device = resolve_device(self.device)
         if workload.to is not None:
             workload.to(device)
@@ -79,7 +85,8 @@ class MeshBackend:
     ``growth`` is the bucket-ladder ratio (warm-up reruns per worker are
     bounded by ``ceil(log_growth(b_max/b_min)) + 1``); ``time_alpha`` the
     measurement EWMA.  BSP, ASP, elastic membership and
-    ``Session.save/restore`` are supported.
+    ``Session.save/restore`` are supported; a ``ClusterSpec.serve`` builds
+    the co-located trainer (``repro_torch.train.colocate``).
     """
 
     dilation: Union[None, str, Sequence[float]] = None
@@ -110,7 +117,7 @@ class MeshBackend:
             worker_dilation = list(self.dilation)
         if workload.to is not None:
             workload.to(device)
-        return MeshTrainer(
+        kw = dict(
             num_workers=len(cluster.workers),
             init_params=workload.init,
             loss_and_grad=workload.loss_and_grad,
@@ -123,3 +130,9 @@ class MeshBackend:
             dilation_for_spec=dilation_for_spec,
             device=device,
         )
+        serve = getattr(cluster, "serve", None)
+        if serve is not None:
+            from repro_torch.train.colocate import ColocatedMeshTrainer
+
+            return ColocatedMeshTrainer(serve=serve, **kw)
+        return MeshTrainer(**kw)

@@ -6,8 +6,9 @@ events.  A spec is data: every ``build()`` returns a fresh
 :class:`~repro_torch.het.simulator.ClusterSim` with a fresh jitter stream.
 
 Spot-market churn is lowered into that schedule by :func:`compile_churn`
-and attached with ``ClusterSpec.with_churn``.  Not ported yet: co-located
-serving (``serve=``), which belongs to the serving slice of the port.
+and attached with ``ClusterSpec.with_churn``.  ``serve=`` co-locates a
+continuous-batching decode loop on the measured backend's device
+(:class:`~repro_torch.serve.colocate.ServeSpec`).
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from repro_torch.het.simulator import (
     homogeneous_cluster,
     mixed_gpu_cpu_cluster,
 )
+from repro_torch.serve.colocate import ServeSpec
 
 # ------------------------------------------------------- membership events
 
@@ -281,6 +283,12 @@ class ClusterSpec:
     the mesh trainer's ``remove_worker`` / ``add_worker`` / ``slow_worker``
     / ``reallocate_cost_aware``.
 
+    ``serve`` co-locates a continuous-batching decode loop on the same
+    device (:class:`~repro_torch.serve.colocate.ServeSpec`, DESIGN.md §13):
+    it time-multiplexes the last worker's device (shared mode), decode
+    latency percentiles are reported in the run result, and the batch
+    controller re-equalizes around the decode interference.  Mesh backend
+    + ``sync="bsp"`` only.
     """
 
     workers: list[WorkerSpec]
@@ -289,6 +297,7 @@ class ClusterSpec:
     seed: int = 0
     schedule: list[ClusterEvent] = dataclasses.field(default_factory=list)
     backend: Optional[object] = None   # Backend protocol; None -> SimBackend
+    serve: Optional[ServeSpec] = None  # co-located serving (mesh only)
 
     # ------------------------------------------------------- constructors
 

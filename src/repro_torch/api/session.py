@@ -137,6 +137,19 @@ class MetricCollector(Hook):
             "steps": result["steps"],
             "sim_time": result["sim_time"],
         }
+        serve = result.get("serve")
+        if serve is not None:
+            # the co-located decode loop's report card (DESIGN.md §13/§17)
+            # folded into the run metrics: latency, engine shape, and how
+            # often the SLO policy moved training's device count
+            self.summary["serve"] = {
+                "engine": serve.get("engine", "batcher"),
+                "requests_finished": serve["requests_finished"],
+                "decode_step_ms_p95": serve["decode_step_ms"]["p95"],
+                "queue_delay_p95": serve["queue_delay_steps"]["p95"],
+                "charged_seconds": serve["charged_seconds"],
+                "policy_moves": len(serve["policy_actions"]),
+            }
         result["metrics"] = self.summary
 
 
@@ -256,6 +269,11 @@ class Session:
         }
         if hasattr(trainer, "membership_log"):
             result["membership_log"] = trainer.membership_log
+        if hasattr(trainer, "serve_stats"):
+            # co-located serving (DESIGN.md §13): the run reports both the
+            # training step times (charged with the decode interference)
+            # and the decode side — latency percentiles, queue pressure
+            result["serve"] = trainer.serve_stats()
         for h in self.hooks:
             h.on_run_end(self, result)
         return result

@@ -13,6 +13,11 @@ block j is the port's ``layers.{g * period + j}``, tail block i its
 rec blocks) keeps the reference's (K, C) layout and ``rglru/lam`` is a
 vector.  Both directions are exact: no arithmetic touches a value.
 
+``caches_from_jax`` / ``caches_to_jax`` map decode caches the same way:
+the reference's ``caches["groups"]["b{j}"]`` leaves are (groups, B, ...),
+the port's ``layers.{i}.*`` (B, ...), no leaf transposed, the write index
+int32 on both sides.
+
 ``paper_params_from_jax`` does the same for the paper workloads
 (``models/simple.py``), whose parameters are one flat dict on both sides:
 conv kernels go from the reference's HWIO to PyTorch's OIHW, every other
@@ -118,6 +123,51 @@ def params_to_jax(params: dict[str, torch.Tensor], cfg: ModelConfig) -> dict:
                 continue
             parts = ["tail", f"t{i - n_groups * period}", *parts[2:]]
         _put(tree, parts, np.ascontiguousarray(x))
+    for path, xs in stacked.items():
+        _put(tree, path, np.stack(xs))
+    return tree
+
+
+def caches_from_jax(tree: dict, cfg: ModelConfig,
+                    device: DeviceLike = None) -> dict[str, torch.Tensor]:
+    """Reference decode caches (``init_caches`` / ``apply_lm(caches=)``, jax
+    or numpy leaves) -> the port's flat caches on ``device`` (the card
+    unless the caller asks for the CPU)."""
+    check_supported(cfg)
+    device = resolve_device(device)
+    period, n_groups = _layout(cfg)
+    out = {}
+    for path, x in _flatten(tree).items():
+        if path[0] == "groups":
+            j = _index(path[1], "b", period)
+            for g in range(n_groups):
+                out[".".join(("layers", str(g * period + j)) + path[2:])] = \
+                    torch.from_numpy(np.array(x[g], copy=True))
+        elif path[0] == "tail":
+            i = _index(path[1], "t", cfg.num_layers - n_groups * period)
+            out[".".join(("layers", str(n_groups * period + i)) + path[2:])] \
+                = torch.from_numpy(np.array(x, copy=True))
+        else:
+            raise ValueError(f"unexpected cache leaf {path}")
+    return {k: v.to(device) for k, v in out.items()}
+
+
+def caches_to_jax(caches: dict[str, torch.Tensor], cfg: ModelConfig) -> dict:
+    """The port's flat caches -> the reference's nested tree of numpy
+    arrays (groups stacked on a leading axis, the tail unstacked)."""
+    check_supported(cfg)
+    period, n_groups = _layout(cfg)
+    tree: dict = {}
+    stacked: dict[tuple, list] = {}
+    for name, t in caches.items():
+        parts = name.split(".")
+        i, x = int(parts[1]), t.detach().cpu().numpy()
+        if i < n_groups * period:
+            g, j = divmod(i, period)
+            stacked.setdefault(("groups", f"b{j}", *parts[2:]),
+                               [None] * n_groups)[g] = x
+        else:
+            _put(tree, ["tail", f"t{i - n_groups * period}", *parts[2:]], x)
     for path, xs in stacked.items():
         _put(tree, path, np.stack(xs))
     return tree

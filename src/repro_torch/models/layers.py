@@ -6,8 +6,9 @@ the sub-dict of its own names (:func:`sub`).  Linear weights use PyTorch's
 ``(d_out, d_in)`` layout (``models/convert.py`` maps the reference's
 ``(d_in, d_out)``).
 
-This slice covers training and prefill of the dense family: the KV-cache
-decode path, MLA and MoE are later slices of the port.
+This slice covers training, prefill and the KV-cache decode of the dense
+family (``gqa_attention(..., cache=)``); MLA and MoE are later slices of the
+port.
 """
 
 from __future__ import annotations
@@ -193,15 +194,29 @@ def init_gqa(gen, cfg: ModelConfig) -> Params:
 
 
 def gqa_attention(p: Params, x, cfg: ModelConfig, *, positions=None,
-                  window=None, softcap=None, causal=True, num_valid=None):
-    """GQA/MQA/MHA self-attention over a full sequence (training / prefill).
+                  cache=None, window=None, softcap=None, causal=True,
+                  num_valid=None):
+    """GQA/MQA/MHA self-attention, over a full sequence or one decode step.
 
-    The kernel dispatch rule is the reference's: ``cfg.use_pallas and causal
-    and s % 128 == 0`` takes the flash kernels (``num_valid`` then marks the
-    bucket-padded rows they skip); otherwise the chunked or the plain scores.
-    Whether the kernel or its plain version runs follows the tensors' device.
+    Without ``cache`` (training / prefill) the kernel dispatch rule is the
+    reference's: ``cfg.use_pallas and causal and s % 128 == 0`` takes the
+    flash kernels (``num_valid`` then marks the bucket-padded rows they
+    skip); otherwise the chunked or the plain scores.  Whether the kernel
+    or its plain version runs follows the tensors' device.  Returns ``out``.
+
+    With ``cache`` (``init_attn_cache``: k, v (B, T, Hkv, Dh) and a per-row
+    write index idx (B,)) the one new token's k and v land at ``idx % T``
+    of each row (a ring for windowed caches), the query attends through
+    the plain scores over the slots written so far, ``min(idx + 1, T)``,
+    and every row's idx advances by one.  The cache is not written in
+    place: the step returns new tensors, so a caller holding the old dict
+    still holds the old state.  Returns ``(out, new_cache)``.
     """
     b, s, _ = x.shape
+    if cache is not None and s != 1:
+        raise ValueError(
+            f"a cached attention step takes one token per row, got {s} "
+            f"(every serve path feeds the cache token by token)")
     dh = cfg.head_dim
     nh = p["wq.weight"].shape[0] // dh
     nkv = p["wk.weight"].shape[0] // dh
@@ -212,6 +227,18 @@ def gqa_attention(p: Params, x, cfg: ModelConfig, *, positions=None,
         positions = torch.arange(s, device=x.device)[None, :]
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
+
+    if cache is not None:
+        idx = cache["idx"]
+        t = cache["k"].shape[1]
+        ck = _rowwise_write(cache["k"], k, idx)
+        cv = _rowwise_write(cache["v"], v, idx)
+        # attend to the slots holding positions <= idx (a ring when windowed)
+        n_written = torch.clamp(idx + 1, max=t)                     # (B,)
+        valid = torch.arange(t, device=x.device)[None, :] < n_written[:, None]
+        out = attention_scores(q, ck, cv, valid[:, None, None, :], softcap)
+        new_cache = {"k": ck, "v": cv, "idx": idx + s}
+        return linear(sub(p, "wo"), out.reshape(b, s, nh * dh)), new_cache
 
     if cfg.use_pallas and causal and s % 128 == 0:
         from repro_torch.kernels.flash_attention.ops import attention
@@ -226,6 +253,28 @@ def gqa_attention(p: Params, x, cfg: ModelConfig, *, positions=None,
                 else torch.ones((s, s), dtype=torch.bool, device=x.device))
         out = attention_scores(q, k, v, mask, softcap)
     return linear(sub(p, "wo"), out.reshape(b, s, nh * dh))
+
+
+def init_attn_cache(cfg: ModelConfig, batch: int, length: int, dtype,
+                    device) -> Params:
+    """An empty KV cache of ``length`` slots a row, with per-row write
+    positions (continuous batching decodes rows at different offsets in
+    the same step)."""
+    shape = (batch, length, cfg.num_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+            "idx": torch.zeros((batch,), dtype=torch.int32, device=device)}
+
+
+def _rowwise_write(cache, update, idx):
+    """A copy of ``cache`` (B, T, ...) with row r's one new entry
+    ``update[r, 0]`` at slot ``idx[r] % T`` (the reference's per-row
+    ``dynamic_update_slice``, as a scatter into a fresh tensor)."""
+    t = cache.shape[1]
+    out = cache.clone()
+    rows = torch.arange(cache.shape[0], device=cache.device)
+    out[rows, (idx % t).long()] = update[:, 0].to(cache.dtype)
+    return out
 
 
 # --------------------------------------------------------------------- MLPs

@@ -4,8 +4,9 @@ PyTorch.
 Training and prefill run the linear recurrence over the whole sequence.
 With ``use_pallas`` it runs on the hand-written kernel pair of
 ``repro_torch.kernels.rglru_scan`` (forward and backward), at any width;
-otherwise on :func:`rglru_scan`, the plain associative scan.  The
-single-token decode branch (``cache``) comes with the serving slice.
+otherwise on :func:`rglru_scan`, the plain associative scan.  Decode
+(``cache``) carries the conv context and the hidden state
+(``init_recurrent_cache``); a one-token step is ``h = a h + b x``.
 
 Parameters follow the reference's names: ``in_x.weight``, ``in_gate.weight``
 and ``out.weight`` (d_out, d_in), ``conv_w`` in the reference's (K, W)
@@ -25,10 +26,6 @@ from repro_torch.models.layers import Params, _dense_init, linear, prefixed, sub
 from repro_torch.models.ssm import _causal_conv
 
 _RGLRU_C = 8.0
-
-_DECODE = ("the RG-LRU single-token decode branch (cache) is not ported yet "
-           "(ROADMAP queue 1, slice 6: serving)")
-
 
 def rglru_scan(a, bx, initial=None):
     """h_t = a_t * h_{t-1} + bx_t over axis 1 of a, bx (B, L, W), by
@@ -61,7 +58,8 @@ def init_rglru(gen: torch.Generator, cfg: ModelConfig) -> Params:
 
 def apply_rglru(p: Params, x, state=None, use_pallas: bool = False):
     """x: (B, L, W) -> (y (B, L, W), last hidden (B, W)); state: (B, W)
-    initial hidden or None."""
+    initial hidden or None.  One step from a state (L == 1) is the
+    recurrence itself, on every device."""
     r = torch.sigmoid(linear(sub(p, "w_a"), x).float())   # recurrence gate
     i = torch.sigmoid(linear(sub(p, "w_x"), x).float())   # input gate
     log_a = -_RGLRU_C * F.softplus(p["lam"]) * r           # (B,L,W)
@@ -70,6 +68,9 @@ def apply_rglru(p: Params, x, state=None, use_pallas: bool = False):
     # sqrt(1 - a^2) normalization (Griffin eq. 4); clamp for stability
     mult = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12))
     bx = mult * gated_x
+    if x.shape[1] == 1 and state is not None:
+        h = a[:, 0] * state + bx[:, 0]
+        return h[:, None].to(x.dtype), h
     if use_pallas:
         from repro_torch.kernels.rglru_scan.ops import rglru
 
@@ -94,19 +95,29 @@ def init_recurrent_block(gen: torch.Generator, cfg: ModelConfig) -> Params:
 
 
 def recurrent_block(p: Params, x, cfg: ModelConfig, cache=None):
-    """Griffin recurrent block, the reference's no-cache branch: conv1d +
-    RG-LRU branch, GeLU gate branch.  x: (B, S, D) -> (out (B, S, D), None);
+    """Griffin recurrent block: conv1d + RG-LRU branch, GeLU gate branch.
+    x: (B, S, D) -> (out (B, S, D), new_cache); ``cache`` is
+    {'conv': (B, K-1, W), 'h': (B, W)} or None (then new_cache is None).
     ``num_valid`` never reaches it (padded rows are plain rows here, masked
     by the loss)."""
-    if cache is not None:
-        raise NotImplementedError(_DECODE)
     gate = F.gelu(linear(sub(p, "in_gate"), x), approximate="tanh")
     xb = linear(sub(p, "in_x"), x)
-    xb, _ = _causal_conv(xb, p["conv_w"].to(x.dtype))
+    xb, new_conv = _causal_conv(xb, p["conv_w"].to(x.dtype),
+                                None if cache is None else cache["conv"])
     xb = xb + p["conv_b"].to(x.dtype)
-    y, _ = apply_rglru(sub(p, "rglru"), xb, use_pallas=cfg.use_pallas)
-    return linear(sub(p, "out"), y * gate), None
+    y, new_h = apply_rglru(sub(p, "rglru"), xb,
+                           None if cache is None else cache["h"],
+                           use_pallas=cfg.use_pallas)
+    out = linear(sub(p, "out"), y * gate)
+    return out, None if cache is None else {"conv": new_conv, "h": new_h}
 
 
-def init_recurrent_cache(cfg: ModelConfig, batch: int, dtype):
-    raise NotImplementedError(_DECODE)
+def init_recurrent_cache(cfg: ModelConfig, batch: int, dtype,
+                         device) -> Params:
+    """Zero decode state: the conv's trailing context and the hidden."""
+    return {
+        "conv": torch.zeros((batch, cfg.conv_kernel - 1, cfg.lru_width),
+                            dtype=dtype, device=device),
+        "h": torch.zeros((batch, cfg.lru_width), dtype=torch.float32,
+                         device=device),
+    }

@@ -4,8 +4,8 @@ Training and prefill use the chunked SSD algorithm (quadratic within a
 chunk, linear across chunks).  With ``cfg.use_pallas`` the intra-chunk part
 runs on the hand-written kernel pair of ``repro_torch.kernels.ssd_scan``
 (forward and backward); otherwise on :func:`ssd_chunked`, the plain
-reference.  The single-token decode branch (``cache``) comes with the
-serving slice.
+reference.  Decode (``cache``) runs the single-token recurrence on the
+state ``init_ssd_cache`` makes.
 
 Parameters follow the reference's names: ``in_proj.weight`` (d_out, d_in),
 ``conv_w`` in the reference's (K, C) layout, ``conv_b``, ``a_log``,
@@ -133,14 +133,18 @@ def init_ssd(gen: torch.Generator, cfg: ModelConfig) -> Params:
 
 
 def ssd_block(p: Params, x, cfg: ModelConfig, cache=None):
-    """x: (B, S, D) -> (out (B, S, D), None), the reference's no-cache
-    branch; ``num_valid`` never reaches it (padded rows are plain rows here,
-    masked by the loss)."""
-    if cache is not None:
-        raise NotImplementedError(
-            "the SSD single-token decode branch (cache) is not ported yet "
-            "(ROADMAP queue 1, slice 6: serving)")
+    """x: (B, S, D) -> (out (B, S, D), new_cache).
+
+    Without ``cache``, the chunked scan over the sequence (new_cache None);
+    ``num_valid`` never reaches it (padded rows are plain rows here, masked
+    by the loss).  With ``cache`` ({'conv': (B, K-1, C), 'state':
+    (B, H, P, N)}), one token a row: the conv state carries the causal
+    conv's context, then ``state = state * exp(dt a) + B (x dt)^T`` and
+    ``y = state C``."""
     bsz, s, _ = x.shape
+    if cache is not None and s != 1:
+        raise ValueError(
+            f"the SSD decode step takes one token per row, got {s}")
     di, h, n, g = cfg.d_inner, cfg.ssm_nheads, cfg.ssm_state, cfg.ssm_ngroups
     ph = cfg.ssm_head_dim
 
@@ -149,7 +153,8 @@ def ssd_block(p: Params, x, cfg: ModelConfig, cache=None):
     xbc = zxbcdt[..., di:di + di + 2 * g * n]
     dt_raw = zxbcdt[..., -h:]
 
-    xbc, _ = _causal_conv(xbc, p["conv_w"].to(x.dtype))
+    xbc, new_conv = _causal_conv(xbc, p["conv_w"].to(x.dtype),
+                                 None if cache is None else cache["conv"])
     xbc = F.silu(xbc + p["conv_b"].to(x.dtype))
 
     xs = xbc[..., :di].reshape(bsz, s, h, ph)
@@ -163,6 +168,31 @@ def ssd_block(p: Params, x, cfg: ModelConfig, cache=None):
     a_log_step = dt * -torch.exp(p["a_log"])                   # (B,S,H)
     x_dt = xs.float() * dt[..., None]
 
+    if cache is not None:
+        # single-token recurrence; groups broadcast to heads
+        bh = torch.repeat_interleave(bmat[:, 0], h // g, dim=1).float()
+        ch = torch.repeat_interleave(cmat[:, 0], h // g, dim=1).float()
+        da = torch.exp(a_log_step[:, 0])                       # (B,H)
+        state = (cache["state"] * da[..., None, None]
+                 + torch.einsum("bhn,bhp->bhpn", bh, x_dt[:, 0]))
+        y = torch.einsum("bhpn,bhn->bhp", state, ch)[:, None]
+        new_cache = {"conv": new_conv, "state": state}
+    else:
+        y = _scan(x_dt, a_log_step, bmat, cmat, cfg)[:, :s]
+        new_cache = None
+
+    y = y + xs.float() * p["d_skip"][None, None, :, None]
+    y = y.reshape(bsz, s, di).to(x.dtype)
+    y = apply_norm(sub(p, "gate_norm"), y * F.silu(z), cfg)
+    return linear(sub(p, "out_proj"), y), new_cache
+
+
+def _scan(x_dt, a_log_step, bmat, cmat, cfg: ModelConfig):
+    """The chunked scan over a sequence padded up to whole chunks: the
+    kernel pair with ``cfg.use_pallas`` (B and C per group), else the plain
+    :func:`ssd_chunked` (groups broadcast to heads, the reference's
+    contract).  Returns y (B, L_padded, H, P)."""
+    s, h, g = x_dt.shape[1], x_dt.shape[2], bmat.shape[2]
     pad = (-s) % cfg.ssm_chunk
     if pad:
         x_dt = F.pad(x_dt, (0, 0, 0, 0, 0, pad))
@@ -175,15 +205,21 @@ def ssd_block(p: Params, x, cfg: ModelConfig, cache=None):
         # B and C per group: head i reads group i // (h // g)
         y, _ = ssd_kernel(x_dt, a_log_step, bmat.float(), cmat.float(),
                           chunk=cfg.ssm_chunk)
-    else:
-        # the reference's contract: groups broadcast to heads first
-        y, _ = ssd_chunked(x_dt, a_log_step,
-                           torch.repeat_interleave(bmat, h // g, dim=2).float(),
-                           torch.repeat_interleave(cmat, h // g, dim=2).float(),
-                           cfg.ssm_chunk)
-    y = y[:, :s]
+        return y
+    y, _ = ssd_chunked(x_dt, a_log_step,
+                       torch.repeat_interleave(bmat, h // g, dim=2).float(),
+                       torch.repeat_interleave(cmat, h // g, dim=2).float(),
+                       cfg.ssm_chunk)
+    return y
 
-    y = y + xs.float() * p["d_skip"][None, None, :, None]
-    y = y.reshape(bsz, s, di).to(x.dtype)
-    y = apply_norm(sub(p, "gate_norm"), y * F.silu(z), cfg)
-    return linear(sub(p, "out_proj"), y), None
+
+def init_ssd_cache(cfg: ModelConfig, batch: int, dtype, device) -> Params:
+    """Zero decode state: the conv's trailing context and the SSM state."""
+    conv_dim = cfg.d_inner + 2 * cfg.ssm_ngroups * cfg.ssm_state
+    return {
+        "conv": torch.zeros((batch, cfg.conv_kernel - 1, conv_dim),
+                            dtype=dtype, device=device),
+        "state": torch.zeros((batch, cfg.ssm_nheads, cfg.ssm_head_dim,
+                              cfg.ssm_state), dtype=torch.float32,
+                             device=device),
+    }

@@ -34,10 +34,16 @@ the ``ClusterSim`` surface :class:`repro_torch.train.engine.EventEngine`
 drives, so BSP, ASP and elastic schedules all run through the same event
 queue as the sim backend.
 
+Co-located serving (``repro_torch.train.colocate``) reaches the trainer
+through ``_charge_interference``, which folds measured decode seconds into
+a round's times before the EWMA, and ``slice_devices``.  ``reserve``
+withholds data-axis devices for a dedicated serve slice; one card has none
+to spare, so only 0 is legal.
+
 Not here: the reference's concurrent round (disjoint data-axis slices in
-flight at once, awaiter threads; slice 5b of the port, which needs more than
-one card) and its co-located serving surface (``reserve``, ``set_reserve``,
-``_charge_interference``, ``slice_devices``; slice 6).  Execution records
+flight at once, awaiter threads) and ``set_reserve``, which replans only a
+dedicated serve slice; both are slice 5b of the port, which needs more
+than one card.  Execution records
 and the slice plan are still kept as the reference keeps them, with its
 default switch, for a one-device data axis (a lone worker owns the
 one-device slice), because they decide when a worker's buckets count as
@@ -234,9 +240,17 @@ class MeshTrainer(OuterBatchMixin):
         worker_dilation: Optional[Sequence[float]] = None,
         dilation_for_spec: Optional[Callable[[WorkerSpec], float]] = None,
         device: DeviceLike = None,
+        reserve: int = 0,
     ):
         if num_workers < 1:
             raise ValueError("need at least one worker")
+        if reserve < 0 or EXTENT - reserve < 1:
+            raise ValueError(
+                f"reserving {reserve} of {EXTENT} data-axis "
+                f"devices for serving would leave no training devices — "
+                f"training fully preempted; shrink the serve slice or "
+                f"time-multiplex it (serve mode 'shared')")
+        self.reserve = reserve
         self.cfg = cfg
         self.device = resolve_device(device)
         self.bucket_base = EXTENT * -(-cfg.microbatch // EXTENT)
@@ -432,9 +446,17 @@ class MeshTrainer(OuterBatchMixin):
                 sqnorms.append(self._last_sqnorm)
         return grads, losses, weights, raw_times, sqnorms
 
+    def _charge_interference(self, raw_times: list[float]) -> list[float]:
+        """Hook: the co-located trainer adds measured decode seconds to the
+        worker whose device the serve loop time-multiplexes, so the
+        controller, the engine clock and the step records all see the
+        interference.  Base trainer: no-op."""
+        return raw_times
+
     def bsp_step(self) -> StepRecord:
         pre_batches = list(self.batches)
         grads, losses, weights, raw_times, sqnorms = self._round_sequential()
+        raw_times = self._charge_interference(raw_times)
         smoothed = [self._observe_time(k, t) for k, t in enumerate(raw_times)]
         for k, t in enumerate(raw_times):
             self.time_model.observe(k, self.batches[k], t)
@@ -638,6 +660,15 @@ class MeshTrainer(OuterBatchMixin):
             self.batches = plan
         return self.batches
 
+    def slice_devices(self, start: int, length: int) -> list:
+        """The device of each data-axis row in ``[start, start+length)``:
+        the disaggregated decode engine places one shard a row."""
+        if start < 0 or length < 1 or start + length > EXTENT:
+            raise ValueError(
+                f"rows [{start}, {start + length}) outside the "
+                f"{EXTENT}-row data axis")
+        return [self.device] * length
+
     # ------------------------------------------------------------ checkpoint
 
     def exec_state_dict(self) -> dict:
@@ -647,7 +678,7 @@ class MeshTrainer(OuterBatchMixin):
         for the checkpoint's metadata)."""
         return {
             "extent": EXTENT,
-            "reserve": 0,
+            "reserve": self.reserve,
             "concurrent": self.concurrent,
             "slices": ([list(s) for s in self.slice_plan.slices]
                        if self.slice_plan is not None else None),

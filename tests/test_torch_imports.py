@@ -56,7 +56,9 @@ def test_scan_sees_the_whole_port():
                  "core/control/global_batch/gns.py",
                  "core/control/global_batch/policy.py", "het/traces.py",
                  "het/spot.py", "het/chaos.py", "core/placement.py",
-                 "train/mesh.py"):
+                 "train/mesh.py", "serve/__init__.py", "serve/engine.py",
+                 "serve/scheduler.py", "serve/slots.py", "serve/traffic.py",
+                 "serve/colocate.py", "train/colocate.py"):
         assert must in names
 
 
@@ -140,20 +142,26 @@ def test_kernel_wrappers_take_plain_version_only_for_cpu_tensors():
 
 
 def test_unported_paths_of_the_ssm_slice_raise():
-    """What stays unported after the ssm and hybrid slices raises, naming
-    its slice: the SSD and RG-LRU decode branches (slice 6), the unported
-    configs and the MoE family (slice 7)."""
+    """What stays unported after the serving slice raises, naming its
+    slice: the unported configs and the MoE family (slice 7).  The SSD and
+    RG-LRU decode branches (slice 6) now run: one token through each cache
+    gives finite outputs and caches of the cache's shapes."""
     from repro_torch.configs import get_config
-    from repro_torch.models import init_lm, recurrent_block, reduced, ssd_block
+    from repro_torch.models import (init_caches, init_lm, recurrent_block,
+                                    reduced, ssd_block)
     from repro_torch.models.config import ModelConfig
     from repro_torch.models.layers import sub
 
     cfg = reduced(get_config("mamba2-1.3b"))
     params = sub(init_lm(torch.Generator().manual_seed(0), cfg),
                  "layers.0.ssd")
-    x = torch.zeros(1, 8, cfg.d_model)
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        ssd_block(params, x, cfg, cache={"conv": None, "state": None})
+    cache = sub(init_caches(cfg, 1, 8, device="cpu"), "layers.0")
+    out, new = ssd_block(params, torch.ones(1, 1, cfg.d_model), cfg,
+                         cache=cache)
+    assert out.shape == (1, 1, cfg.d_model) and torch.isfinite(out).all()
+    assert new.keys() == cache.keys()
+    assert all(new[k].shape == cache[k].shape and torch.isfinite(new[k]).all()
+               for k in new)
     with pytest.raises(NotImplementedError, match="not ported"):
         get_config("llama3-8b")
     moe = ModelConfig(name="moe", family="moe", num_layers=2, d_model=64,
@@ -165,6 +173,10 @@ def test_unported_paths_of_the_ssm_slice_raise():
     hybrid = reduced(get_config("recurrentgemma-9b"))
     rec = sub(init_lm(torch.Generator().manual_seed(0), hybrid),
               "layers.0.rec")
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        recurrent_block(rec, torch.zeros(1, 8, hybrid.d_model), hybrid,
-                        cache={"conv": None, "h": None})
+    cache = sub(init_caches(hybrid, 1, 8, device="cpu"), "layers.0")
+    out, new = recurrent_block(rec, torch.ones(1, 1, hybrid.d_model), hybrid,
+                               cache=cache)
+    assert out.shape == (1, 1, hybrid.d_model) and torch.isfinite(out).all()
+    assert new.keys() == cache.keys() == {"conv", "h"}
+    assert all(new[k].shape == cache[k].shape and torch.isfinite(new[k]).all()
+               for k in new)
