@@ -15,12 +15,16 @@ Phases, each of which fails the run (nonzero exit) when it goes wrong:
      num_valid 1 and 2) plus small window/softcap, S<T and non-causal cases,
      the recurrentgemma local blocks' shapes on the hybrid path (B=2,
      S=T=2048, H=16, Hkv=1, D=256, window 2048, num_valid 1 and 2) and where
-     the window bites (B=1, S=T=4096); padded rows must be exact zeros, and
+     the window bites (B=1, S=T=4096), phi-3-vision's (B=2, S=T=1024,
+     H=Hkv=32, D=96, num_valid 1 and 2), grok-1's (H=48, Hkv=8, D=128,
+     softcap 30) and a head_dim the wrapper zero-pads (80); padded rows must be exact zeros, and
      a second flash_bwd_dq and flash_bwd_dkv launch must repeat the first
      bit for bit; kernel and plain version against a float64 attention at
      the training shapes; then kernel, plain and library timings (SDPA's
      memory-efficient forward and backward) at the training shapes and at
      the hybrid path's (B=2, S=T=2048, H=16, Hkv=1, D=256, window 2048),
+     phi-3-vision's and grok-1's (SDPA without the softcap there, a
+     yardstick of another function),
      with the fp32 bound and, for the three flash kernels (tensor cores,
      3xTF32), the 3xTF32 bound; the SSD forward and backward kernels
      against their plain versions at the mamba2-1.3b cell's shapes (B=2,
@@ -134,7 +138,27 @@ Phases, each of which fails the run (nonzero exit) when it goes wrong:
      (d) phase 11(a)'s path with a shared-mode ``ServeSpec`` (the reduced
      gemma-2b decode model), once per engine, COLO_STEPS steps: the decode
      seconds charged to worker 2, sum(b_k) 12, each flash kernel launched
-     2 layers x every gradient call.
+     2 layers x every gradient call;
+ 13. slice 7, phase 4's settings: (a) the vlm main path, phi-3-vision-4.2b
+     at full width (2 layers), seq 1024 = 576 patch positions + 448 text,
+     through the flash kernels at head_dim 96: losses finite, each flash
+     kernel launched 2 layers x microbatches, the weight sum = examples x
+     448 (patch positions carry none), the last step profiled; (b)
+     deepseek-v2-236b at full width, 1 layer, 32 of its 160 routed experts
+     (MLA, top-6, 2 shared, capacity 1.25, aux weight 0.01), seq 1024:
+     each step's aux, dropped-choice share and split logged, sum(b_k) 12,
+     no port kernel launched; (c) llama3-8b (2 layers), yi-9b (2),
+     command-r-plus-104b (1), grok-1-314b (1, its 8 experts), deepseek
+     (1, all 160 experts) and phi-3-vision (2, with its prefix) at full
+     width, random weights: 256 tokens (phi-3: 576 patches + 64) decoded
+     one by one through the caches against ``apply_lm`` over all of them
+     through the kernels, within 12(c)'s tolerance, MoE configs at
+     capacity num_experts / top_k with no choice dropped, each flash
+     kernel launched once a GQA layer in the full pass and none in
+     decode; (d) whisper-medium at full width and depth (24 + 24 layers),
+     1500 encoder frames, decoder seq 448, SLICE7_STEPS BSP steps (no port
+     kernel), then ENCDEC_DECODE decoder tokens through the caches against
+     the full decode pass on the trained parameters.
 
 Each main path runs with every kernel's launch count set to 0 just before
 it and read just after (phase 11(a): before its session is built, whose
@@ -224,6 +248,13 @@ CASES = [
     ("hybrid-nv2", 2, 2048, 2048, 16, 1, 256, True, 2048, None, 2),
     # and at a length where the window bites
     ("local-window", 1, 4096, 4096, 16, 1, 256, True, 2048, None, None),
+    # slice 7: phi-3-vision's attention (head_dim 96, MHA) as phase 13(a)
+    # runs it, grok-1's (GQA 6:1, softcap 30), and a head_dim the wrapper
+    # zero-pads (80 -> 96)
+    ("phi3-nv1", 2, 1024, 1024, 32, 32, 96, True, None, None, 1),
+    ("phi3-nv2", 2, 1024, 1024, 32, 32, 96, True, None, None, 2),
+    ("grok-nv2", 2, 1024, 1024, 48, 8, 128, True, None, 30.0, 2),
+    ("pad-d80", 2, 256, 256, 4, 2, 80, True, 64, 30.0, 1),
 ]
 
 
@@ -357,10 +388,13 @@ def check_fp64() -> dict:
     return res
 
 
-# (label, B, S, T, H, Hkv, D, window): the gemma main path's attention and
-# recurrentgemma's local blocks on the hybrid path
-FLASH_TIMED = [("gemma", 2, 1024, 1024, 8, 1, 256, None),
-               ("hybrid", 2, 2048, 2048, 16, 1, 256, 2048)]
+# (label, B, S, T, H, Hkv, D, window, softcap): the gemma main path's
+# attention, recurrentgemma's local blocks on the hybrid path, and slice 7's
+# phi-3-vision (phase 13(a)) and grok-1 (13(c)) shapes
+FLASH_TIMED = [("gemma", 2, 1024, 1024, 8, 1, 256, None, None),
+               ("hybrid", 2, 2048, 2048, 16, 1, 256, 2048, None),
+               ("phi3", 2, 1024, 1024, 32, 32, 96, None, None),
+               ("grok", 2, 1024, 1024, 48, 8, 128, None, 30.0)]
 
 
 def time_kernels(peak_flops: float, peak_bw: float, peak_tf32: float,
@@ -371,7 +405,9 @@ def time_kernels(peak_flops: float, peak_bw: float, peak_tf32: float,
 
     The library is SDPA's memory-efficient attention in fp32 on (B,H,S,D)
     tensors with the kv head repeated to H (the window, where given, does
-    not bite at these S, so causal SDPA computes the same function).  Its
+    not bite at these S, so causal SDPA computes the same function; SDPA
+    has no softcap, so with one it times the uncapped function, a yardstick
+    only: ``library_same_function`` False and no error against it).  Its
     backward is one call that computes dq, dk and dv together, so both
     backward kernels carry its time; compare it with the sum of theirs.
     Its dk/dv come per query head; summed over each kv head's group they
@@ -382,7 +418,7 @@ def time_kernels(peak_flops: float, peak_bw: float, peak_tf32: float,
     from repro_torch.kernels.flash_attention.ref import visible_mask
 
     dev = torch.device("cuda")
-    label, b, s, t, h, hkv, d, window = shape
+    label, b, s, t, h, hkv, d, window, cap = shape
     if window is not None and window < t:
         raise ValueError(f"{label}: a biting window has no SDPA yardstick")
     g = torch.Generator(device=dev).manual_seed(0)
@@ -391,7 +427,7 @@ def time_kernels(peak_flops: float, peak_bw: float, peak_tf32: float,
     v = torch.randn((b, t, hkv, d), generator=g, device=dev)
     do = torch.randn((b, s, h, d), generator=g, device=dev)
     nv = torch.tensor(b, dtype=torch.int32, device=dev)
-    kw = dict(causal=True, window=window)
+    kw = dict(causal=True, window=window, softcap=cap)
     out, lse = K.flash_fwd(q, k, v, nv, **kw)
     delta = (do * out).sum(-1).transpose(1, 2).contiguous()
     pairs = int(visible_mask(s, t, causal=True, window=window).sum())
@@ -422,7 +458,7 @@ def time_kernels(peak_flops: float, peak_bw: float, peak_tf32: float,
     dq_l, dk_l, dv_l, _ = lib_bwd()
     dq, (dk, dv) = (K.flash_bwd_dq(q, k, v, do, lse, delta, nv, **kw),
                     K.flash_bwd_dkv(q, k, v, do, lse, delta, nv, **kw))
-    report.setdefault("library_vs_kernel", {})[label] = {
+    report.setdefault("library_vs_kernel", {})[label] = None if cap else {
         "out": (out_l.transpose(1, 2) - out).abs().max().item(),
         "dq": (dq_l.transpose(1, 2) - dq).abs().max().item(),
         "dk": (dk_l.unflatten(1, (hkv, rep)).sum(2).transpose(1, 2)
@@ -459,6 +495,7 @@ def time_kernels(peak_flops: float, peak_bw: float, peak_tf32: float,
             "bound_ms": max(t_ops, t_mem),
             "bound_by": "operations" if t_ops >= t_mem else "bytes",
             "flops": flops, "bytes": nbytes,
+            "library_same_function": not cap,
         }
         times[name]["tf32x3_bound_ms"] = max(3 * flops / peak_tf32 * 1e3,
                                              t_mem)
@@ -961,9 +998,10 @@ def main_path(path: str, *, steps: int = STEPS, global_batch=None,
     from repro_torch.data import DataPipeline
     from repro_torch.optim import adam
 
-    arch, layers, seq, own = PATHS[path]
+    arch, layers, seq, own, overrides = (
+        (*PATHS[path], {}) if path in PATHS else SLICE7_PATHS[path])
     frags = {k: frag for k, (frag, _) in own.items()}
-    cfg = get_config(arch, num_layers=layers)
+    cfg = get_config(arch, num_layers=layers, **overrides)
     experiment = Experiment(
         workload=lm_workload(cfg, DataPipeline(cfg, seq_len=seq,
                                                num_workers=workers),
@@ -982,19 +1020,26 @@ def main_path(path: str, *, steps: int = STEPS, global_batch=None,
     torch.cuda.reset_peak_memory_stats()
     session = experiment.session(hooks=[clock, *hooks])
     n_params = sum(p.numel() for p in session.params.values())
-    trainer, ran = session.trainer, []
-    bsp_step = trainer.bsp_step
+    trainer, ran, weight_sums = session.trainer, [], []
+    bsp_step, loss_and_grad = trainer.bsp_step, trainer._loss_and_grad
 
     def recorded_step():
         ran.append(list(trainer.batches))
         return bsp_step()
 
+    def recorded_loss_and_grad(params, batch, mask):
+        metas, grads = loss_and_grad(params, batch, mask)
+        weight_sums.append(metas[1])
+        return metas, grads
+
     trainer.bsp_step = recorded_step
+    trainer._loss_and_grad = recorded_loss_and_grad
     reset_all_launches()
     try:
         out = session.run()
     finally:
         del trainer.bsp_step        # no cycle holds the trainer's tensors
+        trainer._loss_and_grad = loss_and_grad
     counts = all_launches()
     hist = out["history"]
     per_step = [sum(plan_microbatches(b_, MICROBATCH).n_steps for b_ in bs)
@@ -1015,9 +1060,11 @@ def main_path(path: str, *, steps: int = STEPS, global_batch=None,
            "step_wall_ms": clock.ms, "microbatches": micro,
            "launches": counts, "expected_launches": want,
            "microbatches_per_step": per_step,
+           "weight_sum": float(torch.stack(weight_sums).sum()),
+           "examples": sum(sum(bs) for bs in ran),
            "max_memory_allocated": torch.cuda.max_memory_allocated(),
            "profile": clock.profile}
-    del session, experiment, out, trainer, bsp_step
+    del session, experiment, out, trainer, bsp_step, loss_and_grad
     torch.cuda.empty_cache()
     if len(hist) != steps or not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"{path} path: bad losses {losses}")
@@ -2224,6 +2271,32 @@ def check_serve_engines(peak_bw: float) -> dict:
     return res
 
 
+def excess(got, ref) -> dict:
+    """max(|got - ref| - (atol + rtol |ref|)) at DECODE_TOL with the atol
+    raised to DECODE_ULPS x max|ref| where larger: <= 0 passes; with the
+    |ref| and |got - ref| where it is largest, and the same at the
+    reference's atol alone."""
+    atol, rtol = DECODE_TOL
+    plain = ((got - ref).abs() - atol - rtol * ref.abs()).max().item()
+    atol = max(atol, DECODE_ULPS * ref.abs().max().item())
+    e = (got - ref).abs() - atol - rtol * ref.abs()
+    k = int(e.argmax())
+    return {"excess": e.max().item(), "atol": atol,
+            "excess_at_atol_2e-4": plain,
+            "at_abs_ref": ref.flatten()[k].abs().item(),
+            "at_abs_err": (got - ref).flatten()[k].abs().item(),
+            "max_abs_err": (got - ref).abs().max().item()}
+
+
+def log_excess(r: dict) -> str:
+    return ", ".join(
+        f"{k} {v['excess']:.3g} at atol {v['atol']:.3g} "
+        f"({v['excess_at_atol_2e-4']:.3g} at atol 2e-4; there |b| "
+        f"{v['at_abs_ref']:.3g}, |a - b| {v['at_abs_err']:.3g}; max "
+        f"|a - b| {v['max_abs_err']:.3g})"
+        for k, v in r.items() if k.endswith("_path"))
+
+
 def check_decode_vs_kernels() -> dict:
     """Phase 12(c): per model at full width, a prompt decoded token by
     token through the caches against ``apply_lm`` over the whole prompt,
@@ -2237,22 +2310,6 @@ def check_decode_vs_kernels() -> dict:
     from repro_torch.models import apply_lm, init_caches, init_lm
 
     dev = torch.device("cuda")
-
-    def excess(got, ref):
-        """max(|got - ref| - (atol + rtol |ref|)): <= 0 passes; with the
-        |ref| and |got - ref| where it is largest, and the same at the
-        reference's atol alone."""
-        atol, rtol = DECODE_TOL
-        plain = ((got - ref).abs() - atol - rtol * ref.abs()).max().item()
-        atol = max(atol, DECODE_ULPS * ref.abs().max().item())
-        e = (got - ref).abs() - atol - rtol * ref.abs()
-        k = int(e.argmax())
-        return {"excess": e.max().item(), "atol": atol,
-                "excess_at_atol_2e-4": plain,
-                "at_abs_ref": ref.flatten()[k].abs().item(),
-                "at_abs_err": (got - ref).flatten()[k].abs().item(),
-                "max_abs_err": (got - ref).abs().max().item()}
-
     res, failed = {}, []
     for arch, (layers, want) in DECODE_PATHS.items():
         cfg = get_config(arch, num_layers=layers).with_(use_pallas=True)
@@ -2289,13 +2346,8 @@ def check_decode_vs_kernels() -> dict:
         log(f"  (c) {arch}, {layers} layers, {DECODE_SEQ} tokens: full pass "
             f"launches {full_launches} (want {want}), decode launches "
             f"{dec_launches}; max |logit| {r['max_abs_logit']:.1f}; "
-            f"max(|a - b| - (atol + rtol|b|)) (<= 0 passes): " + ", ".join(
-                f"{k} {v['excess']:.3g} at atol {v['atol']:.3g} "
-                f"({v['excess_at_atol_2e-4']:.3g} at atol 2e-4; there |b| "
-                f"{v['at_abs_ref']:.3g}, |a - b| {v['at_abs_err']:.3g}; max "
-                f"|a - b| {v['max_abs_err']:.3g})"
-                for k, v in r.items() if k.endswith("_path"))
-            + f"; decode {seconds:.2f} s")
+            f"max(|a - b| - (atol + rtol|b|)) (<= 0 passes): "
+            + log_excess(r) + f"; decode {seconds:.2f} s")
         del params, full, plain, caches, dec, lg
         torch.cuda.empty_cache()
         if full_launches != want or dec_launches or \
@@ -2381,6 +2433,305 @@ def check_serving(peak_bw: float) -> dict:
     return res
 
 
+# ------------------------------------------------------- phase 13, slice 7
+
+# path -> (arch, layers, seq, the path's kernels as in PATHS, config
+# overrides): (a) the vlm main path, (b) MLA + MoE with 32 of deepseek's 160
+# routed experts (the one cut beyond depth: PERF.md section 4), (d) whisper
+# at full depth with Whisper's 448-token text context
+SLICE7_PATHS = {
+    # MHA: dk/dv come per kv head straight away, no group-sum kernel
+    "phi3v": ("phi-3-vision-4.2b", 2, 1024,
+              {k: (frag[:1], 2) for k, frag in FLASH.items()}, {}),
+    "deepseek": ("deepseek-v2-236b", 1, 1024, {}, {"num_experts": 32}),
+    "whisper": ("whisper-medium", 24, 448, {}, {}),
+}
+SLICE7_STEPS = {"phi3v": 4, "deepseek": 3, "whisper": 3}
+# (c): arch -> (layers, the kernels its full pass launches and their
+# layers, tokens); phi-3-vision's 640 positions are its 576 patches and 64
+# text tokens
+SLICE7_DECODE = {
+    "llama3-8b": (2, {"flash_fwd": 2}, DECODE_SEQ),
+    "yi-9b": (2, {"flash_fwd": 2}, DECODE_SEQ),
+    "command-r-plus-104b": (1, {"flash_fwd": 1}, DECODE_SEQ),
+    "grok-1-314b": (1, {"flash_fwd": 1}, DECODE_SEQ),
+    "deepseek-v2-236b": (1, {}, DECODE_SEQ),
+    "phi-3-vision-4.2b": (2, {"flash_fwd": 2}, 640),
+}
+ENCDEC_DECODE = 64      # (d): decoder tokens through the caches
+
+
+class MoeProbe:
+    """While entered, every ``apply_moe`` call's aux loss and the count of
+    its routed choices that found no capacity (and of all its choices) are
+    kept, as device tensors; ``take()`` returns their sums as floats and
+    starts over."""
+
+    def __enter__(self):
+        from repro_torch.models import layers as L
+
+        self.L, self.route, self.apply = L, L.moe_route, L.apply_moe
+        self.calls, self.pending = [], None
+
+        def route(p, xt, cfg):
+            out = self.route(p, xt, cfg)
+            cap = L.moe_capacity(xt.shape[1], cfg.moe_top_k, cfg.num_experts,
+                                 cfg.moe_capacity_factor)
+            self.pending = ((out[4] >= cap).sum(), out[4].numel())
+            return out
+
+        def apply(p, x, cfg):
+            out, aux = self.apply(p, x, cfg)
+            self.calls.append((aux.detach(), *self.pending))
+            return out, aux
+
+        L.moe_route, L.apply_moe = route, apply
+        return self
+
+    def __exit__(self, *exc):
+        self.L.moe_route, self.L.apply_moe = self.route, self.apply
+
+    def take(self) -> dict:
+        calls, self.calls = self.calls, []
+        if not calls:
+            return {"calls": 0, "aux_mean": None, "dropped": 0, "choices": 0}
+        import torch
+
+        aux = torch.stack([a for a, _, _ in calls]).mean().item()
+        dropped = int(torch.stack([d for _, d, _ in calls]).sum())
+        return {"calls": len(calls), "aux_mean": aux, "dropped": dropped,
+                "choices": sum(n for _, _, n in calls)}
+
+
+def check_vlm_path() -> dict:
+    """13(a): phi-3-vision at full width (2 layers), seq 1024 = 576 patch
+    positions + 448 text, through the flash kernels at head_dim 96."""
+    mp = main_path("phi3v", steps=SLICE7_STEPS["phi3v"])
+    log_path(mp)
+    arch, _, seq, _, _ = SLICE7_PATHS["phi3v"]
+    from repro_torch.configs import get_config
+
+    text = seq - get_config(arch).num_patches
+    mp["text_positions"] = text
+    log(f"  weight sum {mp['weight_sum']} over {mp['examples']} examples "
+        f"(want {mp['examples']} x {text} text positions)")
+    if mp["weight_sum"] != mp["examples"] * text:
+        raise AssertionError(f"vlm weight sum {mp['weight_sum']} counts "
+                             f"patch positions: {mp['examples']} x {text}")
+    return mp
+
+
+def check_moe_path() -> dict:
+    """13(b): deepseek-v2 (MLA + MoE, 32 routed experts, top-6, 2 shared,
+    capacity 1.25, aux weight 0.01) at full width, 1 layer, seq 1024; each
+    step's aux, dropped-choice share and split logged."""
+    from repro_torch.api import Hook
+
+    steps = []
+
+    class PerStep(Hook):
+        def on_step(self, session, rec):
+            st = probe.take()
+            st["batches"] = list(rec.batches)
+            st["dropped_share"] = st["dropped"] / max(st["choices"], 1)
+            steps.append(st)
+            log(f"  step {rec.step}: aux {st['aux_mean']:.5f} (mean of "
+                f"{st['calls']} MoE calls), dropped {st['dropped']} of "
+                f"{st['choices']} choices ({st['dropped_share']:.4f}), split "
+                f"{rec.batches}")
+
+    with MoeProbe() as probe:
+        mp = main_path("deepseek", steps=SLICE7_STEPS["deepseek"],
+                       hooks=[PerStep()])
+    log_path(mp)
+    mp["moe_steps"] = steps
+    bad = [b for b in mp["batches"] if sum(b) != 12]
+    if bad or not all(st["calls"] and math.isfinite(st["aux_mean"])
+                      for st in steps):
+        raise AssertionError(f"MoE path: splits {mp['batches']}, "
+                             f"steps {steps}")
+    return mp
+
+
+def check_slice7_decode() -> dict:
+    """13(c): each config at full width (depth cut), random weights, one
+    row of tokens (phi-3-vision's first 576 positions its patch prefix)
+    decoded one by one through the caches against ``apply_lm`` over all of
+    them through the kernels, within DECODE_TOL as 12(c); MoE configs at
+    capacity factor num_experts / top_k, where no choice may drop; each
+    flash kernel launched once a layer in the full pass, none in decode.
+    Each model is freed before the next; every model runs before the phase
+    fails on any."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import apply_lm, init_caches, init_lm, lm_loss
+
+    dev = torch.device("cuda")
+    res, failed = {}, []
+    for arch, (layers, want, seq) in SLICE7_DECODE.items():
+        cfg = get_config(arch, num_layers=layers).with_(use_pallas=True)
+        if cfg.num_experts:
+            cfg = cfg.with_(moe_capacity_factor=cfg.num_experts
+                            / cfg.moe_top_k)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = init_lm(torch.Generator(device=dev).manual_seed(1), cfg)
+        n_params = sum(p.numel() for p in params.values())
+        g = torch.Generator(device=dev).manual_seed(2)
+        toks = torch.randint(0, cfg.vocab_size, (1, seq), generator=g,
+                             device=dev)
+        prefix = (0.02 * torch.randn((1, cfg.num_patches, cfg.d_model),
+                                     generator=g, device=dev)
+                  if cfg.num_patches else None)
+        with MoeProbe() as probe, torch.no_grad():
+            reset_all_launches()
+            full, _ = apply_lm(params, cfg, toks, prefix_embeds=prefix)
+            torch.cuda.synchronize()
+            full_ms = (time.perf_counter() - t0) * 1e3
+            full_launches = {k: v for k, v in all_launches().items() if v}
+            moe_full = probe.take()
+            reset_all_launches()
+            caches, dec = init_caches(cfg, 1, seq, device=dev), []
+            t1 = time.perf_counter()
+            for i in range(seq):
+                pe = (prefix[:, i:i + 1] if prefix is not None
+                      and i < prefix.shape[1] else None)
+                lg, caches, _ = apply_lm(
+                    params, cfg, toks[:, i:i + 1], caches=caches,
+                    positions=torch.full((1, 1), i, device=dev),
+                    prefix_embeds=pe)
+                dec.append(lg)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t1
+            dec_launches = {k: v for k, v in all_launches().items() if v}
+            moe_dec = probe.take()
+            dec = torch.cat(dec, dim=1)
+            plain, _ = apply_lm(params, cfg.with_(use_pallas=False), toks,
+                                prefix_embeds=prefix)
+            weight_sum = None
+            if prefix is not None:
+                weight_sum = lm_loss(params, cfg, toks, toks,
+                                     torch.ones(1, device=dev),
+                                     prefix_embeds=prefix)[1].item()
+        r = res[arch] = {
+            "layers": layers, "params": n_params, "seq": seq,
+            "full_pass_launches": full_launches,
+            "decode_launches": dec_launches,
+            "decode_vs_kernel_path": excess(dec, full),
+            "decode_vs_plain_path": excess(dec, plain),
+            "kernel_vs_plain_path": excess(full, plain),
+            "max_abs_logit": full.abs().max().item(),
+            "moe_full_pass": moe_full, "moe_decode": moe_dec,
+            "init_and_full_pass_ms": full_ms, "decode_seconds": seconds,
+            "weight_sum": weight_sum,
+            "max_memory_allocated": torch.cuda.max_memory_allocated()}
+        log(f"  (c) {arch}, {layers} layers, {n_params / 1e9:.2f}B params, "
+            f"{seq} tokens: full pass launches {full_launches} (want "
+            f"{want}), decode launches {dec_launches}; MoE dropped "
+            f"{moe_full['dropped']} + {moe_dec['dropped']} of "
+            f"{moe_full['choices']} + {moe_dec['choices']} choices; max "
+            f"|logit| {r['max_abs_logit']:.1f}; max(|a - b| - (atol + "
+            f"rtol|b|)) (<= 0 passes): " + log_excess(r)
+            + f"; decode {seconds:.2f} s; peak "
+            f"{r['max_memory_allocated'] / 2**30:.2f} GiB")
+        del params, full, plain, caches, dec, lg
+        torch.cuda.empty_cache()
+        if full_launches != want or dec_launches or \
+                r["decode_vs_kernel_path"]["excess"] > 0 or \
+                moe_full["dropped"] or moe_dec["dropped"] or \
+                (weight_sum is not None
+                 and weight_sum != seq - cfg.num_patches) or \
+                bool(cfg.num_experts) != bool(moe_full["calls"]):
+            failed.append(arch)
+    if failed:
+        raise AssertionError(f"slice 7 decode ({failed}): {res}")
+    return res
+
+
+def check_encdec_path() -> dict:
+    """13(d): whisper-medium at full width and depth (24 + 24 layers), 1500
+    encoder frames, decoder seq 448, trained on the sim backend (no port
+    kernel: the encdec route never takes them); then ENCDEC_DECODE decoder
+    tokens through ``init_dec_caches`` against the full decode pass on the
+    trained parameters, within DECODE_TOL as 12(c)."""
+    import torch
+    from repro_torch.api import Hook
+    from repro_torch.configs import get_config
+    from repro_torch.models import (encdec_decode, encdec_encode,
+                                    init_dec_caches)
+
+    kept = {}
+
+    class KeepParams(Hook):
+        def on_run_end(self, session, result):
+            kept["params"] = session.params
+
+    mp = main_path("whisper", steps=SLICE7_STEPS["whisper"],
+                   hooks=[KeepParams()])
+    log_path(mp)
+    arch, layers, _, _, _ = SLICE7_PATHS["whisper"]
+    cfg = get_config(arch, num_layers=layers)
+    params, dev = kept.pop("params"), torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(3)
+    frames = 0.02 * torch.randn((1, cfg.encoder_seq, cfg.d_model),
+                                generator=g, device=dev)
+    toks = torch.randint(0, cfg.vocab_size, (1, ENCDEC_DECODE), generator=g,
+                         device=dev)
+    reset_all_launches()
+    with torch.no_grad():
+        enc = encdec_encode(params, cfg, frames)
+        full, _ = encdec_decode(params, cfg, toks, enc)
+        caches, dec = init_dec_caches(cfg, 1, ENCDEC_DECODE, device=dev), []
+        t0 = time.perf_counter()
+        for i in range(ENCDEC_DECODE):
+            lg, caches = encdec_decode(
+                params, cfg, toks[:, i:i + 1], enc, caches=caches,
+                positions=torch.full((1, 1), i, device=dev))
+            dec.append(lg)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    launched = {k: v for k, v in all_launches().items() if v}
+    mp["decode"] = r = {"decode_vs_full_pass": excess(torch.cat(dec, 1),
+                                                      full),
+                        "max_abs_logit": full.abs().max().item(),
+                        "decode_seconds": seconds, "launches": launched}
+    log(f"  decode {ENCDEC_DECODE} tokens against the full decode pass: "
+        f"max |logit| {r['max_abs_logit']:.1f}, excess "
+        f"{r['decode_vs_full_pass']['excess']:.3g} at atol "
+        f"{r['decode_vs_full_pass']['atol']:.3g} (max |a - b| "
+        f"{r['decode_vs_full_pass']['max_abs_err']:.3g}); {seconds:.2f} s")
+    del params, enc, full, caches, dec, lg
+    torch.cuda.empty_cache()
+    if launched or r["decode_vs_full_pass"]["excess"] > 0:
+        raise AssertionError(f"encdec decode: {r}")
+    return mp
+
+
+def check_slice7() -> dict:
+    """Phase 13: (a) the vlm main path, (b) MLA + MoE training, (c) the six
+    configs' decode against the kernel path, (d) encdec."""
+    res, seconds = {}, {}
+    for part, label, check in (
+            ("vlm", "(a) phi-3-vision-4.2b widths, 2 layers, seq 1024 (576 "
+             "patches + 448 text), flash kernels at head_dim 96",
+             check_vlm_path),
+            ("moe", "(b) deepseek-v2-236b widths, 1 layer (MLA, 32 of 160 "
+             "routed experts, top-6, 2 shared), seq 1024", check_moe_path),
+            ("decode", "(c) six configs at full width: decode against the "
+             "kernel path", check_slice7_decode),
+            ("encdec", "(d) whisper-medium, 24 + 24 layers, 1500 frames, "
+             "decoder seq 448", check_encdec_path)):
+        log(f"  {label}")
+        t0 = time.perf_counter()
+        res[part] = check()
+        seconds[part] = time.perf_counter() - t0
+    res["seconds"] = seconds
+    log("  phase 13 seconds: " + ", ".join(f"{k} {v:.1f}"
+                                            for k, v in seconds.items()))
+    return res
+
+
 # --------------------------------------------------------------------- main
 
 
@@ -2438,14 +2789,23 @@ def main() -> int:
     times = time_kernels(peak_flops, peak_bw, peak_tf32, report)
     report["hybrid_times"] = time_kernels(peak_flops, peak_bw, peak_tf32,
                                           report, FLASH_TIMED[1])
+    report["slice7_times"] = {
+        shape[0]: time_kernels(peak_flops, peak_bw, peak_tf32, report, shape)
+        for shape in FLASH_TIMED[2:]}
     torch.cuda.empty_cache()
     log(f"  library vs kernel max abs err: {report['library_vs_kernel']}")
-    for name, tm in report["hybrid_times"].items():
-        log(f"  {name} at the hybrid shapes {FLASH_TIMED[1][1:]}: kernel "
-            f"{tm['ms']:.3f} ms, plain {tm['plain_ms']:.3f} ms, library "
-            f"{tm['library_ms']:.3f} ms, bound {tm['bound_ms']:.4f} ms"
-            + (f", 3xTF32 bound {tm['tf32x3_bound_ms']:.4f} ms"
-               if "tf32x3_bound_ms" in tm else ""))
+    shaped = [("hybrid", FLASH_TIMED[1], report["hybrid_times"])] + [
+        (shape[0], shape, report["slice7_times"][shape[0]])
+        for shape in FLASH_TIMED[2:]]
+    for label, shape, tms in shaped:
+        for name, tm in tms.items():
+            log(f"  {name} at the {label} shapes {shape[1:]}: kernel "
+                f"{tm['ms']:.3f} ms, plain {tm['plain_ms']:.3f} ms, library "
+                f"{tm['library_ms']:.3f} ms"
+                + ("" if tm["library_same_function"] else " (no softcap)")
+                + f", bound {tm['bound_ms']:.4f} ms"
+                + (f", 3xTF32 bound {tm['tf32x3_bound_ms']:.4f} ms"
+                   if "tf32x3_bound_ms" in tm else ""))
     log(f"  SSD kernels vs plain versions (fwd allclose {SSD_FWD_TOL}; bwd max"
         f" err <= {SSD_BWD_TOL} x max|ref|)")
     errs.update(check_ssd_kernels(report))
@@ -2521,6 +2881,10 @@ def main() -> int:
         f"decode against the kernel path on three models; co-located "
         f"serving in shared mode on phase 11's mesh path")
     report["serving"] = check_serving(peak_bw)
+    log("[13] slice 7: the vlm main path (phi-3-vision, flash kernels at "
+        "head_dim 96), MLA + MoE training, decode of six configs at full "
+        "width, encdec at full depth")
+    report["slice7"] = check_slice7()
 
     replaces = {
         "flash_fwd": "src/repro/kernels/flash_attention/kernel.py:280",
@@ -2563,6 +2927,13 @@ def main() -> int:
                if "tf32x3_bound_ms" in tm else {}),
             **({"hybrid_ms": report["hybrid_times"][name]["ms"]}
                if name in report["hybrid_times"] else {}),
+            **({"launches_vlm_path":
+                report["slice7"]["vlm"]["launches"][name],
+                "shapes": {label: {key: tms[name][key] for key in (
+                    "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                    "library_same_function")}
+                    for label, tms in report["slice7_times"].items()}}
+               if name in FLASH else {}),
             **{key: tm[key] for key in ("launch_ms", "per_head_ms",
                                         "per_head_bound_ms") if key in tm},
         })

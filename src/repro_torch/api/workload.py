@@ -167,39 +167,50 @@ def paper_workload(name: str, *, seed: int = 100) -> Workload:
 
 def lm_workload(model_cfg, pipe, *, aux_weight: float = 0.0,
                 use_kernel: bool = False) -> Workload:
-    """Decoder-only LM training (dense, ssm or hybrid family) from a model
-    config + ``DataPipeline``.
+    """Transformer-LM training from a model config + ``DataPipeline``:
+    decoder-only (dense, MoE, ssm, hybrid, vlm) or encoder-decoder.
 
-    ``use_kernel=True`` sets ``use_pallas``.  In the dense family, and in
+    vlm batches carry ``"prefix"`` patch embeddings, whose positions the
+    loss leaves out; encdec batches carry the encoder's frames there.
+    ``aux_weight`` scales an auxiliary loss (the MoE load-balance loss;
+    zero in the other families) by the weight sum, so it stays commensurate
+    with the SUM-convention main loss; the metas report the plain SUM loss.
+
+    ``use_kernel=True`` sets ``use_pallas`` (never for encdec, as in the
+    reference).  In the dense, MoE and vlm families' GQA attention, and in
     the hybrid family's local-attention blocks, it routes attention through
     the flash kernels and derives their ``num_valid`` on the device from the
     very mask the trainer built when it padded the batch: rows the loss
     masks out are exactly the rows the kernels skip (valid rows form a
-    prefix).  In the ssm family it routes the SSD scan's intra-chunk part
-    through the SSD kernel pair, and in the hybrid family's recurrent
-    blocks the RG-LRU scan through the RG-LRU kernel pair, forward and
-    backward.  This differs from the reference on purpose: its SSD and
-    RG-LRU kernel paths have no VJP, so its ``use_kernel=True`` cannot
-    train those families; the port trains the same functions through its
-    kernels.  ``aux_weight`` scales an auxiliary loss by the weight sum;
-    the dense, ssm and hybrid families' aux is zero.
+    prefix).  MLA attention stays plain.  In the ssm family it routes the
+    SSD scan's intra-chunk part through the SSD kernel pair, and in the
+    hybrid family's recurrent blocks the RG-LRU scan through the RG-LRU
+    kernel pair, forward and backward.  This differs from the reference on
+    purpose: its SSD and RG-LRU kernel paths have no VJP, so its
+    ``use_kernel=True`` cannot train those families; the port trains the
+    same functions through its kernels.
     """
-    from repro_torch.models import init_lm, lm_loss
+    from repro_torch.models import encdec_loss, init_model, lm_loss
 
-    if use_kernel:
+    encdec = model_cfg.family == "encdec"
+    if use_kernel and not encdec:
         model_cfg = model_cfg.with_(use_pallas=True)
 
     def loss_fn(params, batch, mask):
+        if encdec:
+            return encdec_loss(params, model_cfg, batch["prefix"],
+                               batch["tokens"], batch["targets"], mask)
         num_valid = None
         if use_kernel:
             row_w = mask if mask.dim() == 1 else mask.amax(-1)
             num_valid = (row_w > 0).sum().to(torch.int32)
         return lm_loss(params, model_cfg, batch["tokens"], batch["targets"],
-                       mask, num_valid=num_valid)
+                       mask, prefix_embeds=batch.get("prefix"),
+                       num_valid=num_valid)
 
     return Workload(
         name=getattr(model_cfg, "name", model_cfg.family),
-        init=lambda gen: init_lm(gen, model_cfg),
+        init=lambda gen: init_model(gen, model_cfg),
         loss_and_grad=sum_loss_adapter(loss_fn, aux_weight),
         next_batch=pipe.next_batch,
         state_dict=pipe.state_dict,

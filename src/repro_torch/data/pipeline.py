@@ -8,11 +8,26 @@ streams from a mixture of Markov-chain "languages" over the vocab.
 seed; `DataPipeline.next_batch` hands them over as int64 tensors on the
 pipeline's device.  Worker k's example stream is indexed by a counter, so a
 controller resize never skips or repeats data.
+
+The vlm and encdec families also get a stub frontend's embeddings under
+``"prefix"``: (n, num_patches, d_model) patches or (n, encoder_seq,
+d_model) audio frames, 0.02 x N(0, 1).  Example i of worker k draws its
+prefix on the pipeline's device from a ``torch.Generator`` seeded with a
+hash of (seed, k, i), a pure function of (seed, worker, example index) like
+its tokens, so the cursors alone resume the prefix stream bit for bit on
+the same kind of device (the CPU's and the card's generators draw
+different numbers).  Drawn on the host with numpy, phi-3-vision's 12
+prefixes a step (576 x 3072 normals each) left an H100 idle 45 % of a
+training step (PERF.md section 6).  The reference draws its prefixes from one ``jax.random`` key
+split per ``next_batch`` call, which depends on the order of all calls;
+the port cannot reproduce those bits in any case, and its tests hand the
+reference's prefixes in.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -76,6 +91,40 @@ class TokenStream:
         return {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
 
 
+PREFIX_STREAM = 99   # tells the prefix draws apart from any other stream
+
+
+def prefix_seeds(seed: int, worker: int, start_index: int,
+                 n: int) -> list[int]:
+    """The generator seed of each example [start_index, start_index + n) of
+    ``worker``'s prefix stream: splitmix64 of (seed, worker, index)."""
+    with np.errstate(over="ignore"):
+        idx = np.arange(start_index, start_index + n, dtype=np.uint64)
+        mixed = _splitmix64(
+            idx * np.uint64(0x9E3779B97F4A7C15)
+            ^ (np.uint64(worker) << np.uint64(40))
+            ^ np.uint64((seed * 2654435761 + PREFIX_STREAM) % (2**63)))
+    return [int(x) for x in mixed]
+
+
+def modality_prefix(cfg: ModelConfig, seed: int, worker: int,
+                    start_index: int, n: int,
+                    device) -> Optional[torch.Tensor]:
+    """Stub frontend embeddings (n, P, d_model) f32 on ``device`` of
+    examples [start_index, start_index + n) of ``worker``'s stream for the
+    vlm (P = num_patches) and encdec (P = encoder_seq) families, else
+    None; each example drawn from its own generator."""
+    p = {"vlm": cfg.num_patches, "encdec": cfg.encoder_seq}.get(cfg.family)
+    if p is None:
+        return None
+    out = torch.empty((n, p, cfg.d_model), dtype=torch.float32,
+                      device=device)
+    for j, s in enumerate(prefix_seeds(seed, worker, start_index, n)):
+        gen = torch.Generator(device=device).manual_seed(s)
+        torch.randn((p, cfg.d_model), generator=gen, out=out[j])
+    return out.mul_(0.02)
+
+
 @dataclasses.dataclass
 class WorkerDataState:
     """Per-worker stream cursor; survives batch-size replanning."""
@@ -89,16 +138,14 @@ class DataPipeline:
 
     ``device``: where batches land; ``None`` means the CUDA card (and raises
     when there is none).  ``SimBackend`` moves the pipeline to its own device
-    through :meth:`to`.  Modality prefixes (vlm / encdec) are later slices.
+    through :meth:`to`.  vlm and encdec batches carry ``"prefix"``
+    (:func:`modality_prefix`).
     """
 
     def __init__(self, cfg: ModelConfig, seq_len: int, num_workers: int,
                  seed: int = 0, device: DeviceLike = None):
-        if cfg.family in ("vlm", "encdec"):
-            raise NotImplementedError(
-                f"modality prefixes for family {cfg.family!r} are not ported "
-                "yet (ROADMAP queue 1, MoE / MLA / encdec slice)")
         self.model_cfg = cfg
+        self.seed = seed
         self.device = resolve_device(device)
         self.stream = TokenStream(LMStreamConfig(
             vocab_size=cfg.vocab_size, seq_len=seq_len, seed=seed))
@@ -110,10 +157,14 @@ class DataPipeline:
 
     def next_batch(self, worker: int, n: int) -> dict:
         st = self.states[worker]
-        batch = self.stream.batch(worker, st.cursor, n)
+        batch = {k: torch.from_numpy(v.astype(np.int64)).to(self.device)
+                 for k, v in self.stream.batch(worker, st.cursor, n).items()}
+        prefix = modality_prefix(self.model_cfg, self.seed, worker,
+                                 st.cursor, n, self.device)
+        if prefix is not None:
+            batch["prefix"] = prefix
         st.cursor += n
-        return {k: torch.from_numpy(v.astype(np.int64)).to(self.device)
-                for k, v in batch.items()}
+        return batch
 
     def state_dict(self):
         return {"cursors": [s.cursor for s in self.states]}

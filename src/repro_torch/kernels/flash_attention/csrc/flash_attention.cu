@@ -32,7 +32,9 @@
 // (q, k) pair reaches are skipped (_tile_visible in the reference);
 // num_valid-padded blocks write zeros and exit.  The 128-lane head_dim
 // padding of the TPU version is not carried over: D is a template parameter
-// over {32, 64, 128, 256}.
+// over {32, 64, 96, 128, 256} (the swizzle works within 32-column groups, so
+// any multiple of 32 tiles), and the Python wrapper zero-pads any other
+// head_dim up to the next of these.
 //
 // All three kernels run their products on the tensor cores, with the
 // helpers of ../../csrc/mma_tf32.cuh:
@@ -767,7 +769,7 @@ extern "C" {
 
 // All pointers are device pointers, 16-byte aligned; num_valid may be null
 // (= all B rows).  Returns 0 on success, a cudaError_t code if a launch was
-// refused, -1 for a head_dim outside {32, 64, 128, 256}, -2 when H > Hkv and
+// refused, -1 for a head_dim outside {32, 64, 96, 128, 256}, -2 when H > Hkv and
 // flash_bwd_dkv was given no (B, T, H, D) scratch for the per-head partials.
 int flash_fwd(const float* q, const float* k, const float* v,
               const int* num_valid, float* out, float* lse, int B, int S,
@@ -779,6 +781,7 @@ int flash_fwd(const float* q, const float* k, const float* v,
   switch (D) {
     case 32: return CALL_FWD(32);
     case 64: return CALL_FWD(64);
+    case 96: return CALL_FWD(96);
     case 128: return CALL_FWD(128);
     case 256: return CALL_FWD(256);
     default: return kBadHeadDim;
@@ -798,6 +801,7 @@ int flash_bwd_dq(const float* q, const float* k, const float* v,
   switch (D) {
     case 32: return CALL_DQ(32);
     case 64: return CALL_DQ(64);
+    case 96: return CALL_DQ(96);
     case 128: return CALL_DQ(128);
     case 256: return CALL_DQ(256);
     default: return kBadHeadDim;
@@ -821,6 +825,7 @@ int flash_bwd_dkv(const float* q, const float* k, const float* v,
   switch (D) {
     case 32: return CALL_DKV(32);
     case 64: return CALL_DKV(64);
+    case 96: return CALL_DKV(96);
     case 128: return CALL_DKV(128);
     case 256: return CALL_DKV(256);
     default: return kBadHeadDim;

@@ -18,6 +18,13 @@ and gradients are exact zeros.  The backward takes the forward's lse and
 kernel computes them per query head (``flash_bwd_dkv_heads_plain`` is that
 step's plain version) into (B,T,H,D) scratch, then sums each group in a
 fixed order.
+
+The kernels are built for the head dims in ``HEAD_DIMS``.  Any other head
+dim up to the largest is zero-padded to the next of them and the outputs
+sliced back, as the reference pads to its 128 lanes; ``sm_scale`` stays
+``1/sqrt(true D)``.  Padding lanes are inert: a zero lane adds nothing to
+q.k, to dO.v or to delta, and the padded columns of out, dq, dk and dv come
+out as P.0 = 0 and are dropped.
 """
 
 from __future__ import annotations
@@ -33,7 +40,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention.ref import visible_mask
 
 NEG_INF = -1e30
-HEAD_DIMS = (32, 64, 128, 256)
+HEAD_DIMS = (32, 64, 96, 128, 256)
 SOURCE = Path(__file__).with_name("csrc") / "flash_attention.cu"
 
 LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
@@ -188,8 +195,9 @@ def _check(name, q, k, v, *rest):
     if k.shape[0] != b or k.shape[3] != d or h % k.shape[2]:
         raise ValueError(f"{name}: q {tuple(q.shape)} does not match "
                          f"k/v {tuple(k.shape)}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"{name}: head_dim {d} not in {HEAD_DIMS}")
+    if d > HEAD_DIMS[-1]:
+        raise ValueError(f"{name}: head_dim {d} is above the largest the "
+                         f"kernels are built for, {HEAD_DIMS[-1]}")
     if b == 0 or s == 0 or k.shape[1] == 0:
         raise ValueError(f"{name}: empty input {tuple(q.shape)}")
 
@@ -214,9 +222,24 @@ def _nv_ptr(num_valid, device):
     return nv.data_ptr(), nv
 
 
-def _geom(q, k, causal, window, softcap):
-    b, s, h, d = q.shape
-    return [b, s, k.shape[1], h, k.shape[2], d, int(bool(causal)),
+def _padded_dim(d: int) -> int:
+    """The smallest instantiated head dim >= d."""
+    return next(dp for dp in HEAD_DIMS if dp >= d)
+
+
+def _pad(xs, dp: int):
+    """Each tensor zero-padded on its last dim to dp (the same tensors when
+    that is their width already)."""
+    return [x if x.shape[-1] == dp else
+            torch.nn.functional.pad(x, (0, dp - x.shape[-1])).contiguous()
+            for x in xs]
+
+
+def _geom(q, k, causal, window, softcap, d):
+    """Launch geometry of padded q, k; ``d`` is the true head dim, which
+    alone sets sm_scale."""
+    b, s, h, dp = q.shape
+    return [b, s, k.shape[1], h, k.shape[2], dp, int(bool(causal)),
             int(window or 0), float(softcap or 0.0), 1.0 / math.sqrt(d),
             torch.cuda.current_stream(q.device).cuda_stream]
 
@@ -233,16 +256,17 @@ def flash_fwd(q, k, v, num_valid=None, *, causal: bool = True,
         return flash_fwd_plain(q, k, v, num_valid, causal=causal,
                                window=window, softcap=softcap)
     _check("flash_fwd", q, k, v)
-    b, s, h, _ = q.shape
+    b, s, h, d = q.shape
+    q, k, v = _pad((q, k, v), _padded_dim(d))
     out = torch.empty_like(q)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     nv, _keep = _nv_ptr(num_valid, q.device)
     rc = _lib().flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), nv,
                           out.data_ptr(), lse.data_ptr(),
-                          *_geom(q, k, causal, window, softcap))
+                          *_geom(q, k, causal, window, softcap, d))
     _raise_on("flash_fwd", rc)
     LAUNCHES["flash_fwd"] += 1
-    return out, lse
+    return (out if out.shape[-1] == d else out[..., :d].contiguous()), lse
 
 
 def flash_bwd_dq(q, k, v, do, lse, delta, num_valid=None, *,
@@ -255,15 +279,17 @@ def flash_bwd_dq(q, k, v, do, lse, delta, num_valid=None, *,
                                   softcap=softcap)
     _check("flash_bwd_dq", q, k, v, do, lse, delta)
     _check_bwd("flash_bwd_dq", q, do, lse, delta)
+    d = q.shape[3]
+    q, k, v, do = _pad((q, k, v, do), _padded_dim(d))
     dq = torch.empty_like(q)
     nv, _keep = _nv_ptr(num_valid, q.device)
     rc = _lib().flash_bwd_dq(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                              do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                              nv, dq.data_ptr(),
-                             *_geom(q, k, causal, window, softcap))
+                             *_geom(q, k, causal, window, softcap, d))
     _raise_on("flash_bwd_dq", rc)
     LAUNCHES["flash_bwd_dq"] += 1
-    return dq
+    return dq if dq.shape[-1] == d else dq[..., :d].contiguous()
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, num_valid=None, *,
@@ -280,12 +306,14 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, num_valid=None, *,
                                    softcap=softcap)
     _check("flash_bwd_dkv", q, k, v, do, lse, delta)
     _check_bwd("flash_bwd_dkv", q, do, lse, delta)
+    d = q.shape[3]
+    q, k, v, do = _pad((q, k, v, do), _padded_dim(d))
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     heads = (None, None)
     if q.shape[2] > k.shape[2]:
-        b, t, h, d = k.shape[0], k.shape[1], q.shape[2], q.shape[3]
-        heads = tuple(torch.empty((b, t, h, d), dtype=torch.float32,
+        b, t, h, dp = k.shape[0], k.shape[1], q.shape[2], q.shape[3]
+        heads = tuple(torch.empty((b, t, h, dp), dtype=torch.float32,
                                   device=q.device) for _ in range(2))
     nv, _keep = _nv_ptr(num_valid, q.device)
     rc = _lib().flash_bwd_dkv(q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -294,7 +322,9 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, num_valid=None, *,
                               dv.data_ptr(),
                               *(x if x is None else x.data_ptr()
                                 for x in heads),
-                              *_geom(q, k, causal, window, softcap))
+                              *_geom(q, k, causal, window, softcap, d))
     _raise_on("flash_bwd_dkv", rc)
     LAUNCHES["flash_bwd_dkv"] += 1
+    if dk.shape[-1] != d:
+        dk, dv = dk[..., :d].contiguous(), dv[..., :d].contiguous()
     return dk, dv

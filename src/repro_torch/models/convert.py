@@ -11,12 +11,19 @@ block j is the port's ``layers.{g * period + j}``, tail block i its
 ``w`` of shape (d_in, d_out), the port PyTorch's ``weight`` of shape
 (d_out, d_in).  Only leaves named ``w`` are transposed: ``conv_w`` (ssm and
 rec blocks) keeps the reference's (K, C) layout and ``rglru/lam`` is a
-vector.  Both directions are exact: no arithmetic touches a value.
+vector; MoE expert weights (``moe/w_gate``, ``w_up``, ``w_down``) are bare
+(E, D, F) / (E, F, D) leaves and stay as they are, while the router's
+``moe/router/w`` (D, E) becomes ``moe.router.weight`` (E, D) like every
+``w``.  The encoder-decoder's ``enc`` and ``dec`` stacks (leading axis the
+layer) become ``enc.{i}.*`` and ``dec.{i}.*``.  Both directions are exact:
+no arithmetic touches a value.
 
 ``caches_from_jax`` / ``caches_to_jax`` map decode caches the same way:
 the reference's ``caches["groups"]["b{j}"]`` leaves are (groups, B, ...),
 the port's ``layers.{i}.*`` (B, ...), no leaf transposed, the write index
-int32 on both sides.
+int32 on both sides (MLA caches hold ``c_kv``, ``k_rope`` and ``idx``).  The
+encoder-decoder's ``init_dec_caches`` leaves are (layers, B, ...), the
+port's ``dec.{i}.*``.
 
 ``paper_params_from_jax`` does the same for the paper workloads
 (``models/simple.py``), whose parameters are one flat dict on both sides:
@@ -65,7 +72,14 @@ def params_from_jax(tree: dict, cfg: ModelConfig,
     period, n_groups = _layout(cfg)
     out = {}
     for path, x in _flatten(tree).items():
-        if path[0] == "groups":
+        if path[0] in _STACKS:
+            n = _stack_depth(cfg, path[0])
+            if x.shape[0] != n:
+                raise ValueError(f"unexpected stacked leaf {path} {x.shape}")
+            for i in range(n):
+                name, t = _leaf_to_torch(path[1:], x[i])
+                out[f"{path[0]}.{i}.{name}"] = t
+        elif path[0] == "groups":
             j = _index(path[1], "b", period)
             if x.shape[0] != n_groups:
                 raise ValueError(f"unexpected stacked leaf {path} {x.shape}")
@@ -113,7 +127,14 @@ def params_to_jax(params: dict[str, torch.Tensor], cfg: ModelConfig) -> dict:
         x = t.detach().cpu().numpy()
         if parts[-1] == "weight":
             x = x.T
-        parts[-1] = _TO_JAX.get(parts[-1], parts[-1])
+        # a LayerNorm's bias sits beside its scale and keeps its name
+        if not (parts[-1] == "bias"
+                and ".".join(parts[:-1] + ["scale"]) in params):
+            parts[-1] = _TO_JAX.get(parts[-1], parts[-1])
+        if parts[0] in _STACKS:
+            stacked.setdefault((parts[0], *parts[2:]), [None] * _stack_depth(
+                cfg, parts[0]))[int(parts[1])] = x
+            continue
         if parts[0] == "layers":
             i = int(parts[1])
             if i < n_groups * period:
@@ -138,7 +159,13 @@ def caches_from_jax(tree: dict, cfg: ModelConfig,
     period, n_groups = _layout(cfg)
     out = {}
     for path, x in _flatten(tree).items():
-        if path[0] == "groups":
+        if cfg.family == "encdec":
+            if len(path) != 1 or x.shape[0] != cfg.num_layers:
+                raise ValueError(f"unexpected cache leaf {path} {x.shape}")
+            for i in range(cfg.num_layers):
+                out[f"dec.{i}.{path[0]}"] = torch.from_numpy(
+                    np.array(x[i], copy=True))
+        elif path[0] == "groups":
             j = _index(path[1], "b", period)
             for g in range(n_groups):
                 out[".".join(("layers", str(g * period + j)) + path[2:])] = \
@@ -162,7 +189,9 @@ def caches_to_jax(caches: dict[str, torch.Tensor], cfg: ModelConfig) -> dict:
     for name, t in caches.items():
         parts = name.split(".")
         i, x = int(parts[1]), t.detach().cpu().numpy()
-        if i < n_groups * period:
+        if parts[0] == "dec":
+            stacked.setdefault((parts[2],), [None] * cfg.num_layers)[i] = x
+        elif i < n_groups * period:
             g, j = divmod(i, period)
             stacked.setdefault(("groups", f"b{j}", *parts[2:]),
                                [None] * n_groups)[g] = x
@@ -171,6 +200,13 @@ def caches_to_jax(caches: dict[str, torch.Tensor], cfg: ModelConfig) -> dict:
     for path, xs in stacked.items():
         _put(tree, path, np.stack(xs))
     return tree
+
+
+_STACKS = ("enc", "dec")   # the encoder-decoder's layer stacks
+
+
+def _stack_depth(cfg: ModelConfig, stack: str) -> int:
+    return cfg.encoder_layers if stack == "enc" else cfg.num_layers
 
 
 def _layout(cfg: ModelConfig) -> tuple[int, int]:

@@ -6,9 +6,11 @@ the sub-dict of its own names (:func:`sub`).  Linear weights use PyTorch's
 ``(d_out, d_in)`` layout (``models/convert.py`` maps the reference's
 ``(d_in, d_out)``).
 
-This slice covers training, prefill and the KV-cache decode of the dense
-family (``gqa_attention(..., cache=)``); MLA and MoE are later slices of the
-port.
+Covered: GQA self- and cross-attention with its KV-cache decode
+(``gqa_attention``), DeepSeek-V2's multi-head latent attention with the
+absorbed-weight decode (``mla_attention``), GShard top-k MoE with one-hot
+dispatch (``apply_moe``), MLPs, norms, RoPE and sinusoidal positions.
+Expert weights are bare (E, D, F) / (E, F, D) tensors, as in the reference.
 """
 
 from __future__ import annotations
@@ -194,9 +196,15 @@ def init_gqa(gen, cfg: ModelConfig) -> Params:
 
 
 def gqa_attention(p: Params, x, cfg: ModelConfig, *, positions=None,
-                  cache=None, window=None, softcap=None, causal=True,
-                  num_valid=None):
-    """GQA/MQA/MHA self-attention, over a full sequence or one decode step.
+                  cache=None, window=None, use_rope=True, cross_kv=None,
+                  softcap=None, causal=True, num_valid=None):
+    """GQA/MQA/MHA self- or cross-attention, over a full sequence or one
+    decode step.  Head counts follow the parameters' shapes.
+
+    ``cross_kv``: precomputed (k, v) (B, T, Hkv, Dh) of an encoder's output;
+    the queries attend to all of it through the plain scores (never the
+    kernels) and ``cache`` is passed through.  ``use_rope=False`` skips RoPE
+    on q and k.
 
     Without ``cache`` (training / prefill) the kernel dispatch rule is the
     reference's: ``cfg.use_pallas and causal and s % 128 == 0`` takes the
@@ -221,12 +229,23 @@ def gqa_attention(p: Params, x, cfg: ModelConfig, *, positions=None,
     nh = p["wq.weight"].shape[0] // dh
     nkv = p["wk.weight"].shape[0] // dh
     q = linear(sub(p, "wq"), x).reshape(b, s, nh, dh)
-    k = linear(sub(p, "wk"), x).reshape(b, s, nkv, dh)
-    v = linear(sub(p, "wv"), x).reshape(b, s, nkv, dh)
     if positions is None:
         positions = torch.arange(s, device=x.device)[None, :]
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+
+    if cross_kv is not None:
+        k, v = cross_kv
+        if use_rope:
+            q = rope(q, positions, cfg.rope_theta)
+        mask = torch.ones((s, k.shape[1]), dtype=torch.bool, device=x.device)
+        out = linear(sub(p, "wo"), attention_scores(
+            q, k, v, mask, softcap).reshape(b, s, nh * dh))
+        return out if cache is None else (out, cache)
+
+    k = linear(sub(p, "wk"), x).reshape(b, s, nkv, dh)
+    v = linear(sub(p, "wv"), x).reshape(b, s, nkv, dh)
+    if use_rope:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
 
     if cache is not None:
         idx = cache["idx"]
@@ -277,6 +296,113 @@ def _rowwise_write(cache, update, idx):
     return out
 
 
+# ----------------------------------------------------------------------- MLA
+
+
+def init_mla(gen, cfg: ModelConfig) -> Params:
+    """DeepSeek-V2 multi-head latent attention."""
+    nh = cfg.num_heads
+    qk = cfg.qk_nope_dim + cfg.qk_rope_dim
+    p = prefixed("wq_a", init_linear(gen, cfg.d_model, cfg.q_lora_rank, cfg,
+                                     False))
+    p.update(prefixed("q_norm", init_norm(cfg, gen.device, cfg.q_lora_rank)))
+    p.update(prefixed("wq_b", init_linear(gen, cfg.q_lora_rank, nh * qk, cfg,
+                                          False)))
+    # kv_a projects to the compressed latent and the shared rotary key
+    p.update(prefixed("wkv_a", init_linear(
+        gen, cfg.d_model, cfg.kv_lora_rank + cfg.qk_rope_dim, cfg, False)))
+    p.update(prefixed("kv_norm", init_norm(cfg, gen.device,
+                                           cfg.kv_lora_rank)))
+    p.update(prefixed("wkv_b", init_linear(
+        gen, cfg.kv_lora_rank, nh * (cfg.qk_nope_dim + cfg.v_head_dim), cfg,
+        False)))
+    p.update(prefixed("wo", init_linear(gen, nh * cfg.v_head_dim, cfg.d_model,
+                                        cfg, False)))
+    return p
+
+
+def mla_attention(p: Params, x, cfg: ModelConfig, *, positions=None,
+                  cache=None, window=None):
+    """MLA: queries from a low-rank latent, keys and values from a
+    compressed KV latent plus one shared rotary key.
+
+    Without ``cache`` the latent is expanded to per-head K/V and attends
+    through the plain scores (causal, ``window``); returns ``out``.  With
+    ``cache`` (``init_mla_cache``: c_kv (B, T, rank), k_rope (B, T, 1, dr),
+    idx (B,)) one token a row is written at ``idx % T`` and the query
+    attends in the latent space: ``wkv_b`` is folded into the query and
+    output sides (absorbed weights), so the cache is never expanded.
+    Returns ``(out, new_cache)``; the cache given is left as it was.
+    """
+    b, s, _ = x.shape
+    nh = cfg.num_heads
+    dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    rank = cfg.kv_lora_rank
+    if positions is None:
+        positions = torch.arange(s, device=x.device)[None, :]
+
+    q = linear(sub(p, "wq_b"), apply_norm(sub(p, "q_norm"),
+                                          linear(sub(p, "wq_a"), x), cfg))
+    q = q.reshape(b, s, nh, dn + dr)
+    q_nope, q_rope = q[..., :dn], rope(q[..., dn:], positions, cfg.rope_theta)
+
+    kv_a = linear(sub(p, "wkv_a"), x)
+    c_kv = apply_norm(sub(p, "kv_norm"), kv_a[..., :rank], cfg)
+    k_rope = rope(kv_a[..., rank:].reshape(b, s, 1, dr), positions,
+                  cfg.rope_theta)
+
+    if cache is not None:
+        if s != 1:
+            raise ValueError(f"a cached MLA step takes one token per row, "
+                             f"got {s}")
+        idx = cache["idx"]
+        t = cache["c_kv"].shape[1]
+        # wkv_b's weight is (nh * (dn + dv), rank): per head, dn rows of
+        # W_UK then dv rows of W_UV
+        w_b = p["wkv_b.weight"].reshape(nh, dn + dv, rank)
+        w_uk, w_uv = w_b[:, :dn], w_b[:, dn:]
+        q_eff = torch.einsum("bshd,hdr->bshr", q_nope.float(),
+                             w_uk.float()).to(x.dtype)
+        c_all = _rowwise_write(cache["c_kv"], c_kv, idx)
+        kr_all = _rowwise_write(cache["k_rope"], k_rope, idx)
+        n_written = torch.clamp(idx + 1, max=t)                     # (B,)
+        mask = torch.arange(t, device=x.device)[None, :] < n_written[:, None]
+        logits = (torch.einsum("bshr,btr->bhst", q_eff.float(),
+                               c_all.float())
+                  + torch.einsum("bshd,btd->bhst", q_rope.float(),
+                                 kr_all[:, :, 0].float()))
+        logits = logits * (1.0 / math.sqrt(dn + dr))
+        logits = torch.where(mask[:, None, None, :], logits,
+                             torch.full_like(logits, -1e30))
+        probs = torch.softmax(logits, dim=-1)
+        out_lat = torch.einsum("bhst,btr->bshr", probs,
+                               c_all.float()).to(x.dtype)
+        out = torch.einsum("bshr,hdr->bshd", out_lat.float(),
+                           w_uv.float()).to(x.dtype)
+        new_cache = {"c_kv": c_all, "k_rope": kr_all, "idx": idx + s}
+        return linear(sub(p, "wo"), out.reshape(b, s, nh * dv)), new_cache
+
+    # full sequence: the expanded (fewest-flops) form
+    kv = linear(sub(p, "wkv_b"), c_kv).reshape(b, s, nh, dn + dv)
+    k = torch.cat([kv[..., :dn], k_rope.expand(b, s, nh, dr).to(kv.dtype)],
+                  dim=-1)
+    out = attention_scores(torch.cat([q_nope, q_rope], dim=-1), k,
+                           kv[..., dn:],
+                           causal_mask(s, s, 0, window, device=x.device))
+    return linear(sub(p, "wo"), out.reshape(b, s, nh * dv))
+
+
+def init_mla_cache(cfg: ModelConfig, batch: int, length: int, dtype,
+                   device) -> Params:
+    """An empty latent cache of ``length`` slots a row, with per-row write
+    positions."""
+    return {"c_kv": torch.zeros((batch, length, cfg.kv_lora_rank),
+                                dtype=dtype, device=device),
+            "k_rope": torch.zeros((batch, length, 1, cfg.qk_rope_dim),
+                                  dtype=dtype, device=device),
+            "idx": torch.zeros((batch,), dtype=torch.int32, device=device)}
+
+
 # --------------------------------------------------------------------- MLPs
 
 
@@ -300,6 +426,96 @@ def apply_mlp(p: Params, x, cfg: ModelConfig):
         return linear(sub(p, "w_down"), act * linear(sub(p, "w_up"), x))
     return linear(sub(p, "w_down"),
                   F.gelu(linear(sub(p, "w_up"), x), approximate="tanh"))
+
+
+# ----------------------------------------------------------------------- MoE
+
+
+def init_moe(gen, cfg: ModelConfig) -> Params:
+    """Router (E, D) fp32 for ``F.linear``, expert weights as bare (E, D, F)
+    / (E, F, D) tensors, and the shared experts as one SwiGLU MLP of width
+    ``moe_d_ff * num_shared_experts``."""
+    e, d, f = cfg.num_experts, cfg.d_model, cfg.moe_d_ff or cfg.d_ff
+    p = {"router.weight": _dense_init(gen, (e, d), torch.float32),
+         "w_gate": _dense_init(gen, (e, d, f), cfg.p_dtype, 1 / math.sqrt(d)),
+         "w_up": _dense_init(gen, (e, d, f), cfg.p_dtype, 1 / math.sqrt(d)),
+         "w_down": _dense_init(gen, (e, f, d), cfg.p_dtype,
+                               1 / math.sqrt(f))}
+    if cfg.num_shared_experts:
+        p.update(prefixed("shared", init_mlp(
+            gen, cfg.with_(mlp="swiglu"), d_ff=f * cfg.num_shared_experts)))
+    return p
+
+
+def moe_capacity(group_size: int, top_k: int, num_experts: int,
+                 factor: float) -> int:
+    return max(int(math.ceil(group_size * top_k * factor / num_experts)), 1)
+
+
+def moe_route(p: Params, xt, cfg: ModelConfig):
+    """The router of :func:`apply_moe` on grouped tokens xt (ng, g, D) ->
+    (probs (ng, g, E) f32, top-k indices (ng, g, k), renormalised top-k
+    probabilities, their one-hot (ng, g, k, E), and each choice's position
+    in its expert's buffer (ng, g, k)).
+
+    Top-k keeps the lower expert index on a tie, as ``jax.lax.top_k``
+    does (padded tokens route with exactly uniform probabilities)."""
+    k = cfg.moe_top_k
+    probs = torch.softmax(F.linear(xt.float(), p["router.weight"].float()),
+                          dim=-1)
+    topv, topi = torch.sort(probs, dim=-1, descending=True, stable=True)
+    topv, topi = topv[..., :k], topi[..., :k]
+    topv = topv / topv.sum(-1, keepdim=True).clamp_min(1e-9)
+    ng, g = xt.shape[:2]
+    sel = F.one_hot(topi, cfg.num_experts).float()          # (ng, g, k, e)
+    # position of each (token, choice) in its expert's buffer: the count of
+    # earlier choices of that expert, tokens in order, choices within one
+    sel_flat = sel.reshape(ng, g * k, -1)
+    pos = ((torch.cumsum(sel_flat, dim=1) - sel_flat) * sel_flat).sum(-1)
+    return probs, topi, topv, sel, pos.reshape(ng, g, k)
+
+
+def apply_moe(p: Params, x, cfg: ModelConfig):
+    """GShard-style top-k MoE with one-hot dispatch, as the reference.
+
+    x (B, S, D); tokens go in groups of ``moe_group_size`` (the last one
+    zero-padded), each group dispatching to per-expert buffers of
+    ``moe_capacity`` slots by one-hot einsums; a choice past its expert's
+    capacity is dropped (gate 0).  Returns (out, Switch aux loss).
+    """
+    b, s, d = x.shape
+    e = cfg.num_experts
+    g = min(cfg.moe_group_size, b * s)
+    tokens = x.reshape(-1, d)
+    t = tokens.shape[0]
+    if (-t) % g:
+        tokens = F.pad(tokens, (0, 0, 0, (-t) % g))
+    xt = tokens.reshape(-1, g, d)
+
+    probs, _, topv, sel, pos = moe_route(p, xt, cfg)
+    cap = moe_capacity(g, cfg.moe_top_k, e, cfg.moe_capacity_factor)
+    fits = pos < cap
+    gate = topv * fits                                       # dropped: 0
+    # a position past capacity has no slot: an all-zero one-hot row
+    pos_oh = (pos[..., None] == torch.arange(cap, device=x.device)).float()
+    # a token picks an expert at most once, so each (e, c) sum over the
+    # choices has one term: both are exact, whatever the order
+    dispatch = torch.einsum("ngke,ngkc->ngec", sel * fits[..., None], pos_oh)
+    combine = torch.einsum("ngke,ngkc->ngec", sel * gate[..., None], pos_oh)
+
+    dt = xt.dtype
+    xin = torch.einsum("ngd,ngec->necd", xt, dispatch.to(dt))
+    act = F.silu(torch.einsum("necd,edf->necf", xin, p["w_gate"].to(dt)))
+    up = torch.einsum("necd,edf->necf", xin, p["w_up"].to(dt))
+    xout = torch.einsum("necf,efd->necd", act * up, p["w_down"].to(dt))
+    out = torch.einsum("necd,ngec->ngd", xout, combine.to(dt))
+    out = out.reshape(-1, d)[:t].reshape(b, s, d)
+
+    # Switch-style load-balance loss
+    aux = (probs.mean(1) * sel.sum(2).mean(1)).sum(-1).mean() * e
+    if cfg.num_shared_experts:
+        out = out + apply_mlp(sub(p, "shared"), x, cfg.with_(mlp="swiglu"))
+    return out, aux
 
 
 # ----------------------------------------------------------- embeddings etc.
@@ -355,3 +571,17 @@ class _TokenXent(torch.autograd.Function):
 def token_xent(logits, targets):
     """logits (B,S,V), targets (B,S) int64 -> per-token nll (B,S) f32."""
     return _TokenXent.apply(logits, targets)
+
+
+def sinusoidal_positions(length: int, d: int, device=None):
+    return sinusoidal_at(torch.arange(length, device=device), d)
+
+
+def sinusoidal_at(positions, d: int):
+    """Sinusoidal encoding at ``positions`` (any shape; no table, so decode
+    positions may be arbitrarily large) -> positions.shape + (d,) f32."""
+    pos = positions[..., None].float()
+    dim = torch.arange(0, d, 2, device=positions.device).float()
+    ang = pos / torch.pow(torch.tensor(10000.0, device=positions.device),
+                          dim / d)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)

@@ -1,5 +1,6 @@
-"""Decoder-only LM, dense, ssm and hybrid families (the reference's
-``models/transformer.py``).
+"""Decoder-only LM: dense, MoE, ssm, hybrid and vlm families (the
+reference's ``models/transformer.py``; the encoder-decoder is
+``models/encdec.py``).
 
 The reference stacks the layers' parameters and scans over them (over
 groups of the block pattern for the hybrid family, with an unrolled tail);
@@ -7,8 +8,9 @@ PyTorch runs eagerly, so the layers are a Python loop over ``layers.{i}.*``
 entries of a flat parameter dict, layer i of kind ``pattern[i % period]``.
 Decode caches follow the same layout: a flat dict of ``layers.{i}.*``
 tensors (``init_caches``), the batch on dim 0 of every one, where the
-reference stacks them per group as ``(groups, B, ...)``.  MoE, MLA, encdec
-and VLM families are later slices of the port.
+reference stacks them per group as ``(groups, B, ...)``.  A block's
+attention is GQA or MLA (``cfg.attention``), its MLP dense or MoE; the aux
+loss (MoE load balance) is summed over the blocks.
 """
 
 from __future__ import annotations
@@ -23,23 +25,9 @@ from repro_torch.models.config import ModelConfig
 
 Params = L.Params
 
-_LATER = {
-    "moe": "slice 7: MoE / MLA / encdec / vlm",
-    "encdec": "slice 7: MoE / MLA / encdec / vlm",
-    "vlm": "slice 7: MoE / MLA / encdec / vlm",
-}
-
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for what this slice of the port does not run."""
-    if cfg.family in _LATER:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP queue 1, "
-            f"{_LATER[cfg.family]}); ported: dense GQA, ssm and hybrid")
-    if cfg.family in ("dense", "hybrid") and cfg.attention != "gqa":
-        raise NotImplementedError(
-            f"attention {cfg.attention!r} is not ported yet (ROADMAP queue 1, "
-            f"{_LATER['moe']}); ported: dense GQA, ssm and hybrid")
+    """Raise for what the port does not run yet."""
     if cfg.remat:
         raise NotImplementedError(
             "activation checkpointing (remat) is not ported yet (ROADMAP "
@@ -61,41 +49,56 @@ def init_block(gen, cfg: ModelConfig, kind: str) -> Params:
         p.update(L.prefixed("ssd", S.init_ssd(gen, cfg)))
         return p
     if kind in ("attn", "local"):
-        p.update(L.prefixed("attn", L.init_gqa(gen, cfg)))
+        init_attn = L.init_mla if cfg.attention == "mla" else L.init_gqa
+        p.update(L.prefixed("attn", init_attn(gen, cfg)))
     elif kind == "rec":
         p.update(L.prefixed("rec", R.init_recurrent_block(gen, cfg)))
     else:
         raise ValueError(f"unknown block kind {kind}")
     p.update(L.prefixed("norm2", L.init_norm(cfg, gen.device)))
-    p.update(L.prefixed("mlp", L.init_mlp(gen, cfg)))
+    if cfg.num_experts and cfg.mlp == "moe":
+        p.update(L.prefixed("moe", L.init_moe(gen, cfg)))
+    else:
+        p.update(L.prefixed("mlp", L.init_mlp(gen, cfg)))
     return p
 
 
 def apply_block(p: Params, x, cfg: ModelConfig, kind: str, positions,
                 num_valid=None, cache=None):
-    """One block -> (x, new_cache); ``num_valid`` reaches the attention
-    kernels only (ssd and rec blocks ignore it, as in the reference); local
-    blocks attend over ``cfg.local_window``.  ``cache`` is the block's
-    decode state (``init_block_cache``), None for a full sequence (then
-    new_cache is None)."""
+    """One block -> (x, new_cache, aux); ``num_valid`` reaches the GQA
+    attention kernels only (ssd and rec blocks ignore it, as in the
+    reference, and MLA keeps the loss-mask semantics for padded rows: the
+    kernel path is GQA only); local blocks attend over ``cfg.local_window``.
+    ``cache`` is the block's decode state (``init_block_cache``), None for a
+    full sequence (then new_cache is None).  aux is the MoE block's
+    load-balance loss, else zero."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = L.apply_norm(L.sub(p, "norm1"), x, cfg)
     if kind == "ssd":
         out, new_cache = S.ssd_block(L.sub(p, "ssd"), h, cfg, cache)
-        return x + out, new_cache
+        return x + out, new_cache, aux
     if kind == "rec":
         out, new_cache = R.recurrent_block(L.sub(p, "rec"), h, cfg, cache)
     else:
         window = cfg.local_window if kind == "local" else cfg.window
-        out = L.gqa_attention(L.sub(p, "attn"), h, cfg, positions=positions,
-                              cache=cache, window=window,
-                              softcap=cfg.attn_softcap, num_valid=num_valid)
+        if cfg.attention == "mla":
+            out = L.mla_attention(L.sub(p, "attn"), h, cfg,
+                                  positions=positions, cache=cache,
+                                  window=window)
+        else:
+            out = L.gqa_attention(L.sub(p, "attn"), h, cfg,
+                                  positions=positions, cache=cache,
+                                  window=window, softcap=cfg.attn_softcap,
+                                  num_valid=num_valid)
         new_cache = None
         if cache is not None:
             out, new_cache = out
     x = x + out
-    return x + L.apply_mlp(L.sub(p, "mlp"),
-                           L.apply_norm(L.sub(p, "norm2"), x, cfg),
-                           cfg), new_cache
+    h = L.apply_norm(L.sub(p, "norm2"), x, cfg)
+    if cfg.num_experts and cfg.mlp == "moe":
+        y, aux = L.apply_moe(L.sub(p, "moe"), h, cfg)
+        return x + y, new_cache, aux
+    return x + L.apply_mlp(L.sub(p, "mlp"), h, cfg), new_cache, aux
 
 
 def init_block_cache(cfg: ModelConfig, kind: str, batch: int, length: int,
@@ -106,6 +109,8 @@ def init_block_cache(cfg: ModelConfig, kind: str, batch: int, length: int,
     if kind in ("attn", "local"):
         eff = min(length, cfg.local_window) if kind == "local" else (
             min(length, cfg.window) if cfg.window else length)
+        if cfg.attention == "mla":
+            return L.init_mla_cache(cfg, batch, eff, dtype, device)
         return L.init_attn_cache(cfg, batch, eff, dtype, device)
     if kind == "rec":
         return R.init_recurrent_cache(cfg, batch, dtype, device)
@@ -144,10 +149,12 @@ def init_caches(cfg: ModelConfig, batch: int, length: int, dtype=None,
     return caches
 
 
-def apply_lm(params: Params, cfg: ModelConfig, tokens, *, positions=None,
-             num_valid=None, caches=None):
+def apply_lm(params: Params, cfg: ModelConfig, tokens, *, prefix_embeds=None,
+             positions=None, num_valid=None, caches=None):
     """tokens (B,S) int64 -> (logits (B,S,V), aux_loss scalar).
 
+    prefix_embeds: optional (B, P, D) patch embeddings (the vlm family's
+    stub frontend) overwriting the first P < S positions.
     num_valid: optional 0-d int32 valid-row count for bucket-padded batches,
     threaded to the attention kernels.
     caches: decode caches from :func:`init_caches` (S must be 1); then the
@@ -160,32 +167,62 @@ def apply_lm(params: Params, cfg: ModelConfig, tokens, *, positions=None,
         raise ValueError(f"decode with caches takes one token per row, "
                          f"got {s}")
     x = L.embed(L.sub(params, "embed"), tokens, cfg)
+    if prefix_embeds is not None:
+        p = prefix_embeds.shape[1]
+        x = torch.cat([prefix_embeds.to(x.dtype), x[:, p:]], dim=1)
     if positions is None:
         positions = torch.arange(s, device=tokens.device)[None, :]
     new_caches = {}
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.num_layers):
         name = f"layers.{i}"
-        x, nc = apply_block(L.sub(params, name), x, cfg,
-                            pattern[i % len(pattern)], positions, num_valid,
-                            None if caches is None else L.sub(caches, name))
+        x, nc, a = apply_block(L.sub(params, name), x, cfg,
+                               pattern[i % len(pattern)], positions,
+                               num_valid,
+                               None if caches is None else L.sub(caches, name))
+        aux = aux + a
         if caches is not None:
             new_caches.update(L.prefixed(name, nc))
     x = L.apply_norm(L.sub(params, "final_norm"), x, cfg)
     logits = L.unembed(L.sub(params, "embed"), L.sub(params, "lm_head"), x,
                        cfg)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return (logits, aux) if caches is None else (logits, new_caches, aux)
 
 
 def lm_loss(params: Params, cfg: ModelConfig, tokens, targets, mask,
-            num_valid=None):
+            prefix_embeds=None, num_valid=None):
     """Per-example-weighted cross-entropy.
 
     mask: (B,) example weights or (B, S) token weights.  num_valid must agree
-    with mask (rows >= num_valid carry zero weight).
+    with mask (rows >= num_valid carry zero weight).  With prefix_embeds
+    the P patch positions carry zero weight.
     Returns (weighted loss sum, weight sum, aux).
     """
-    logits, aux = apply_lm(params, cfg, tokens, num_valid=num_valid)
+    logits, aux = apply_lm(params, cfg, tokens, prefix_embeds=prefix_embeds,
+                           num_valid=num_valid)
     nll = L.token_xent(logits, targets)
     tok_w = mask[:, None].expand_as(nll) if mask.dim() == 1 else mask
+    if prefix_embeds is not None:  # no loss on the patch positions
+        tok_w = tok_w.clone()
+        tok_w[:, :prefix_embeds.shape[1]] = 0.0
     return (nll * tok_w).sum(), tok_w.sum(), aux
+
+
+def init_model(gen: torch.Generator, cfg: ModelConfig) -> Params:
+    """``init_encdec`` for the encdec family, else ``init_lm``."""
+    if cfg.family == "encdec":
+        from repro_torch.models.encdec import init_encdec
+
+        return init_encdec(gen, cfg)
+    return init_lm(gen, cfg)
+
+
+def param_count(cfg: ModelConfig) -> int:
+    """Parameter count of ``cfg``'s model, from tensors that carry shapes
+    and no storage (nothing is allocated, so a 314B config counts on any
+    host)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with FakeTensorMode():
+        params = init_model(torch.Generator(), cfg)
+    return sum(p.numel() for p in params.values())

@@ -169,13 +169,26 @@ def cuda_device():
 
 
 # on the card only: the gemma main path's shape, and ragged shapes whose S
-# and T are no multiples of the kernels' 32- and 64-row tiles
+# and T are no multiples of the kernels' 32- and 64-row tiles; head_dim 96
+# (phi-3-vision; the emulator's cases of tools/cuda_emu/run_flash.py at their
+# shapes, then phi-3's own) and head dims the wrapper zero-pads (80 -> 96,
+# 48 -> 64, 200 -> 256)
 CUDA_CASES = [
     (2, 1024, 1024, 8, 1, 256, True, None, None, 1),
     (2, 200, 200, 4, 2, 64, True, None, None, 1),
     (1, 77, 150, 4, 1, 128, True, 40, 20.0, None),
+    (2, 70, 70, 4, 2, 96, True, None, None, 1),
+    (1, 96, 96, 4, 1, 96, True, 20, 30.0, None),
+    (1, 37, 70, 2, 2, 96, True, None, None, None),
+    (2, 1024, 1024, 8, 8, 96, True, None, None, 1),
+    (2, 130, 130, 4, 2, 80, True, None, None, 1),
+    (1, 128, 128, 4, 1, 48, True, 64, 30.0, None),
+    (2, 96, 96, 2, 1, 200, True, None, None, 1),
 ]
-CUDA_IDS = ["gemma-main", "ragged-200", "ragged-s-lt-t-window-softcap"]
+CUDA_IDS = ["gemma-main", "ragged-200", "ragged-s-lt-t-window-softcap",
+            "d96-gqa-ragged", "d96-window-softcap", "d96-mha-s-lt-t",
+            "d96-phi3", "d80-padded-ragged", "d48-padded-window-softcap",
+            "d200-padded-ragged"]
 
 
 @pytest.mark.cuda
@@ -191,12 +204,16 @@ def test_cuda_kernels_match_plain_versions(case, cuda_device):
     out_p, lse_p = flash_fwd_plain(q, k, v, nvt, **kw)
     torch.testing.assert_close(out, out_p, atol=1e-4, rtol=1e-4)
     torch.testing.assert_close(lse, lse_p, atol=1e-4, rtol=1e-4)
+    assert out.shape == q.shape and out.is_contiguous()
+    if nv is not None:
+        assert (out[nv:] == 0).all() and (lse[nv:] == 0).all()
     delta = (do * out_p).sum(-1).transpose(1, 2).contiguous()
     got = [flash_bwd_dq(q, k, v, do, lse_p, delta, nvt, **kw),
            *flash_bwd_dkv(q, k, v, do, lse_p, delta, nvt, **kw)]
     want = [flash_bwd_dq_plain(q, k, v, do, lse_p, delta, nvt, **kw),
             *flash_bwd_dkv_plain(q, k, v, do, lse_p, delta, nvt, **kw)]
     for a, b in zip(got, want):
+        assert a.shape == b.shape and a.is_contiguous()
         assert (a - b).abs().max() <= 1e-3 * b.abs().max()
         if nv is not None:
             assert (a[nv:] == 0).all()

@@ -58,7 +58,10 @@ def test_scan_sees_the_whole_port():
                  "het/spot.py", "het/chaos.py", "core/placement.py",
                  "train/mesh.py", "serve/__init__.py", "serve/engine.py",
                  "serve/scheduler.py", "serve/slots.py", "serve/traffic.py",
-                 "serve/colocate.py", "train/colocate.py"):
+                 "serve/colocate.py", "train/colocate.py",
+                 "models/encdec.py", "configs/shapes.py",
+                 "configs/deepseek_v2_236b.py", "configs/whisper_medium.py",
+                 "configs/phi_3_vision_4_2b.py", "configs/grok_1_314b.py"):
         assert must in names
 
 
@@ -142,14 +145,15 @@ def test_kernel_wrappers_take_plain_version_only_for_cpu_tensors():
 
 
 def test_unported_paths_of_the_ssm_slice_raise():
-    """What stays unported after the serving slice raises, naming its
-    slice: the unported configs and the MoE family (slice 7).  The SSD and
-    RG-LRU decode branches (slice 6) now run: one token through each cache
-    gives finite outputs and caches of the cache's shapes."""
-    from repro_torch.configs import get_config
-    from repro_torch.models import (init_caches, init_lm, recurrent_block,
-                                    reduced, ssd_block)
-    from repro_torch.models.config import ModelConfig
+    """What stays unported after slice 7 raises, naming its slice: remat
+    (the launch slice) and ``MeshBackend`` over a list of devices (slice
+    5b).  Every architecture's config loads, and the SSD and RG-LRU decode
+    branches (slice 6) run: one token through each cache gives finite
+    outputs and caches of the cache's shapes."""
+    from repro_torch.api import MeshBackend
+    from repro_torch.configs import ARCHITECTURES, get_config
+    from repro_torch.models import (init_caches, init_lm, init_model,
+                                    recurrent_block, reduced, ssd_block)
     from repro_torch.models.layers import sub
 
     cfg = reduced(get_config("mamba2-1.3b"))
@@ -162,14 +166,20 @@ def test_unported_paths_of_the_ssm_slice_raise():
     assert new.keys() == cache.keys()
     assert all(new[k].shape == cache[k].shape and torch.isfinite(new[k]).all()
                for k in new)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        get_config("llama3-8b")
-    moe = ModelConfig(name="moe", family="moe", num_layers=2, d_model=64,
-                      vocab_size=32, num_heads=2, num_kv_heads=1,
-                      head_dim=32, mlp="moe", num_experts=4, moe_top_k=2,
-                      moe_d_ff=32)
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        init_lm(torch.Generator().manual_seed(0), moe)
+    families = set()
+    for arch in ARCHITECTURES:
+        full = get_config(arch)
+        assert full.name == arch
+        families.add(full.family)
+        small = reduced(full)
+        assert init_model(torch.Generator().manual_seed(0), small)
+        with pytest.raises(NotImplementedError, match="launch slice"):
+            init_model(torch.Generator().manual_seed(0),
+                       small.with_(remat=True))
+    assert families == {"dense", "moe", "ssm", "hybrid", "encdec", "vlm"}
+    with pytest.raises(NotImplementedError, match="slice 5b"):
+        MeshBackend(device=["cpu", "cpu"]).build_trainer(
+            workload=None, cluster=None, optimizer=None, cfg=None)
     hybrid = reduced(get_config("recurrentgemma-9b"))
     rec = sub(init_lm(torch.Generator().manual_seed(0), hybrid),
               "layers.0.rec")

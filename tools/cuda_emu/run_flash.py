@@ -36,6 +36,9 @@ CASES = {
     "d128": (1, 70, 70, 2, 1, 128, True, None, None, None),
     "d256-padded": (2, 72, 72, 4, 1, 256, True, None, None, 1),
     "local-window": (1, 160, 160, 2, 1, 64, True, 64, None, None),
+    "d96-gqa-ragged": (2, 70, 70, 4, 2, 96, True, None, None, 1),
+    "d96-window-softcap": (1, 96, 96, 4, 1, 96, True, 20, 30.0, None),
+    "d96-mha-s-lt-t": (1, 37, 70, 2, 2, 96, True, None, None, None),
 }
 
 
