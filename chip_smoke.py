@@ -40,6 +40,12 @@ Phases, each of which fails the run (nonzero exit) when it goes wrong:
      a float64 scan, then kernel and plain timings (no single PyTorch call
      computes the RG-LRU scan), with a second rglru_fwd launch repeating the
      first bit for bit and the forward kernel alone against a float64 scan;
+     then the flash trio on bf16 and fp16 inputs at the gemma shapes
+     (num_valid 1 and 2) against the plain versions on the same inputs
+     (outputs in the inputs' dtype, within HALF_TOL of each tensor's
+     largest value, padded rows exact zeros), and the bf16 wrapper's times,
+     its casts included, beside SDPA's bf16 call, with its bound at the bf16
+     tensor-core rate (the fp32 and 3xTF32 bounds beside it);
   3. small-input checks that the LM loss and its gradients through the
      kernels equal those of the plain path, on the card: reduced gemma-2b
      (attention), reduced mamba2-1.3b (SSD, chunk 8) and reduced
@@ -158,7 +164,31 @@ Phases, each of which fails the run (nonzero exit) when it goes wrong:
      decode; (d) whisper-medium at full width and depth (24 + 24 layers),
      1500 encoder frames, decoder seq 448, SLICE7_STEPS BSP steps (no port
      kernel), then ENCDEC_DECODE decoder tokens through the caches against
-     the full decode pass on the trained parameters.
+     the full decode pass on the trained parameters;
+ 14. slice 8: (a) the port's CLI (``repro_torch.launch.train.main``) in
+     process: mamba2-1.3b at full config (48 layers, fp32, Adam, the plain
+     SSD scan as the reference's CLI runs it), 3 workers, 4 BSP steps, seq
+     256, b0 12, microbatch 4, then reduced gemma-2b on the measured
+     backend for 3 steps: losses finite, sum(b_k) = workers x b0 every
+     step, sim_time increasing, wall ms a step and peak memory logged; and
+     ``--serve --serve-mode dedicated`` raising, naming slice 5b; (b) the
+     step programs (``launch/steps.py``) at the dry run's overrides (bf16
+     parameters and activations, remat) through the kernels:
+     gemma-2b at full depth (18 layers), B 4 x S 1024, Adam, 3 steps each
+     with remat off, "full" and "dots", then 3 with accum_steps 4: step 0's
+     loss equal across the three settings (bit-equality reported), flash
+     launches 2 x 18 x microbatches forward under remat (18 x without),
+     18 x microbatches each backward, peak memory and step ms by CUDA
+     events; llama3-8b at full depth (32 layers), B 2 x S 2048, remat
+     "full", adafactor over the reference's stacked leaves, 3 steps and a
+     fourth profiled: losses finite, step 2's below step 0's, the flash
+     kernels' share of busy time, useful TFLOP/s (6 x active parameters x
+     tokens) beside the bf16 peak of ``launch/roofline.py``; then its serve
+     step over SERVE_TOKENS tokens from empty caches against its prefill
+     step on the same tokens (the kernels), within SERVE_TOL x max|logit|;
+     (c) phase 6's hybrid path for one step with remat: the loss of phase
+     6's step 0, each forward kernel launched twice a layer and
+     microbatch, the backward ones once, peak memory beside phase 6's.
 
 Each main path runs with every kernel's launch count set to 0 just before
 it and read just after (phase 11(a): before its session is built, whose
@@ -184,10 +214,11 @@ import zlib
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 # published dense peaks (NVIDIA data sheets): fp32 outside the tensor cores,
-# device-memory bandwidth, TF32 on the tensor cores; the SXM part is the
-# default
-PEAKS = {"PCIe": (51e12, 2.0e12, 378e12), "NVL": (60e12, 3.9e12, 418e12),
-         "SXM": (67e12, 3.35e12, 495e12)}
+# device-memory bandwidth, TF32 and bf16 (= fp16) on the tensor cores; the
+# SXM part is the default
+PEAKS = {"PCIe": (51e12, 2.0e12, 378e12, 756e12),
+         "NVL": (60e12, 3.9e12, 418e12, 835e12),
+         "SXM": (67e12, 3.35e12, 495e12, 989e12)}
 FWD_TOL = 1e-4          # abs and rel: fp32, other summation order over 1024 keys
 BWD_TOL = 1e-3          # relative to the tensor's max |value|, same reason
 MODEL_TOL = 1e-4        # loss rel and grads rel-to-max, kernel vs plain path
@@ -397,11 +428,19 @@ FLASH_TIMED = [("gemma", 2, 1024, 1024, 8, 1, 256, None, None),
                ("grok", 2, 1024, 1024, 48, 8, 128, None, 30.0)]
 
 
-def time_kernels(peak_flops: float, peak_bw: float, peak_tf32: float,
-                 report: dict, shape=FLASH_TIMED[0]) -> dict:
+def time_kernels(peak: tuple, report: dict, shape=FLASH_TIMED[0],
+                 dtype: str = "float32") -> dict:
     """kernel / plain / library times at one of ``FLASH_TIMED``'s shapes
-    (causal, nv = B), with the fp32 bound and, as all three run on the
-    tensor cores, the 3xTF32 bound (three TF32 products per fp32 one).
+    (causal, nv = B) on inputs of ``dtype``, with the bound and, as all
+    three kernels run on the tensor cores, the 3xTF32 bound (three TF32
+    products per fp32 one).  ``peak`` is a ``PEAKS`` entry.
+
+    On fp32 inputs the bound takes the fp32 rate.  On 16-bit inputs the
+    kernel times include the wrapper's casts to fp32 and back, the bytes
+    are 16-bit ones (lse and delta stay fp32), and the bound takes the
+    16-bit tensor-core rate: bf16 products accumulated in fp32 compute
+    Q.K^T of 16-bit inputs exactly, so that is the least time for the
+    function; the fp32 bound stands beside it as ``fp32_bound_ms``.
 
     The library is SDPA's memory-efficient attention in fp32 on (B,H,S,D)
     tensors with the kv head repeated to H (the window, where given, does
@@ -411,7 +450,9 @@ def time_kernels(peak_flops: float, peak_bw: float, peak_tf32: float,
     backward is one call that computes dq, dk and dv together, so both
     backward kernels carry its time; compare it with the sum of theirs.
     Its dk/dv come per query head; summed over each kv head's group they
-    are checked against the kernels' here."""
+    are checked against the kernels' here.  On 16-bit inputs SDPA keeps
+    the operands on the tensor cores with fp32 accumulation, another
+    internal precision than the kernels' 3xTF32."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import kernel as K
@@ -421,19 +462,20 @@ def time_kernels(peak_flops: float, peak_bw: float, peak_tf32: float,
     label, b, s, t, h, hkv, d, window, cap = shape
     if window is not None and window < t:
         raise ValueError(f"{label}: a biting window has no SDPA yardstick")
+    peak_fp32, peak_bw, peak_tf32, peak_16 = peak
+    dt = getattr(torch, dtype)
     g = torch.Generator(device=dev).manual_seed(0)
-    q = torch.randn((b, s, h, d), generator=g, device=dev)
-    k = torch.randn((b, t, hkv, d), generator=g, device=dev)
-    v = torch.randn((b, t, hkv, d), generator=g, device=dev)
-    do = torch.randn((b, s, h, d), generator=g, device=dev)
+    q, k, v, do = (torch.randn(x, generator=g, device=dev).to(dt)
+                   for x in ((b, s, h, d), (b, t, hkv, d), (b, t, hkv, d),
+                             (b, s, h, d)))
     nv = torch.tensor(b, dtype=torch.int32, device=dev)
     kw = dict(causal=True, window=window, softcap=cap)
     out, lse = K.flash_fwd(q, k, v, nv, **kw)
-    delta = (do * out).sum(-1).transpose(1, 2).contiguous()
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
     pairs = int(visible_mask(s, t, causal=True, window=window).sum())
-    f4 = 4  # bytes per fp32 value
-    q_bytes, kv_bytes, row_bytes = b * s * h * d * f4, b * t * hkv * d * f4, \
-        b * h * s * f4
+    size = q.element_size()  # bytes per input value; lse and delta fp32
+    q_bytes, kv_bytes, row_bytes = b * s * h * d * size, \
+        b * t * hkv * d * size, b * h * s * 4
     work = {  # (flops, bytes): each input read once, each output written once
         "flash_fwd": (4 * d * pairs * h * b,
                       2 * q_bytes + 2 * kv_bytes + row_bytes),
@@ -458,13 +500,15 @@ def time_kernels(peak_flops: float, peak_bw: float, peak_tf32: float,
     dq_l, dk_l, dv_l, _ = lib_bwd()
     dq, (dk, dv) = (K.flash_bwd_dq(q, k, v, do, lse, delta, nv, **kw),
                     K.flash_bwd_dkv(q, k, v, do, lse, delta, nv, **kw))
-    report.setdefault("library_vs_kernel", {})[label] = None if cap else {
-        "out": (out_l.transpose(1, 2) - out).abs().max().item(),
-        "dq": (dq_l.transpose(1, 2) - dq).abs().max().item(),
-        "dk": (dk_l.unflatten(1, (hkv, rep)).sum(2).transpose(1, 2)
-               - dk).abs().max().item(),
-        "dv": (dv_l.unflatten(1, (hkv, rep)).sum(2).transpose(1, 2)
-               - dv).abs().max().item(),
+    key = label if dt == torch.float32 else f"{label}-{dtype}"
+    report.setdefault("library_vs_kernel", {})[key] = None if cap else {
+        "out": (out_l.transpose(1, 2).float() - out.float()).abs().max()
+        .item(),
+        "dq": (dq_l.transpose(1, 2).float() - dq.float()).abs().max().item(),
+        "dk": (dk_l.float().unflatten(1, (hkv, rep)).sum(2).transpose(1, 2)
+               - dk.float()).abs().max().item(),
+        "dv": (dv_l.float().unflatten(1, (hkv, rep)).sum(2).transpose(1, 2)
+               - dv.float()).abs().max().item(),
     }
     del dq_l, dk_l, dv_l
     calls = {
@@ -485,7 +529,9 @@ def time_kernels(peak_flops: float, peak_bw: float, peak_tf32: float,
     times, lib_ms = {}, {}  # the library backward is timed once, for both
     for name, (kern, plain, lib) in calls.items():
         flops, nbytes = work[name]
-        t_ops, t_mem = flops / peak_flops * 1e3, nbytes / peak_bw * 1e3
+        t_mem = nbytes / peak_bw * 1e3
+        t_fp32 = flops / peak_fp32 * 1e3
+        t_ops = t_fp32 if dt == torch.float32 else flops / peak_16 * 1e3
         if lib not in lib_ms:
             lib_ms[lib] = time_ms(lib, 20)
         times[name] = {
@@ -499,7 +545,77 @@ def time_kernels(peak_flops: float, peak_bw: float, peak_tf32: float,
         }
         times[name]["tf32x3_bound_ms"] = max(3 * flops / peak_tf32 * 1e3,
                                              t_mem)
+        if dt != torch.float32:
+            times[name]["fp32_bound_ms"] = max(t_fp32, t_mem)
     return times
+
+
+# ------------------------------------------ phase 2, 16-bit flash inputs
+
+HALF_TOL = 1e-2         # of each tensor's max |value|: one 16-bit rounding apart
+
+
+def check_flash_half(report: dict) -> dict:
+    """The flash trio on bf16 and fp16 inputs at gemma's shapes (B 2, S = T
+    1024, H 8, Hkv 1, D 256, num_valid 1 and 2) against the plain versions
+    on the same inputs: outputs in the inputs' dtype (lse f32) within
+    HALF_TOL of each tensor's largest value, padded rows exact zeros.
+    Returns each kernel's largest error."""
+    import torch
+    from repro_torch.kernels.flash_attention import kernel as K
+
+    dev = torch.device("cuda")
+    errs = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
+    b, s, h, hkv, d = 2, 1024, 8, 1, 256
+    for dtype in (torch.bfloat16, torch.float16):
+        for nv in (1, 2):
+            name = f"{str(dtype)[6:]}-nv{nv}"
+            g = torch.Generator(device=dev).manual_seed(zlib.crc32(
+                name.encode()))
+            q, k, v, do = (torch.randn(shape, generator=g, device=dev)
+                           .to(dtype) for shape in ((b, s, h, d),
+                                                    (b, s, hkv, d),
+                                                    (b, s, hkv, d),
+                                                    (b, s, h, d)))
+            nvt = torch.tensor(nv, dtype=torch.int32, device=dev)
+            out, lse = K.flash_fwd(q, k, v, nvt)
+            out_p, lse_p = K.flash_fwd_plain(q, k, v, nvt)
+            delta = (do.float() * out_p.float()).sum(-1).transpose(1, 2) \
+                .contiguous()
+            got = {"out": out, "lse": lse,
+                   "dq": K.flash_bwd_dq(q, k, v, do, lse_p, delta, nvt)}
+            got["dk"], got["dv"] = K.flash_bwd_dkv(q, k, v, do, lse_p, delta,
+                                                   nvt)
+            want = {"out": out_p, "lse": lse_p,
+                    "dq": K.flash_bwd_dq_plain(q, k, v, do, lse_p, delta,
+                                               nvt)}
+            want["dk"], want["dv"] = K.flash_bwd_dkv_plain(
+                q, k, v, do, lse_p, delta, nvt)
+            res = {}
+            for key, x in got.items():
+                ref = want[key]
+                err = (x.float() - ref.float()).abs().max().item()
+                scale = ref.float().abs().max().item()
+                res[key] = {"max_abs_err": err, "ref_max": scale,
+                            "dtype": str(x.dtype),
+                            "ok": (err <= HALF_TOL * scale
+                                   and x.dtype == ref.dtype
+                                   and x.dtype == (torch.float32
+                                                   if key == "lse" else dtype)
+                                   and bool((x[nv:] == 0).all()))}
+                kname = {"out": "flash_fwd", "lse": "flash_fwd",
+                         "dq": "flash_bwd_dq"}.get(key, "flash_bwd_dkv")
+                errs[kname] = max(errs[kname], err)
+            log(f"  case {name}: " + ", ".join(
+                f"{key} err {r['max_abs_err']:.3g} (max {r['ref_max']:.3g})"
+                for key, r in res.items()) + ", padded rows zero "
+                + str(all(r["ok"] for r in res.values())))
+            report.setdefault("half_cases", {})[name] = res
+            bad = [key for key, r in res.items() if not r["ok"]]
+            if bad:
+                raise AssertionError(f"16-bit flash case {name} failed on "
+                                     f"{bad}: {res}")
+    return errs
 
 
 # ------------------------------------------- phase 2, the scans' shared parts
@@ -999,7 +1115,8 @@ def main_path(path: str, *, steps: int = STEPS, global_batch=None,
     from repro_torch.optim import adam
 
     arch, layers, seq, own, overrides = (
-        (*PATHS[path], {}) if path in PATHS else SLICE7_PATHS[path])
+        (*PATHS[path], {}) if path in PATHS
+        else {**SLICE7_PATHS, **SLICE8_PATHS}[path])
     frags = {k: frag for k, (frag, _) in own.items()}
     cfg = get_config(arch, num_layers=layers, **overrides)
     experiment = Experiment(
@@ -1097,8 +1214,11 @@ def profile_summary(prof, wall_us: float, own: dict, top: int = 8) -> dict:
     by_frag = {f: sum(t for n, t in kernels.items() if f in n)
                for frags in own.values() for f in frags}
     mine = {k: sum(by_frag[f] for f in frags) for k, frags in own.items()}
+    # cuBLAS's Hopper bf16 kernels are named nvjet_*
     gemm = sum(t for n, t in kernels.items()
-               if "gemm" in n.lower() or "sgemm" in n.lower())
+               if "gemm" in n.lower() or n.startswith("nvjet"))
+    # dtype casts and copies (the bf16 paths' upcasts to fp32 among them)
+    copies = sum(t for n, t in kernels.items() if "copy" in n.lower())
     # device time of the kernels that the CPU op aten::dot launched: the
     # GNS side statistics (core/grad.py::tree_sqnorm); nothing else on the
     # main paths calls it
@@ -1107,6 +1227,7 @@ def profile_summary(prof, wall_us: float, own: dict, top: int = 8) -> dict:
     return {"step_wall_us": wall_us, "device_busy_us": busy,
             "idle_share": (1 - busy / wall_us) if busy else None,
             "kernels_us": mine, "fragments_us": by_frag, "gemm_us": gemm,
+            "copy_us": copies,
             "sqnorm_us": sum(ev.device_time_total for ev in dots),
             "sqnorm_calls": len(dots),
             "sqnorm_kernels": sorted({k.name[:60] for ev in dots
@@ -1129,7 +1250,8 @@ def log_profile(pr) -> None:
         log(f"  profiled step: wall {pr['step_wall_us'] / 1e3:.1f} ms, device "
             f"busy {pr['device_busy_us'] / 1e3:.1f} ms (idle share "
             f"{pr['idle_share']:.3f}); gemm {pr['gemm_us'] / 1e3:.1f} ms, "
-            "own kernels " + ", ".join(
+            f"copies and casts {pr['copy_us'] / 1e3:.1f} ms, own kernels "
+            + ", ".join(
                 f"{k} {us / 1e3:.1f} ms" for k, us in pr["kernels_us"].items()))
         for name, us in pr["top"]:
             log(f"    {us / 1e3:8.2f} ms  {name}")
@@ -2732,6 +2854,329 @@ def check_slice7() -> dict:
     return res
 
 
+# ------------------------------------------------------- phase 14, slice 8
+
+# (a) the CLI on the card: mamba2-1.3b at full config (48 layers, fp32,
+# Adam, the plain SSD scan as the reference's CLI runs it), then reduced
+# gemma on the measured backend
+CLI_FULL = ["--arch", "mamba2-1.3b", "--full-config", "--workers", "3",
+            "--steps", "4", "--seq-len", "256", "--b0", "12",
+            "--microbatch", "4", "--quiet"]
+CLI_MESH = ["--arch", "gemma-2b", "--backend", "mesh", "--steps", "3",
+            "--quiet"]
+# (b) the step programs at the dry run's overrides, run for real
+DRYRUN = dict(param_dtype="bfloat16", dtype="bfloat16", remat=True,
+              use_pallas=True)
+GEMMA_STEPS = ("gemma-2b", 4, 1024, 3)     # arch, B, S, steps a setting
+LLAMA_STEPS = ("llama3-8b", 2, 2048, 3)
+LLAMA_LR = 1e-4        # adafactor's step is lr x an update of RMS <= 1
+SERVE_TOKENS = 128
+SERVE_TOL = 5e-2       # of max |logit|: two bf16 computations, 32 layers
+# (c) phase 6's hybrid path with remat: each forward kernel launches twice
+# a layer (forward and recompute), the backward ones once
+SLICE8_PATHS = {
+    "hybrid_remat": ("recurrentgemma-9b", 3, 2048,
+                     {"rglru_fwd": (("rglru_fwd_kernel",), 4),
+                      "rglru_bwd": (("rglru_bwd_kernel",), 2),
+                      "flash_fwd": (FLASH["flash_fwd"], 2),
+                      "flash_bwd_dq": (FLASH["flash_bwd_dq"], 1),
+                      "flash_bwd_dkv": (FLASH["flash_bwd_dkv"], 1)},
+                     {"remat": True}),
+}
+
+
+def check_cli() -> dict:
+    """14(a): the port's CLI in process on the card."""
+    import torch
+    from repro_torch.launch import train
+
+    res = {}
+    for label, argv, b0 in (("mamba2_full", CLI_FULL, 12),
+                            ("gemma_mesh", CLI_MESH, 16)):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = train.main(argv)
+        seconds = time.perf_counter() - t0
+        hist = out["history"]
+        r = res[label] = {
+            "argv": argv, "losses": [h.loss for h in hist],
+            "batches": [h.batches for h in hist],
+            "sim_time": [h.sim_time for h in hist],
+            "wall_ms_a_step": out["wall_time"] / len(hist) * 1e3,
+            "seconds": seconds,
+            "max_memory_allocated": torch.cuda.max_memory_allocated()}
+        log(f"  (a) {' '.join(argv)}: losses "
+            f"{[round(x, 4) for x in r['losses']]}, batches {r['batches']}, "
+            f"sim_time {[round(x, 4) for x in r['sim_time']]}; "
+            f"{r['wall_ms_a_step']:.1f} ms a step, {seconds:.1f} s in all, "
+            f"peak {r['max_memory_allocated'] / 2**30:.2f} GiB")
+        del out, hist
+        torch.cuda.empty_cache()
+        workers = 3
+        if not (len(r["losses"]) == int(argv[argv.index("--steps") + 1])
+                and all(math.isfinite(x) for x in r["losses"])
+                and all(sum(b) == workers * b0 for b in r["batches"])
+                and all(b > a for a, b in zip(r["sim_time"],
+                                              r["sim_time"][1:]))):
+            raise AssertionError(f"CLI run {label}: {r}")
+    try:
+        train.main(CLI_MESH + ["--serve", "--serve-mode", "dedicated"])
+    except NotImplementedError as exc:
+        res["dedicated_raises"] = str(exc)
+        if "slice 5b" not in str(exc):
+            raise
+    else:
+        raise AssertionError("--serve-mode dedicated ran on one card")
+    log(f"  (a) --serve --serve-mode dedicated raises: "
+        f"{res['dedicated_raises']}")
+    return res
+
+
+def step_batch(cfg, b: int, s: int, seed: int) -> dict:
+    import torch
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return {"tokens": torch.randint(0, cfg.vocab_size, (b, s), generator=g,
+                                    device=dev),
+            "targets": torch.randint(0, cfg.vocab_size, (b, s), generator=g,
+                                     device=dev),
+            "weights": torch.ones(b, device=dev)}
+
+
+def run_steps(cfg, params, opt, batch, n: int, accum: int = 1,
+              profile_step=None) -> dict:
+    """``n`` train steps of ``make_train_step`` on the same batch, each
+    timed by CUDA events, launch counts set to 0 just before and read just
+    after; step ``profile_step`` runs under torch.profiler too.  Returns
+    the last params beside the record."""
+    import torch
+    from repro_torch.launch.steps import make_train_step
+
+    step_fn = make_train_step(cfg, opt, accum)
+    state = opt.init(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launches()
+    losses, ms, prof = [], [], None
+    for i in range(n):
+        a = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        if i == profile_step:
+            prof = torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA])
+            prof.__enter__()
+            t0 = time.perf_counter()
+        a.record()
+        params, state, m = step_fn(params, state, i, batch)
+        e.record()
+        torch.cuda.synchronize()
+        if i == profile_step:
+            wall = (time.perf_counter() - t0) * 1e6
+            prof.__exit__(None, None, None)
+            prof = profile_summary(prof, wall, FLASH)
+        ms.append(a.elapsed_time(e))
+        losses.append(m["loss"].item())
+    res = {"losses": losses, "step_ms": ms, "launches": all_launches(),
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "profile": prof}
+    del state
+    return params, res
+
+
+def check_step_programs(report: dict) -> dict:
+    """14(b): the step programs at the dry run's overrides (bf16 parameters
+    and activations, remat, the kernels), run for real on the card."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import roofline
+    from repro_torch.launch.steps import (make_prefill_step,
+                                          make_serve_step, pick_optimizer)
+    from repro_torch.models import init_caches, init_lm, param_count
+    from repro_torch.models.convert import reference_leaves
+    from repro_torch.optim import get_optimizer
+    from repro_torch.serve.engine import cache_length
+
+    dev = torch.device("cuda")
+    res = {}
+    # gemma-2b at full depth: remat off, full, dots, then accumulation
+    arch, b, s, n = GEMMA_STEPS
+    cfg = get_config(arch).with_(**DRYRUN)
+
+    def fresh():
+        """The same parameters for every setting; the call to run_steps
+        holds the only reference, so the first step frees them."""
+        return init_lm(torch.Generator(device=dev).manual_seed(0), cfg)
+
+    n_params = param_count(cfg)
+    batch = step_batch(cfg, b, s, 1)
+    runs = {}
+    for label, over, accum in (("no_remat", dict(remat=False), 1),
+                               ("full", dict(remat_policy="full"), 1),
+                               ("dots", dict(remat_policy="dots"), 1),
+                               ("full_accum4", dict(remat_policy="full"), 4)):
+        torch.cuda.empty_cache()
+        c = cfg.with_(**over)
+        r = run_steps(c, fresh(), pick_optimizer(c, n_params), batch, n,
+                      accum)[1]
+        micro = n * accum
+        layers = cfg.num_layers
+        r["expected_launches"] = {
+            "flash_fwd": (2 if c.remat else 1) * layers * micro,
+            "flash_bwd_dq": layers * micro, "flash_bwd_dkv": layers * micro}
+        runs[label] = r
+        log(f"  (b) {arch} {layers} layers bf16, B {b} x S {s}, {label}: "
+            f"losses {[round(x, 5) for x in r['losses']]}, step ms "
+            f"{[round(x, 1) for x in r['step_ms']]}, launches "
+            f"{ {k: v for k, v in r['launches'].items() if v} }, peak "
+            f"{r['max_memory_allocated'] / 2**30:.2f} GiB")
+    torch.cuda.empty_cache()
+    step0 = [runs[k]["losses"][0] for k in ("no_remat", "full", "dots")]
+    res["gemma"] = {"params": n_params, "optimizer": "adam", "runs": runs,
+                    "step0_losses": step0,
+                    "step0_bit_equal": len(set(step0)) == 1}
+    log(f"  (b) step 0's loss off / full / dots: {step0} (bit-equal "
+        f"{res['gemma']['step0_bit_equal']})")
+    bad = [k for k, r in runs.items()
+           if {k2: v for k2, v in r["launches"].items() if v}
+           != r["expected_launches"]
+           or not all(math.isfinite(x) for x in r["losses"])]
+    if bad or max(step0) - min(step0) > 1e-6 * abs(step0[0]):
+        raise AssertionError(f"gemma step programs ({bad}): {res['gemma']}")
+
+    # llama3-8b at full depth, remat full, adafactor
+    arch, b, s, n = LLAMA_STEPS
+    cfg = get_config(arch).with_(**DRYRUN, remat_policy="full")
+    t0 = time.perf_counter()
+    init = [init_lm(torch.Generator(device=dev).manual_seed(0), cfg)]
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in init[0].values())
+    opt = get_optimizer("adafactor", LLAMA_LR,
+                        leaves=reference_leaves(init[0], cfg))
+    batch = step_batch(cfg, b, s, 2)
+    torch.cuda.empty_cache()
+    # run_steps holds the only reference to the initial parameters
+    params, r = run_steps(cfg, init.pop(), opt, batch, n + 1,
+                          profile_step=n)
+    tokens = b * s
+    active = roofline.active_params(arch, n_params)
+    steady = r["step_ms"][1:n]
+    step_s = sorted(steady)[len(steady) // 2] / 1e3
+    r.update(params=n_params, active_params=active, init_s=init_s,
+             useful_tflops=6 * active * tokens / step_s / 1e12,
+             bf16_peak_tflops=roofline.PEAK_FLOPS / 1e12,
+             expected_launches={"flash_fwd": 2 * cfg.num_layers * (n + 1),
+                                "flash_bwd_dq": cfg.num_layers * (n + 1),
+                                "flash_bwd_dkv": cfg.num_layers * (n + 1)})
+    pr = r["profile"]
+    if pr and pr["device_busy_us"]:
+        r["flash_share"] = sum(pr["kernels_us"].values()) \
+            / pr["device_busy_us"]
+    res["llama"] = r
+    log(f"  (b) {arch} {cfg.num_layers} layers bf16 ({n_params / 1e9:.2f}B),"
+        f" B {b} x S {s}, remat full, adafactor: losses "
+        f"{[round(x, 5) for x in r['losses']]}, step ms "
+        f"{[round(x, 1) for x in r['step_ms']]} (the last profiled), "
+        f"useful {r['useful_tflops']:.1f} TFLOP/s of "
+        f"{r['bf16_peak_tflops']:.0f} bf16, launches "
+        f"{ {k: v for k, v in r['launches'].items() if v} }, peak "
+        f"{r['max_memory_allocated'] / 2**30:.2f} GiB, flash share of busy "
+        f"time {r.get('flash_share', float('nan')):.3f}")
+    log_profile(pr)
+    if not (all(math.isfinite(x) for x in r["losses"])
+            and r["losses"][2] < r["losses"][0]
+            and {k: v for k, v in r["launches"].items() if v}
+            == r["expected_launches"]):
+        raise AssertionError(f"llama3-8b steps: {r}")
+
+    # llama3-8b serving on the trained parameters: 128 tokens through the
+    # caches against the prefill step over all of them (the kernels)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    toks = batch["tokens"][:, :SERVE_TOKENS]
+    reset_all_launches()
+    prefill = make_prefill_step(cfg)(params, {"tokens": toks})
+    prefill_launches = {k: v for k, v in all_launches().items() if v}
+    serve = make_serve_step(cfg)
+    caches = init_caches(cfg, b, cache_length(cfg, SERVE_TOKENS),
+                         device=dev)
+    reset_all_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(SERVE_TOKENS):
+        logits, caches = serve(params, {
+            "token": toks[:, i:i + 1], "caches": caches,
+            "position": torch.tensor(i, dtype=torch.int32, device=dev)})
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    err = (logits.float() - prefill.float()).abs().max().item()
+    scale = prefill.float().abs().max().item()
+    res["llama_serve"] = sv = {
+        "tokens": SERVE_TOKENS, "max_abs_err": err, "max_abs_logit": scale,
+        "tol": SERVE_TOL, "argmax_equal": bool(torch.equal(
+            logits.argmax(-1), prefill.argmax(-1))),
+        "ms_a_token": seconds / SERVE_TOKENS * 1e3,
+        "prefill_launches": prefill_launches,
+        "serve_launches": {k: v for k, v in all_launches().items() if v},
+        "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    log(f"  (b) {arch} serve step x {SERVE_TOKENS} against the prefill step:"
+        f" max |a - b| {err:.4g} of max |logit| {scale:.4g} (tol "
+        f"{SERVE_TOL} x max), argmax equal {sv['argmax_equal']}; "
+        f"{sv['ms_a_token']:.1f} ms a token; prefill launches "
+        f"{prefill_launches}, serve launches {sv['serve_launches']}; peak "
+        f"{sv['max_memory_allocated'] / 2**30:.2f} GiB")
+    del params, caches, logits, prefill, batch, toks, opt
+    torch.cuda.empty_cache()
+    if err > SERVE_TOL * scale or sv["serve_launches"] or \
+            prefill_launches != {"flash_fwd": cfg.num_layers}:
+        raise AssertionError(f"llama3-8b serving: {sv}")
+    return res
+
+
+def check_hybrid_remat(report: dict) -> dict:
+    """14(c): phase 6's hybrid path for one step with remat: the loss of
+    phase 6's step 0, each forward kernel launched twice a layer."""
+    mp = main_path("hybrid_remat", steps=1, profile=False)
+    log_path(mp)
+    ref = report["paths"]["recurrentgemma"]
+    mp["phase6_step0_loss"] = ref["losses"][0]
+    mp["loss_bit_equal"] = mp["losses"][0] == ref["losses"][0]
+    mp["phase6_max_memory_allocated"] = ref["max_memory_allocated"]
+    log(f"  (c) loss {mp['losses'][0]!r} against phase 6's step 0 "
+        f"{ref['losses'][0]!r} (bit-equal {mp['loss_bit_equal']}); peak "
+        f"{mp['max_memory_allocated'] / 2**30:.2f} GiB against phase 6's "
+        f"{ref['max_memory_allocated'] / 2**30:.2f}")
+    if abs(mp["losses"][0] - ref["losses"][0]) > 1e-6 * abs(ref["losses"][0]):
+        raise AssertionError(f"hybrid remat loss {mp['losses'][0]} != "
+                             f"phase 6's {ref['losses'][0]}")
+    return mp
+
+
+def check_slice8(report: dict) -> dict:
+    """Phase 14: (a) the CLI, (b) the step programs in bf16 with remat,
+    (c) the hybrid path with remat."""
+    res, seconds = {}, {}
+    for part, label, check in (
+            ("cli", "(a) the CLI: mamba2-1.3b full config, reduced gemma on "
+             "the measured backend", lambda: check_cli()),
+            ("steps", "(b) step programs, bf16 + remat + kernels: gemma-2b "
+             "and llama3-8b at full depth", lambda: check_step_programs(
+                 report)),
+            ("hybrid", "(c) recurrentgemma-9b-3L with remat",
+             lambda: check_hybrid_remat(report))):
+        log(f"  {label}")
+        t0 = time.perf_counter()
+        res[part] = check()
+        seconds[part] = time.perf_counter() - t0
+    res["seconds"] = seconds
+    log("  phase 14 seconds: " + ", ".join(f"{k} {v:.1f}"
+                                            for k, v in seconds.items()))
+    return res
+
+
 # --------------------------------------------------------------------- main
 
 
@@ -2762,7 +3207,8 @@ def main() -> int:
     # 1. device and build
     smi = gpu_line()
     kind = torch.cuda.get_device_name(0)
-    peak_name, (peak_flops, peak_bw, peak_tf32) = peaks(kind)
+    peak_name, peak = peaks(kind)
+    peak_flops, peak_bw, peak_tf32, _ = peak
     log(f"[1] gpu: {smi}; torch {torch.__version__}, cuda {torch.version.cuda}"
         f"; peaks ({peak_name}): {peak_flops / 1e12:.0f} TFLOP/s fp32, "
         f"{peak_bw / 1e12:.2f} TB/s")
@@ -2786,14 +3232,24 @@ def main() -> int:
     log("  vs float64 (kernel / plain max abs err, kernel == plain): " + ", ".join(
         f"{n} {r['kernel_err']:.3g} / {r['plain_err']:.3g} "
         f"{r['kernel_equals_plain']}" for n, r in report["fp64"].items()))
-    times = time_kernels(peak_flops, peak_bw, peak_tf32, report)
-    report["hybrid_times"] = time_kernels(peak_flops, peak_bw, peak_tf32,
-                                          report, FLASH_TIMED[1])
-    report["slice7_times"] = {
-        shape[0]: time_kernels(peak_flops, peak_bw, peak_tf32, report, shape)
-        for shape in FLASH_TIMED[2:]}
+    times = time_kernels(peak, report)
+    report["hybrid_times"] = time_kernels(peak, report, FLASH_TIMED[1])
+    report["slice7_times"] = {shape[0]: time_kernels(peak, report, shape)
+                              for shape in FLASH_TIMED[2:]}
     torch.cuda.empty_cache()
     log(f"  library vs kernel max abs err: {report['library_vs_kernel']}")
+    log(f"  flash kernels on bf16 and fp16 inputs vs plain versions (max err"
+        f" <= {HALF_TOL} x max|ref|, outputs in the inputs' dtype)")
+    half_errs = check_flash_half(report)
+    report["bf16_times"] = time_kernels(peak, report, dtype="bfloat16")
+    torch.cuda.empty_cache()
+    for name, tm in report["bf16_times"].items():
+        log(f"  {name} on bf16 at the gemma shapes (casts included): kernel "
+            f"{tm['ms']:.3f} ms, plain {tm['plain_ms']:.3f} ms, SDPA bf16 "
+            f"{tm['library_ms']:.3f} ms, bound at the bf16 tensor-core rate "
+            f"{tm['bound_ms']:.4f} ms ({tm['bound_by']}); fp32 bound "
+            f"{tm['fp32_bound_ms']:.4f} ms, 3xTF32 bound "
+            f"{tm['tf32x3_bound_ms']:.4f} ms")
     shaped = [("hybrid", FLASH_TIMED[1], report["hybrid_times"])] + [
         (shape[0], shape, report["slice7_times"][shape[0]])
         for shape in FLASH_TIMED[2:]]
@@ -2885,6 +3341,10 @@ def main() -> int:
         "head_dim 96), MLA + MoE training, decode of six configs at full "
         "width, encdec at full depth")
     report["slice7"] = check_slice7()
+    log("[14] slice 8: the CLI on the card, the step programs in bf16 with "
+        "remat through the kernels (gemma-2b and llama3-8b at full depth, "
+        "llama3-8b serving), the hybrid path with remat")
+    report["slice8"] = check_slice8(report)
 
     replaces = {
         "flash_fwd": "src/repro/kernels/flash_attention/kernel.py:280",
@@ -2929,6 +3389,12 @@ def main() -> int:
                if name in report["hybrid_times"] else {}),
             **({"launches_vlm_path":
                 report["slice7"]["vlm"]["launches"][name],
+                "launches_llama3_bf16_path":
+                report["slice8"]["steps"]["llama"]["launches"][name],
+                "bf16": {**{key: report["bf16_times"][name][key] for key in (
+                    "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                    "fp32_bound_ms", "tf32x3_bound_ms")},
+                    "max_abs_err": half_errs[name], "tol": HALF_TOL},
                 "shapes": {label: {key: tms[name][key] for key in (
                     "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                     "library_same_function")}

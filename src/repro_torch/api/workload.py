@@ -28,6 +28,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from repro_torch.core.grad import loss_grads
 from repro_torch.device import DeviceLike, resolve_device
 
 
@@ -92,13 +93,6 @@ class CounterBatchSource:
 # --------------------------------------------------------------- adapters
 
 
-def _grads(total, leaves: dict) -> dict:
-    """d total / d leaves, with zeros for parameters the loss does not use."""
-    gs = torch.autograd.grad(total, list(leaves.values()), allow_unused=True)
-    return {name: g if g is not None else torch.zeros_like(p)
-            for (name, p), g in zip(leaves.items(), gs)}
-
-
 def sum_loss_adapter(loss_fn: Callable, aux_weight: float = 0.0) -> Callable:
     """Trainer-contract ``loss_and_grad`` from a SUM-convention loss
     ``loss_fn(params, batch, mask) -> (loss_sum, weight_sum, aux)``.
@@ -112,7 +106,8 @@ def sum_loss_adapter(loss_fn: Callable, aux_weight: float = 0.0) -> Callable:
         ls, ws, aux = loss_fn(leaves, batch, mask)
         total = (ls + aux_weight * aux * torch.clamp(ws, min=1.0)
                  if aux_weight else ls)
-        return (ls.detach(), ws.detach(), aux.detach()), _grads(total, leaves)
+        return ((ls.detach(), ws.detach(), aux.detach()),
+                loss_grads(total, leaves))
 
     return loss_and_grad
 

@@ -17,6 +17,13 @@ import torch
 Grads = dict[str, torch.Tensor]
 
 
+def loss_grads(total: torch.Tensor, leaves: dict) -> Grads:
+    """d total / d leaves, with zeros for the leaves the loss does not use."""
+    gs = torch.autograd.grad(total, list(leaves.values()), allow_unused=True)
+    return {name: g if g is not None else torch.zeros_like(p)
+            for (name, p), g in zip(leaves.items(), gs)}
+
+
 def tree_sqnorm(tree: Grads) -> torch.Tensor:
     """Squared L2 norm of a gradient dict, |g|^2 = sum over leaves of sum(x^2).
 

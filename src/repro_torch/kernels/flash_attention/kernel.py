@@ -9,10 +9,13 @@ the plain version, a CUDA tensor launches the kernel (built from
 ``LAUNCHES[name]``; nothing else does.
 
 Semantics shared by kernel and plain version: q (B,S,H,D), k/v (B,T,Hkv,D)
-fp32; queries right-aligned when S < T; optional sliding ``window`` and tanh
-``softcap``; ``num_valid`` (a 0-d int32 tensor on the inputs' device, or
-None for all rows) marks batch rows >= num_valid as padding, whose outputs
-and gradients are exact zeros.  The backward takes the forward's lse and
+of any floating dtype, computed in fp32 (the kernels take fp32: the
+wrapper casts q, k, v and dO up and hands out, dq, dk and dv back in the
+inputs' dtypes, as the reference's kernels load in f32 and store in the
+input dtype; lse and delta stay f32); queries right-aligned when S < T;
+optional sliding ``window`` and tanh ``softcap``; ``num_valid`` (a 0-d
+int32 tensor on the inputs' device, or None for all rows) marks batch rows
+>= num_valid as padding, whose outputs and gradients are exact zeros.  The backward takes the forward's lse and
 ``delta = rowsum(dO * O)`` as (B,H,S) f32, and returns dk/dv per kv head
 (summed over the query heads that share it).  Like the reference, the dk/dv
 kernel computes them per query head (``flash_bwd_dkv_heads_plain`` is that
@@ -24,7 +27,11 @@ dim up to the largest is zero-padded to the next of them and the outputs
 sliced back, as the reference pads to its 128 lanes; ``sm_scale`` stays
 ``1/sqrt(true D)``.  Padding lanes are inert: a zero lane adds nothing to
 q.k, to dO.v or to delta, and the padded columns of out, dq, dk and dv come
-out as P.0 = 0 and are dropped.
+out as P.0 = 0 and are dropped.  A head dim above the largest is refused,
+a deliberate difference (ROADMAP queue 3): the reference pads any head dim
+to a multiple of 128, but the forward's tiles at D 512 (a 64-row Q tile
+and two stages of 32-row K and V tiles) would need 384 KB of shared memory,
+against sm_90's 227 KB a block.
 """
 
 from __future__ import annotations
@@ -197,7 +204,8 @@ def _check(name, q, k, v, *rest):
                          f"k/v {tuple(k.shape)}")
     if d > HEAD_DIMS[-1]:
         raise ValueError(f"{name}: head_dim {d} is above the largest the "
-                         f"kernels are built for, {HEAD_DIMS[-1]}")
+                         f"kernels are built for, {HEAD_DIMS[-1]} (a "
+                         f"deliberate difference, ROADMAP queue 3)")
     if b == 0 or s == 0 or k.shape[1] == 0:
         raise ValueError(f"{name}: empty input {tuple(q.shape)}")
 
@@ -227,6 +235,13 @@ def _padded_dim(d: int) -> int:
     return next(dp for dp in HEAD_DIMS if dp >= d)
 
 
+def _f32(xs):
+    """Each tensor as a contiguous float32 one (the same tensors when they
+    are float32 already: those must come contiguous, as ``_check`` says)."""
+    return [x if x.dtype == torch.float32 else x.float().contiguous()
+            for x in xs]
+
+
 def _pad(xs, dp: int):
     """Each tensor zero-padded on its last dim to dp (the same tensors when
     that is their width already)."""
@@ -244,6 +259,14 @@ def _geom(q, k, causal, window, softcap, d):
             torch.cuda.current_stream(q.device).cuda_stream]
 
 
+def _narrow(x, d: int, dtype):
+    """A kernel's fp32 output cut back to the true head dim ``d`` and cast
+    to ``dtype`` (the same tensor when neither changes anything)."""
+    if x.shape[-1] != d:
+        x = x[..., :d]
+    return x.to(dtype).contiguous()
+
+
 def _raise_on(name: str, rc: int) -> None:
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed (code {rc})")
@@ -255,6 +278,8 @@ def flash_fwd(q, k, v, num_valid=None, *, causal: bool = True,
     if q.device.type == "cpu":
         return flash_fwd_plain(q, k, v, num_valid, causal=causal,
                                window=window, softcap=softcap)
+    dtype = q.dtype
+    q, k, v = _f32((q, k, v))
     _check("flash_fwd", q, k, v)
     b, s, h, d = q.shape
     q, k, v = _pad((q, k, v), _padded_dim(d))
@@ -266,7 +291,7 @@ def flash_fwd(q, k, v, num_valid=None, *, causal: bool = True,
                           *_geom(q, k, causal, window, softcap, d))
     _raise_on("flash_fwd", rc)
     LAUNCHES["flash_fwd"] += 1
-    return (out if out.shape[-1] == d else out[..., :d].contiguous()), lse
+    return _narrow(out, d, dtype), lse
 
 
 def flash_bwd_dq(q, k, v, do, lse, delta, num_valid=None, *,
@@ -277,6 +302,8 @@ def flash_bwd_dq(q, k, v, do, lse, delta, num_valid=None, *,
         return flash_bwd_dq_plain(q, k, v, do, lse, delta, num_valid,
                                   causal=causal, window=window,
                                   softcap=softcap)
+    dtype = q.dtype
+    q, k, v, do = _f32((q, k, v, do))
     _check("flash_bwd_dq", q, k, v, do, lse, delta)
     _check_bwd("flash_bwd_dq", q, do, lse, delta)
     d = q.shape[3]
@@ -289,7 +316,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, num_valid=None, *,
                              *_geom(q, k, causal, window, softcap, d))
     _raise_on("flash_bwd_dq", rc)
     LAUNCHES["flash_bwd_dq"] += 1
-    return dq if dq.shape[-1] == d else dq[..., :d].contiguous()
+    return _narrow(dq, d, dtype)
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, num_valid=None, *,
@@ -304,6 +331,8 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, num_valid=None, *,
         return flash_bwd_dkv_plain(q, k, v, do, lse, delta, num_valid,
                                    causal=causal, window=window,
                                    softcap=softcap)
+    dtypes = k.dtype, v.dtype
+    q, k, v, do = _f32((q, k, v, do))
     _check("flash_bwd_dkv", q, k, v, do, lse, delta)
     _check_bwd("flash_bwd_dkv", q, do, lse, delta)
     d = q.shape[3]
@@ -325,6 +354,4 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, num_valid=None, *,
                               *_geom(q, k, causal, window, softcap, d))
     _raise_on("flash_bwd_dkv", rc)
     LAUNCHES["flash_bwd_dkv"] += 1
-    if dk.shape[-1] != d:
-        dk, dv = dk[..., :d].contiguous(), dv[..., :d].contiguous()
-    return dk, dv
+    return _narrow(dk, d, dtypes[0]), _narrow(dv, d, dtypes[1])

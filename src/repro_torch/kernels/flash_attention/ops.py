@@ -56,11 +56,15 @@ class _FlashAttention(torch.autograd.Function):
                     o = mask_rows(o, nv)
                 dq, dk, dv = torch.autograd.grad(o, (qq, kk, vv), g)
         else:
+            # 16-bit inputs are cast to fp32 once here, for both kernels
+            # (the wrappers pass fp32 through), and the grads cast back
+            dtypes = (q.dtype, k.dtype, v.dtype)
+            q, k, v, g = (x.float().contiguous() for x in (q, k, v, g))
             # delta = rowsum(dO . O), (B, H, S) f32 like lse
-            delta = (g.float() * out.float()).sum(-1).transpose(1, 2) \
-                .contiguous()
+            delta = (g * out.float()).sum(-1).transpose(1, 2).contiguous()
             dq = flash_bwd_dq(q, k, v, g, lse, delta, nv, **ctx.opts)
             dk, dv = flash_bwd_dkv(q, k, v, g, lse, delta, nv, **ctx.opts)
+            dq, dk, dv = (x.to(dt) for x, dt in zip((dq, dk, dv), dtypes))
         return dq, dk, dv, None, None, None, None, None
 
 

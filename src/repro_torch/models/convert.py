@@ -25,6 +25,10 @@ int32 on both sides (MLA caches hold ``c_kv``, ``k_rope`` and ``idx``).  The
 encoder-decoder's ``init_dec_caches`` leaves are (layers, B, ...), the
 port's ``dec.{i}.*``.
 
+``reference_leaves`` groups the port's parameter names into the
+reference's leaves (the stacks above), for an optimizer that treats a
+stacked leaf as one array.
+
 ``paper_params_from_jax`` does the same for the paper workloads
 (``models/simple.py``), whose parameters are one flat dict on both sides:
 conv kernels go from the reference's HWIO to PyTorch's OIHW, every other
@@ -39,7 +43,8 @@ import torch
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import block_pattern, check_supported
+from repro_torch.models.transformer import block_pattern
+from repro_torch.optim.optimizers import Leaf
 
 _TO_TORCH = {"w": "weight", "b": "bias"}
 _TO_JAX = {v: k for k, v in _TO_TORCH.items()}
@@ -67,7 +72,6 @@ def params_from_jax(tree: dict, cfg: ModelConfig,
                     device: DeviceLike = None) -> dict[str, torch.Tensor]:
     """Reference pytree (jax or numpy leaves) -> flat port parameters on
     ``device`` (the card unless the caller asks for the CPU)."""
-    check_supported(cfg)
     device = resolve_device(device)
     period, n_groups = _layout(cfg)
     out = {}
@@ -118,35 +122,60 @@ def paper_params_from_jax(name: str, tree: dict,
 
 def params_to_jax(params: dict[str, torch.Tensor], cfg: ModelConfig) -> dict:
     """Flat port parameters -> the reference's nested pytree of numpy arrays."""
-    check_supported(cfg)
-    period, n_groups = _layout(cfg)
     tree: dict = {}
     stacked: dict[tuple, list] = {}
     for name, t in params.items():
-        parts = name.split(".")
+        path, index, depth = _reference_leaf(name, params, cfg)
         x = t.detach().cpu().numpy()
-        if parts[-1] == "weight":
+        if name.endswith(".weight"):
             x = x.T
-        # a LayerNorm's bias sits beside its scale and keeps its name
-        if not (parts[-1] == "bias"
-                and ".".join(parts[:-1] + ["scale"]) in params):
-            parts[-1] = _TO_JAX.get(parts[-1], parts[-1])
-        if parts[0] in _STACKS:
-            stacked.setdefault((parts[0], *parts[2:]), [None] * _stack_depth(
-                cfg, parts[0]))[int(parts[1])] = x
-            continue
-        if parts[0] == "layers":
-            i = int(parts[1])
-            if i < n_groups * period:
-                g, j = divmod(i, period)
-                stacked.setdefault(("groups", f"b{j}", *parts[2:]),
-                                   [None] * n_groups)[g] = x
-                continue
-            parts = ["tail", f"t{i - n_groups * period}", *parts[2:]]
-        _put(tree, parts, np.ascontiguousarray(x))
+        if index is None:
+            _put(tree, path, np.ascontiguousarray(x))
+        else:
+            stacked.setdefault(path, [None] * depth)[index] = x
     for path, xs in stacked.items():
         _put(tree, path, np.stack(xs))
     return tree
+
+
+def reference_leaves(names, cfg: ModelConfig) -> dict[tuple, Leaf]:
+    """The port's parameter ``names`` grouped into the reference's leaves,
+    keyed by the leaf's path in the reference's tree (the layout
+    ``params_to_jax`` writes).  An optimizer that is not elementwise (the
+    factored ``adafactor_mini``) needs them: the reference runs it on each
+    stacked leaf as one array."""
+    names = list(names)
+    present = set(names)
+    out: dict[tuple, list] = {}
+    for name in names:
+        path, index, depth = _reference_leaf(name, present, cfg)
+        slots = out.setdefault(path, [None] * (1 if index is None else depth))
+        slots[index or 0] = name
+    return {path: Leaf(tuple(slots), path[0] in ("groups", *_STACKS),
+                       slots[0].endswith(".weight"))
+            for path, slots in out.items()}
+
+
+def _reference_leaf(name: str, present, cfg: ModelConfig):
+    """(path of the reference leaf that holds the port's ``name``, its index
+    along that leaf's stacking axis or None when unstacked, the depth of
+    the stack).  ``present`` holds every parameter name."""
+    period, n_groups = _layout(cfg)
+    parts = name.split(".")
+    # a LayerNorm's bias sits beside its scale and keeps its name
+    if not (parts[-1] == "bias"
+            and ".".join(parts[:-1] + ["scale"]) in present):
+        parts[-1] = _TO_JAX.get(parts[-1], parts[-1])
+    if parts[0] in _STACKS:
+        return ((parts[0], *parts[2:]), int(parts[1]),
+                _stack_depth(cfg, parts[0]))
+    if parts[0] == "layers":
+        i = int(parts[1])
+        if i < n_groups * period:
+            g, j = divmod(i, period)
+            return ("groups", f"b{j}", *parts[2:]), g, n_groups
+        return ("tail", f"t{i - n_groups * period}", *parts[2:]), None, 1
+    return tuple(parts), None, 1
 
 
 def caches_from_jax(tree: dict, cfg: ModelConfig,
@@ -154,7 +183,6 @@ def caches_from_jax(tree: dict, cfg: ModelConfig,
     """Reference decode caches (``init_caches`` / ``apply_lm(caches=)``, jax
     or numpy leaves) -> the port's flat caches on ``device`` (the card
     unless the caller asks for the CPU)."""
-    check_supported(cfg)
     device = resolve_device(device)
     period, n_groups = _layout(cfg)
     out = {}
@@ -182,7 +210,6 @@ def caches_from_jax(tree: dict, cfg: ModelConfig,
 def caches_to_jax(caches: dict[str, torch.Tensor], cfg: ModelConfig) -> dict:
     """The port's flat caches -> the reference's nested tree of numpy
     arrays (groups stacked on a leading axis, the tail unstacked)."""
-    check_supported(cfg)
     period, n_groups = _layout(cfg)
     tree: dict = {}
     stacked: dict[tuple, list] = {}

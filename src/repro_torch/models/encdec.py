@@ -17,7 +17,6 @@ import torch
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import check_supported
 
 Params = L.Params
 
@@ -43,7 +42,6 @@ def init_dec_block(gen, cfg: ModelConfig) -> Params:
 def init_encdec(gen: torch.Generator, cfg: ModelConfig) -> Params:
     """Random parameters on ``gen``'s device, drawn from ``gen``."""
     cfg.validate()
-    check_supported(cfg)
     params = L.prefixed("embed", L.init_embedding(gen, cfg))
     for i in range(cfg.encoder_layers):
         params.update(L.prefixed(f"enc.{i}", init_enc_block(gen, cfg)))

@@ -11,11 +11,23 @@ tensors (``init_caches``), the batch on dim 0 of every one, where the
 reference stacks them per group as ``(groups, B, ...)``.  A block's
 attention is GQA or MLA (``cfg.attention``), its MLP dense or MoE; the aux
 loss (MoE load balance) is summed over the blocks.
+
+``cfg.remat`` checkpoints each group of the block pattern, as the
+reference's ``jax.checkpoint`` over its scan body: the group's activations
+are recomputed in the backward (the hybrid tail is not checkpointed), and
+``remat_policy="dots"`` keeps the outputs of the matmuls without batch
+dims (``aten.mm`` / ``aten.addmm``, the reference's
+``dots_with_no_batch_dims_saveable``) and recomputes the rest, the flash
+kernels' forward included.  Nothing is checkpointed with decode caches or
+without autograd.  Recomputing changes no number.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.utils import checkpoint as C
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import layers as L
@@ -26,12 +38,18 @@ from repro_torch.models.config import ModelConfig
 Params = L.Params
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise for what the port does not run yet."""
-    if cfg.remat:
-        raise NotImplementedError(
-            "activation checkpointing (remat) is not ported yet (ROADMAP "
-            "queue 1, launch slice)")
+def _save_dots(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of ``remat_policy="dots"``."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return C.CheckpointPolicy.MUST_SAVE
+    return C.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_options(cfg: ModelConfig) -> dict:
+    if cfg.remat_policy == "dots":
+        return {"context_fn": functools.partial(
+            C.create_selective_checkpoint_contexts, _save_dots)}
+    return {}
 
 
 def block_pattern(cfg: ModelConfig) -> tuple[str, ...]:
@@ -120,7 +138,6 @@ def init_block_cache(cfg: ModelConfig, kind: str, batch: int, length: int,
 def init_lm(gen: torch.Generator, cfg: ModelConfig) -> Params:
     """Random parameters on ``gen``'s device, drawn from ``gen``."""
     cfg.validate()
-    check_supported(cfg)
     pattern = block_pattern(cfg)
     params = L.prefixed("embed", L.init_embedding(gen, cfg))
     for i in range(cfg.num_layers):
@@ -138,7 +155,6 @@ def init_caches(cfg: ModelConfig, batch: int, length: int, dtype=None,
     """Empty decode caches for ``batch`` rows of ``length`` positions on
     ``device`` (the card unless the caller asks for the CPU): block i's
     state under ``layers.{i}.*``, the batch on dim 0 of every tensor."""
-    check_supported(cfg)
     device = resolve_device(device)
     dtype = dtype or cfg.act_dtype
     pattern = block_pattern(cfg)
@@ -160,8 +176,8 @@ def apply_lm(params: Params, cfg: ModelConfig, tokens, *, prefix_embeds=None,
     caches: decode caches from :func:`init_caches` (S must be 1); then the
     result is (logits, new_caches, aux), the caches given left as they were.
     """
-    check_supported(cfg)
     pattern = block_pattern(cfg)
+    period = len(pattern)
     s = tokens.shape[1]
     if caches is not None and s != 1:
         raise ValueError(f"decode with caches takes one token per row, "
@@ -173,16 +189,31 @@ def apply_lm(params: Params, cfg: ModelConfig, tokens, *, prefix_embeds=None,
     if positions is None:
         positions = torch.arange(s, device=tokens.device)[None, :]
     new_caches = {}
+
+    def blocks(x, aux, layers):
+        for i in layers:
+            name = f"layers.{i}"
+            x, nc, a = apply_block(L.sub(params, name), x, cfg,
+                                   pattern[i % period], positions, num_valid,
+                                   None if caches is None
+                                   else L.sub(caches, name))
+            aux = aux + a
+            if caches is not None:
+                new_caches.update(L.prefixed(name, nc))
+        return x, aux
+
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(cfg.num_layers):
-        name = f"layers.{i}"
-        x, nc, a = apply_block(L.sub(params, name), x, cfg,
-                               pattern[i % len(pattern)], positions,
-                               num_valid,
-                               None if caches is None else L.sub(caches, name))
-        aux = aux + a
-        if caches is not None:
-            new_caches.update(L.prefixed(name, nc))
+    grouped = cfg.num_layers // period * period
+    remat = cfg.remat and caches is None and torch.is_grad_enabled()
+    for first in range(0, grouped, period):
+        group = range(first, first + period)
+        if remat:
+            x, aux = C.checkpoint(functools.partial(blocks, layers=group), x,
+                                  aux, use_reentrant=False,
+                                  **_remat_options(cfg))
+        else:
+            x, aux = blocks(x, aux, group)
+    x, aux = blocks(x, aux, range(grouped, cfg.num_layers))   # the tail
     x = L.apply_norm(L.sub(params, "final_norm"), x, cfg)
     logits = L.unembed(L.sub(params, "embed"), L.sub(params, "lm_head"), x,
                        cfg)

@@ -1,8 +1,10 @@
 from repro_torch.optim.optimizers import (
     Optimizer,
+    adafactor_mini,
     adam,
     adamw,
     constant_lr,
+    get_optimizer,
     momentum,
     sgd,
 )
@@ -16,11 +18,13 @@ from repro_torch.optim.schedules import (
 __all__ = [
     "BatchCoupledSchedule",
     "Optimizer",
+    "adafactor_mini",
     "adam",
     "adamw",
     "batch_coupled",
     "constant_lr",
     "cosine_schedule",
+    "get_optimizer",
     "momentum",
     "sgd",
     "step_schedule",

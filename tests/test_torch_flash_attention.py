@@ -14,18 +14,26 @@ import pytest
 import torch
 
 try:
+    import jax
     import jax.numpy as jnp
+    from repro.configs import get_config as ref_get_config
     from repro.kernels.flash_attention import (flash_attention,
                                                flash_attention_bwd)
     from repro.kernels.flash_attention.kernel import _bwd_call, _pad_lanes
+    from repro.models import init_lm as ref_init_lm
+    from repro.models import layers as ref_layers
+    from repro.models import reduced as ref_reduced
 except ImportError:  # the card's machine has no JAX: run it with -m cuda
     jnp = None
+from repro_torch.configs import get_config
 from repro_torch.kernels.flash_attention import (attention, flash_bwd_dkv,
                                                  flash_bwd_dkv_heads_plain,
                                                  flash_bwd_dkv_plain,
                                                  flash_bwd_dq,
                                                  flash_bwd_dq_plain,
                                                  flash_fwd, flash_fwd_plain)
+from repro_torch.models import layers as L
+from repro_torch.models import params_from_jax, reduced
 
 CASES = [
     # (b, s, t, h, hkv, d, causal, window, softcap, num_valid)
@@ -160,6 +168,80 @@ def test_use_kernel_false_is_the_masked_reference():
         attention(q, k, v, bwd_impl="pallas")
 
 
+def _bf16_attention_grads(port: bool, x32, p32, do32):
+    """Reduced gemma's first attention layer in bf16 with ``use_pallas``
+    (seq 128, so the kernel path is taken; two of three rows valid):
+    output and the gradients of x and of wq, wk, wv, as fp32 numpy."""
+    if port:
+        cfg = reduced(get_config("gemma-2b")).with_(
+            dtype="bfloat16", param_dtype="bfloat16", use_pallas=True)
+        params = params_from_jax(p32, cfg, device="cpu")
+        p = {k: v.to(torch.bfloat16).requires_grad_()
+             for k, v in L.sub(params, "layers.0.attn").items()}
+        x = torch.from_numpy(x32).to(torch.bfloat16).requires_grad_()
+        out = L.gqa_attention(p, x, cfg, num_valid=2)
+        out.backward(torch.from_numpy(do32).to(torch.bfloat16))
+        grads = [x.grad] + [p[f"{w}.weight"].grad.T for w in ("wq", "wk",
+                                                              "wv")]
+        return [t.float().numpy() for t in [out.detach()] + grads]
+    cfg = ref_reduced(ref_get_config("gemma-2b")).with_(
+        dtype="bfloat16", param_dtype="bfloat16", use_pallas=True)
+    p = jax.tree_util.tree_map(
+        lambda a: jnp.asarray(a[0], jnp.bfloat16),
+        p32["groups"]["b0"]["attn"])
+
+    def f(x, p):
+        return ref_layers.gqa_attention(p, x, cfg,
+                                        num_valid=jnp.int32(2))[0]
+
+    out, vjp = jax.vjp(f, jnp.asarray(x32, jnp.bfloat16), p)
+    gx, gp = vjp(jnp.asarray(do32, jnp.bfloat16))
+    return [np.asarray(t, np.float32) for t in
+            (out, gx, gp["wq"]["w"], gp["wk"]["w"], gp["wv"]["w"])]
+
+
+def test_bf16_gqa_attention_with_use_pallas_matches_reference():
+    """Repair of the dtype fault: bf16 through the flash path, against the
+    reference's Pallas kernels (interpret mode) in bf16, on the same
+    bf16-rounded inputs.  Both compute attention in fp32 and store in bf16,
+    but the projections around it round to bf16 (8 mantissa bits, 3.9e-3
+    of a value) in another summation order, and the reference casts each
+    query head's dk / dv to bf16 before summing over the group where the
+    port sums in fp32 and casts once: 1e-2 of each tensor's largest value.
+    Padded rows are exact zeros on both sides."""
+    cfg = ref_reduced(ref_get_config("gemma-2b"))
+    p32 = jax.tree_util.tree_map(np.asarray,
+                                 ref_init_lm(jax.random.PRNGKey(0), cfg))
+    rng = np.random.default_rng(5)
+    x32 = rng.standard_normal((3, 128, cfg.d_model)).astype(np.float32)
+    do32 = rng.standard_normal((3, 128, cfg.d_model)).astype(np.float32)
+    got = _bf16_attention_grads(True, x32, p32, do32)
+    want = _bf16_attention_grads(False, x32, p32, do32)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape
+        assert np.abs(a - b).max() <= 1e-2 * np.abs(b).max()
+    assert (got[0][2:] == 0).all() and (got[1][2:] == 0).all()
+
+
+def test_head_dim_above_256_runs_plain_on_the_cpu():
+    """D 320: the CPU takes the plain version, which has no head-dim limit
+    (the card refuses it, a deliberate difference: ROADMAP queue 3)."""
+    case = (1, 128, 128, 2, 1, 320, True, None, None, 1)
+    q, k, v, do = (torch.from_numpy(x) for x in _inputs(case, seed=6))
+    out, lse = flash_fwd(q, k, v, 1)
+    out_j, lse_j = flash_attention(
+        jnp.asarray(q.numpy()), jnp.asarray(k.numpy()),
+        jnp.asarray(v.numpy()), num_valid=jnp.int32(1), interpret=True,
+        return_lse=True)
+    np.testing.assert_allclose(out.numpy(), np.asarray(out_j), atol=2e-5,
+                               rtol=2e-5)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(lse_j), atol=2e-5,
+                               rtol=2e-5)
+    delta = (do * out).sum(-1).transpose(1, 2).contiguous()
+    assert flash_bwd_dq(q, k, v, do, lse, delta, 1).shape == q.shape
+    assert flash_bwd_dkv(q, k, v, do, lse, delta, 1)[0].shape == k.shape
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -223,3 +305,46 @@ def test_cuda_kernels_match_plain_versions(case, cuda_device):
     assert all(torch.equal(a, b) for a, b in zip(again, got[1:]))
     assert torch.equal(flash_bwd_dq(q, k, v, do, lse_p, delta, nvt, **kw),
                        got[0])
+
+
+# the gemma main path's shapes, in both 16-bit types
+HALF_CASES = [(2, 1024, 1024, 8, 1, 256, True, None, None, nv)
+              for nv in (1, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("case", HALF_CASES, ids=["nv1", "nv2"])
+def test_cuda_kernels_take_16_bit_inputs(case, dtype, cuda_device):
+    """The wrapper casts 16-bit q, k, v and dO to fp32 for the kernels and
+    hands back out, dq, dk and dv in the inputs' dtype (lse f32), as the
+    plain versions do: within 1e-2 of each tensor's largest value (one
+    rounding to 16 bits apart), padded rows exact zeros."""
+    dt = getattr(torch, dtype)
+    q, k, v, do = (torch.from_numpy(x).to(cuda_device, dt)
+                   for x in _inputs(case, seed=7))
+    nv = torch.tensor(case[9], dtype=torch.int32, device=cuda_device)
+    out, lse = flash_fwd(q, k, v, nv)
+    out_p, lse_p = flash_fwd_plain(q, k, v, nv)
+    delta = (do.float() * out_p.float()).sum(-1).transpose(1, 2).contiguous()
+    got = [out, lse, flash_bwd_dq(q, k, v, do, lse_p, delta, nv),
+           *flash_bwd_dkv(q, k, v, do, lse_p, delta, nv)]
+    want = [out_p, lse_p, flash_bwd_dq_plain(q, k, v, do, lse_p, delta, nv),
+            *flash_bwd_dkv_plain(q, k, v, do, lse_p, delta, nv)]
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert a.dtype == b.dtype == (torch.float32 if i == 1 else dt)
+        assert a.shape == b.shape and a.is_contiguous()
+        assert (a.float() - b.float()).abs().max() <= \
+            1e-2 * b.float().abs().max()
+        assert (a[case[9]:] == 0).all()
+
+
+@pytest.mark.cuda
+def test_cuda_head_dim_above_256_raises(cuda_device):
+    """The kernels are built up to head_dim 256; 320 is refused, a
+    deliberate difference from the reference (ROADMAP queue 3)."""
+    q = torch.zeros((1, 128, 2, 320), device=cuda_device)
+    k = torch.zeros((1, 128, 1, 320), device=cuda_device)
+    with pytest.raises(ValueError, match="deliberate difference, ROADMAP "
+                                         "queue 3"):
+        flash_fwd(q, k, k)

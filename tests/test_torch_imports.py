@@ -145,15 +145,17 @@ def test_kernel_wrappers_take_plain_version_only_for_cpu_tensors():
 
 
 def test_unported_paths_of_the_ssm_slice_raise():
-    """What stays unported after slice 7 raises, naming its slice: remat
-    (the launch slice) and ``MeshBackend`` over a list of devices (slice
-    5b).  Every architecture's config loads, and the SSD and RG-LRU decode
-    branches (slice 6) run: one token through each cache gives finite
-    outputs and caches of the cache's shapes."""
+    """What stays unported after slice 8 raises, naming its slice:
+    ``MeshBackend`` over a list of devices (slice 5b).  Remat, which the
+    launch slice ported, runs for every architecture with the loss ``==``
+    the run without it.  Every architecture's config loads, and the SSD
+    and RG-LRU decode branches (slice 6) run: one token through each cache
+    gives finite outputs and caches of the cache's shapes."""
     from repro_torch.api import MeshBackend
     from repro_torch.configs import ARCHITECTURES, get_config
-    from repro_torch.models import (init_caches, init_lm, init_model,
-                                    recurrent_block, reduced, ssd_block)
+    from repro_torch.models import (encdec_loss, init_caches, init_lm,
+                                    init_model, lm_loss, recurrent_block,
+                                    reduced, ssd_block)
     from repro_torch.models.layers import sub
 
     cfg = reduced(get_config("mamba2-1.3b"))
@@ -172,10 +174,22 @@ def test_unported_paths_of_the_ssm_slice_raise():
         assert full.name == arch
         families.add(full.family)
         small = reduced(full)
-        assert init_model(torch.Generator().manual_seed(0), small)
-        with pytest.raises(NotImplementedError, match="launch slice"):
-            init_model(torch.Generator().manual_seed(0),
-                       small.with_(remat=True))
+        params = init_model(torch.Generator().manual_seed(0), small)
+        assert params
+        tokens = torch.arange(16).reshape(2, 8) % small.vocab_size
+        losses = []
+        for c in (small, small.with_(remat=True)):
+            leaves = {k: v.detach().requires_grad_()
+                      for k, v in params.items()}
+            if c.family == "encdec":
+                ls = encdec_loss(leaves, c, torch.ones(
+                    2, c.encoder_seq, c.d_model), tokens, tokens,
+                    torch.ones(2))[0]
+            else:
+                ls = lm_loss(leaves, c, tokens, tokens, torch.ones(2))[0]
+            ls.backward()
+            losses.append(ls.item())
+        assert losses[0] == losses[1]
     assert families == {"dense", "moe", "ssm", "hybrid", "encdec", "vlm"}
     with pytest.raises(NotImplementedError, match="slice 5b"):
         MeshBackend(device=["cpu", "cpu"]).build_trainer(
