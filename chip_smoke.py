@@ -171,7 +171,8 @@ Phases, each of which fails the run (nonzero exit) when it goes wrong:
      256, b0 12, microbatch 4, then reduced gemma-2b on the measured
      backend for 3 steps: losses finite, sum(b_k) = workers x b0 every
      step, sim_time increasing, wall ms a step and peak memory logged; and
-     ``--serve --serve-mode dedicated`` raising, naming slice 5b; (b) the
+     ``--serve --serve-mode dedicated`` on the one card raising the
+     reference's reserve error ("reserving 1 of 1 data-axis devices"); (b) the
      step programs (``launch/steps.py``) at the dry run's overrides (bf16
      parameters and activations, remat) through the kernels:
      gemma-2b at full depth (18 layers), B 4 x S 1024, Adam, 3 steps each
@@ -188,7 +189,30 @@ Phases, each of which fails the run (nonzero exit) when it goes wrong:
      step on the same tokens (the kernels), within SERVE_TOL x max|logit|;
      (c) phase 6's hybrid path for one step with remat: the loss of phase
      6's step 0, each forward kernel launched twice a layer and
-     microbatch, the backward ones once, peak memory beside phase 6's.
+     microbatch, the backward ones once, peak memory beside phase 6's;
+ 15. slice 5b, the measured backend's concurrent round over
+     ``MeshBackend(device=["cuda:0", "cpu"])``, the card and the host CPU
+     computing at once (no two workers on a card): (a) mnist-cnn at phase
+     7's settings, 2 workers, CONC_MNIST_STEPS BSP steps: every round has
+     max(dispatch) < min(completion) in ``last_round_stamps`` and
+     ``iteration_time == max(worker_times)``, Σb_k stays 64, losses are
+     finite, over the last CONC_TAIL rounds the worker slower per example
+     holds the smaller mean batch, and the CPU replica ends bit-equal to
+     the card's master; each round's wall ms is logged beside the max and
+     the sum of the worker ms, with the split, buckets and the torch thread
+     count; (b) gemma-2b at full width, 2 layers, seq 512 (cut from 1024 for
+     the CPU worker's calls), b0 2, microbatch 1, 3 BSP steps: each flash
+     kernel launched 2 layers x the card worker's gradient calls (probe and
+     reruns included), none for the CPU worker's, Σb_k kept, losses
+     finite; per-worker ms, split, buckets and peak GiB logged; (c) phase
+     11(a)'s path with ``ServeSpec(mode="dedicated", devices=1)`` (phase
+     12(d)'s decode model): the CPU is the serve slice and the 3 workers
+     take the card one after another, CONC_SERVE_STEPS steps, then the
+     queue drained: every request finishes, nothing is charged, Σb_k is
+     12, the decode engine's tensors are on the CPU and the trainer's on
+     the card; (d) under FakeClock (cuDNN deterministic) ``device=
+     ["cuda:0"]`` and ``device=None`` run mnist-cnn as ``"cuda:0"`` does
+     over CONC_MATCH_STEPS steps.
 
 Each main path runs with every kernel's launch count set to 0 just before
 it and read just after (phase 11(a): before its session is built, whose
@@ -2922,9 +2946,9 @@ def check_cli() -> dict:
             raise AssertionError(f"CLI run {label}: {r}")
     try:
         train.main(CLI_MESH + ["--serve", "--serve-mode", "dedicated"])
-    except NotImplementedError as exc:
+    except ValueError as exc:
         res["dedicated_raises"] = str(exc)
-        if "slice 5b" not in str(exc):
+        if not str(exc).startswith("reserving 1 of 1 data-axis devices"):
             raise
     else:
         raise AssertionError("--serve-mode dedicated ran on one card")
@@ -3177,6 +3201,347 @@ def check_slice8(report: dict) -> dict:
     return res
 
 
+# ------------------------------------------------------ phase 15, slice 5b
+
+# the concurrent round's data axis on a one-card machine: the card and the
+# host CPU, two disjoint devices computing at once
+CONC_AXIS = ["cuda:0", "cpu"]
+CONC_MNIST_STEPS = 20                    # (a)
+CONC_TAIL = 5                            # (a): rounds "ends with" reads
+# (b): seq cut from phase 4's 1024 so the CPU worker's calls fit the
+# phase's time; microbatch 1 so its one-row bucket carries no padded row
+CONC_GEMMA = dict(layers=2, seq=512, b0=2, microbatch=1, steps=3)
+CONC_SERVE_STEPS = 4                     # (c)
+CONC_MATCH_STEPS = 4                     # (d)
+
+
+def round_log(trainer, stamps: list):
+    """A session hook keeping, after each BSP step, the batches that step
+    ran (read as it starts) and ``last_round_stamps``."""
+    from repro_torch.api import Hook
+
+    ran = []
+    bsp_step = trainer.bsp_step
+
+    def recorded_step():
+        ran.append(list(trainer.batches))
+        return bsp_step()
+
+    trainer.bsp_step = recorded_step
+
+    class Stamps(Hook):
+        def on_step(self, session, rec):
+            stamps.append(session.trainer.last_round_stamps)
+
+    return ran, Stamps()
+
+
+def conc_rows(out, trainer, ran, stamps, wall_ms) -> list:
+    """One row a concurrent round: wall ms beside the max and the sum of
+    the worker ms, the split it ran and its buckets, and whether every
+    call was in flight at once (max dispatch < min completion)."""
+    rows = []
+    for r, b, st, ms in zip(out["history"], ran, stamps, wall_ms):
+        wk = [x * 1e3 for x in r.worker_times]
+        rows.append({
+            "step": r.step, "wall_ms": ms, "worker_ms": wk,
+            "max_ms": max(wk), "sum_ms": sum(wk), "ran": b,
+            "buckets": [trainer.bucket_for(k, x) for k, x in enumerate(b)],
+            "per_example_ms": [w / x for w, x in zip(wk, b)],
+            "all_in_flight": st is not None and max(d for d, _ in st)
+            < min(c for _, c in st),
+            "iteration_is_max": r.iteration_time == max(r.worker_times),
+            "loss": r.loss, "batches_after": r.batches})
+    return rows
+
+
+def log_conc_rows(part: str, rows: list) -> None:
+    for row in rows:
+        log(f"  ({part}) step {row['step']}: wall {row['wall_ms']:.1f} ms, "
+            f"worker ms " + ", ".join(f"{x:.1f}" for x in row["worker_ms"])
+            + f" (max {row['max_ms']:.1f}, sum {row['sum_ms']:.1f}); ran "
+            f"{row['ran']} in buckets {row['buckets']}, all in flight "
+            f"{row['all_in_flight']}, loss {row['loss']:.4f}")
+
+
+def check_conc_mnist() -> dict:
+    """15(a): mnist-cnn at phase 7's settings on two workers over the card
+    and the CPU, concurrent, no dilation."""
+    import torch
+    from repro_torch.api import ClusterSpec, MeshBackend
+
+    exp = paper_experiment("mnist-cnn", "dynamic", CONC_MNIST_STEPS,
+                           cluster=ClusterSpec.hlevel(
+                               39, 8, 2, workload="mnist-cnn", seed=0,
+                               backend=MeshBackend(device=CONC_AXIS)))
+    reset_all_launches()
+    clock, stamps = step_clock(), []
+    session = exp.session()
+    t = session.trainer
+    probe = list(t.batches)
+    ran, stamp_hook = round_log(t, stamps)
+    session.hooks.extend([clock, stamp_hook])
+    out = session.run()
+    del t.bsp_step
+    rows = conc_rows(out, t, ran, stamps, clock.ms)
+    log_conc_rows("a", rows)
+    # "ends with" over the last rounds: single rounds of these
+    # overhead-bound calls jitter by a factor of 2-10 (PERF.md §6)
+    last = rows[-CONC_TAIL:]
+    per_example = [sum(r["per_example_ms"][k] for r in last) / len(last)
+                   for k in range(2)]
+    tail_batches = [sum(r["ran"][k] for r in last) / len(last)
+                    for k in range(2)]
+    final = out["final_batches"]
+    replica_equal = all(torch.equal(t._replicas[1][k], v.cpu())
+                        for k, v in t.params.items())
+    launched = {k: v for k, v in all_launches().items() if v}
+    res = {"rows": rows, "probe_plan": probe, "final_batches": final,
+           "per_example_ms_tail": per_example,
+           "batches_tail": tail_batches,
+           "slices": [list(x) for x in t.slice_plan.slices],
+           "replica_equal": replica_equal, "launches": launched,
+           "torch_threads": torch.get_num_threads(),
+           "timing_reruns": t.timing_reruns}
+    log(f"  (a) probe plan {probe}, final {final}; over the last "
+        f"{CONC_TAIL} rounds per-example ms card {per_example[0]:.4f}, CPU "
+        f"{per_example[1]:.4f}, mean batch card {tail_batches[0]:.1f}, CPU "
+        f"{tail_batches[1]:.1f}; CPU replica bit-equal {replica_equal}; "
+        f"torch threads "
+        f"{res['torch_threads']}; reruns {t.timing_reruns}")
+    slower = max(range(2), key=lambda k: per_example[k])
+    if not (len(rows) == CONC_MNIST_STEPS
+            and all(sum(r["batches_after"]) == 64 for r in rows)
+            and all(r["all_in_flight"] and r["iteration_is_max"]
+                    for r in rows)
+            and all(math.isfinite(r["loss"]) for r in rows)
+            and tail_batches[slower] < tail_batches[1 - slower]
+            and replica_equal and not launched):
+        raise AssertionError(f"15(a) concurrent mnist-cnn: {res}")
+    return res
+
+
+def conc_gemma_experiment():
+    """Phase 4's gemma path at seq CONC_GEMMA["seq"], two undilated
+    workers over the card and the CPU."""
+    from repro_torch.api import (ClusterSpec, Experiment, MeshBackend,
+                                 TrainConfig, lm_workload)
+    from repro_torch.configs import get_config
+    from repro_torch.core import ControllerConfig
+    from repro_torch.data import DataPipeline
+    from repro_torch.optim import adam
+
+    g = CONC_GEMMA
+    cfg = get_config("gemma-2b", num_layers=g["layers"])
+    return Experiment(
+        workload=lm_workload(cfg, DataPipeline(cfg, seq_len=g["seq"],
+                                               num_workers=2,
+                                               device=CONC_AXIS[0]),
+                             aux_weight=0.01, use_kernel=True),
+        cluster=ClusterSpec.hlevel(39, 6.0, 2, workload="transformer",
+                                   seed=0,
+                                   backend=MeshBackend(device=CONC_AXIS)),
+        optimizer=adam(1e-3),
+        config=TrainConfig(b0=g["b0"], microbatch=g["microbatch"],
+                           batching="dynamic", sync="bsp",
+                           max_steps=g["steps"],
+                           controller=ControllerConfig(kind="p")))
+
+
+def check_conc_gemma() -> dict:
+    """15(b): gemma-2b at full width (2 layers, seq 512) on two workers
+    over the card and the CPU; the flash kernels launch for the card
+    worker's calls only (the CPU worker takes their plain versions)."""
+    import torch
+
+    from repro_torch.train import mesh as mesh_mod
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    # every gradient call, probe and reruns included, counted by the
+    # device its slice starts on
+    calls = {"cuda": 0, "cpu": 0}
+    inner = mesh_mod.MeshTrainer._slice_call
+
+    def counted(self, rec, params, shards):
+        calls[self.devices[rec.rows[0]].type] += 1
+        return inner(self, rec, params, shards)
+
+    clock, stamps = step_clock(), []
+    mesh_mod.MeshTrainer._slice_call = counted
+    reset_all_launches()          # the probe round launches too
+    try:
+        session = conc_gemma_experiment().session()
+        t = session.trainer
+        probe = list(t.batches)
+        ran, stamp_hook = round_log(t, stamps)
+        session.hooks.extend([clock, stamp_hook])
+        out = session.run()
+    finally:
+        mesh_mod.MeshTrainer._slice_call = inner
+    del t.bsp_step
+    counts = all_launches()
+    layers = CONC_GEMMA["layers"]
+    card_calls = t.accum_calls + t.timing_reruns - calls["cpu"]
+    want = {k: layers * calls["cuda"] for k in FLASH}
+    rows = conc_rows(out, t, ran, stamps, clock.ms)
+    log_conc_rows("b", rows)
+    res = {"rows": rows, "probe_plan": probe, "calls": calls,
+           "card_calls": card_calls, "launches": counts,
+           "expected_launches": want,
+           "final_batches": out["final_batches"],
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "cut": "seq 1024 -> 512 (the CPU worker's calls)"}
+    log(f"  (b) probe plan {probe}; gradient calls (reruns included) card "
+        f"{calls['cuda']}, CPU {calls['cpu']}; launches "
+        f"{ {k: v for k, v in counts.items() if v} } (want {want}); peak "
+        f"{res['peak_gib']:.2f} GiB; seq cut 1024 -> 512")
+    del session, out, t
+    torch.cuda.empty_cache()
+    if not (len(rows) == CONC_GEMMA["steps"]
+            and all(sum(r["batches_after"]) == 2 * CONC_GEMMA["b0"]
+                    for r in rows)
+            and all(math.isfinite(r["loss"]) and r["iteration_is_max"]
+                    and r["all_in_flight"] for r in rows)
+            and calls["cuda"] == card_calls > 0 and calls["cpu"] > 0
+            and {k: counts.get(k, 0) for k in want} == want
+            and not any(v for k, v in counts.items() if k not in want)):
+        raise AssertionError(f"15(b) concurrent gemma: {res}")
+    return res
+
+
+def check_conc_dedicated() -> dict:
+    """15(c): phase 11(a)'s gemma path with a dedicated serve slice over
+    the card and the CPU: the CPU is the serve slice, the three workers
+    take the card one after another (fewer training devices than
+    workers), and the decode loop's seconds are charged to no one."""
+    import torch
+    from repro_torch.api import MeshBackend
+    from repro_torch.serve import ServeSpec
+
+    exp = mesh_experiment(CONC_SERVE_STEPS)
+    exp.cluster.backend = MeshBackend(dilation="from-spec",
+                                      device=CONC_AXIS)
+    exp.cluster.serve = ServeSpec(**dict(COLO_SERVE, mode="dedicated",
+                                         devices=1))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launches()
+    clock = step_clock()
+    session = exp.session(hooks=[clock])
+    t = session.trainer
+    out = session.run()
+    t.traffic.rate = 0.0
+    t.batcher.run_until_idle()
+    counts = all_launches()
+    want = {k: 2 * (t.accum_calls + t.timing_reruns) for k in FLASH}
+    serve = t.serve_stats()
+    engine_devices = {str(x.device) for x in t.batcher.params.values()} | {
+        str(x.device) for x in t.batcher.caches.values()}
+    trainer_devices = {str(x.device) for x in t.params.values()}
+    rows = [{"step": r.step, "wall_ms": ms, "batches": r.batches,
+             "worker_ms": [x * 1e3 for x in r.worker_times],
+             "decode_ms": c * 1e3}
+            for r, ms, c in zip(out["history"], clock.ms, t.round_charges)]
+    for row in rows:
+        log(f"  (c) step {row['step']}: wall {row['wall_ms']:.1f} ms, "
+            f"worker ms " + ", ".join(f"{x:.1f}" for x in row["worker_ms"])
+            + f", decode on the CPU {row['decode_ms']:.1f} ms (uncharged);"
+            f" split after {row['batches']}")
+    res = {"rows": rows, "concurrent": t.concurrent, "reserve": t.reserve,
+           "serve": serve, "engine_devices": sorted(engine_devices),
+           "trainer_devices": sorted(trainer_devices), "launches": counts,
+           "expected_launches": want,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    log(f"  (c) serve slice {serve['serve_slice']}, reserve {t.reserve}, "
+        f"concurrent {t.concurrent}; {serve['requests_finished']} of "
+        f"{serve['requests_submitted']} requests finished, charged "
+        f"{serve['charged_seconds']} s; decode engine on "
+        f"{sorted(engine_devices)}, trainer on {sorted(trainer_devices)}; "
+        f"peak {res['peak_gib']:.2f} GiB")
+    del session, out, t, exp
+    torch.cuda.empty_cache()
+    if not (len(rows) == CONC_SERVE_STEPS
+            and all(sum(r["batches"]) == 12 for r in rows)
+            and serve["requests_finished"] == serve["requests_submitted"] > 0
+            and serve["charged_seconds"] == 0.0
+            and engine_devices == {"cpu"}
+            and trainer_devices == {"cuda:0"}
+            and {k: counts.get(k, 0) for k in want} == want
+            and not any(v for k, v in counts.items() if k not in want)):
+        raise AssertionError(f"15(c) dedicated serving: {res}")
+    return res
+
+
+def check_conc_one_card() -> dict:
+    """15(d): under FakeClock the one-card list and ``device=None`` run
+    mnist-cnn exactly as ``device="cuda:0"`` (cuDNN deterministic)."""
+    import torch
+    from repro_torch.api import ClusterSpec, MeshBackend
+    from repro_torch.train import mesh as mesh_mod
+
+    runs = {}
+    saved = (mesh_mod._timed, mesh_mod._time,
+             torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    try:
+        mesh_mod._timed = mesh_mod._host_timed
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+        for label, device in (("cuda:0", "cuda:0"), ("[cuda:0]", ["cuda:0"]),
+                              ("None", None)):
+            mesh_mod._time = FakeClock()
+            exp = paper_experiment(
+                "mnist-cnn", "dynamic", CONC_MATCH_STEPS,
+                cluster=ClusterSpec.hlevel(
+                    39, 8, workload="mnist-cnn", seed=0,
+                    backend=MeshBackend(dilation="from-spec",
+                                        device=device)))
+            session = exp.session()
+            out = session.run()
+            t = session.trainer
+            runs[label] = {
+                "records": [(r.batches, r.worker_times, r.sim_time, r.loss)
+                            for r in out["history"]],
+                "exec": t.exec_state_dict(), "reruns": t.timing_reruns,
+                "devices": [str(d) for d in t.devices]}
+    finally:
+        (mesh_mod._timed, mesh_mod._time, torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = saved
+    want = runs["cuda:0"]
+    same = {label: {k: v for k, v in r.items() if k != "devices"}
+            == {k: v for k, v in want.items() if k != "devices"}
+            for label, r in runs.items()}
+    log(f"  (d) trajectories == device='cuda:0': {same}; devices "
+        f"{ {k: r['devices'] for k, r in runs.items()} }")
+    if not all(same.values()):
+        raise AssertionError(f"15(d) one-card lists: {runs}")
+    return {"runs": runs, "same": same}
+
+
+def check_slice5b() -> dict:
+    """Phase 15: (a) mnist-cnn and (b) gemma-2b concurrent over the card
+    and the CPU, (c) dedicated serving on the CPU, (d) one-card lists."""
+    res, seconds = {}, {}
+    for part, label, check in (
+            ("mnist", "(a) mnist-cnn, concurrent on the card and the CPU",
+             check_conc_mnist),
+            ("gemma", "(b) gemma-2b (2 layers, seq 512), concurrent on the "
+             "card and the CPU", check_conc_gemma),
+            ("dedicated", "(c) dedicated serving: decode on the CPU, three "
+             "workers on the card", check_conc_dedicated),
+            ("one_card", "(d) one-card lists under FakeClock",
+             check_conc_one_card)):
+        log(f"  {label}")
+        t0 = time.perf_counter()
+        res[part] = check()
+        seconds[part] = time.perf_counter() - t0
+    res["seconds"] = seconds
+    log("  phase 15 seconds: " + ", ".join(f"{k} {v:.1f}"
+                                            for k, v in seconds.items()))
+    return res
+
+
 # --------------------------------------------------------------------- main
 
 
@@ -3345,6 +3710,10 @@ def main() -> int:
         "remat through the kernels (gemma-2b and llama3-8b at full depth, "
         "llama3-8b serving), the hybrid path with remat")
     report["slice8"] = check_slice8(report)
+    log("[15] slice 5b: the measured backend's concurrent round over the "
+        "card and the host CPU (mnist-cnn, gemma-2b), dedicated serving on "
+        "the CPU, one-card device lists")
+    report["slice5b"] = check_slice5b()
 
     replaces = {
         "flash_fwd": "src/repro/kernels/flash_attention/kernel.py:280",

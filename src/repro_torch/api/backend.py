@@ -2,10 +2,12 @@
 
   * :class:`SimBackend` — real SGD on a PyTorch device under the calibrated
     heterogeneity simulator's clock;
-  * :class:`MeshBackend` — the measured backend: real SGD on one device
-    with ragged per-worker batches padded to a bucket ladder, each worker's
-    gradient call timed (CUDA events on the card), and the controller fed
-    those measured times (``repro_torch.train.mesh``).
+  * :class:`MeshBackend` — the measured backend: real SGD over a list of
+    devices, workers on disjoint slices of it dispatched concurrently
+    (max-of-workers BSP rounds) when there is a device a worker, ragged
+    per-worker batches padded to a bucket ladder, each worker's gradient
+    call timed (CUDA events on a card), and the controller fed those
+    measured times (``repro_torch.train.mesh``).
 
 The same ``Experiment`` runs unchanged on either; select with
 ``ClusterSpec(backend=...)``.
@@ -16,7 +18,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Protocol, Sequence, Union, runtime_checkable
 
-from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.device import (DeviceLike, DevicesLike, resolve_device,
+                                resolve_devices)
 from repro_torch.train.elastic import ElasticTrainer
 from repro_torch.train.mesh import MeshTrainer, dilation_from_specs
 
@@ -66,14 +69,15 @@ class SimBackend:
 
 @dataclasses.dataclass
 class MeshBackend:
-    """The measured backend on one device (``repro_torch.train.mesh``).
+    """The measured backend (``repro_torch.train.mesh``).
 
-    ``device``: the one device the workers time-multiplex; ``None`` means
-    the CUDA card, and raises when there is none.  A list of devices asks
-    for the reference's concurrent slices, which are not ported (slice 5b)
-    and raise.  ``dilation`` controls heterogeneity emulation:
+    ``device``: the data axis, a list of torch devices (the counterpart of
+    the reference's mesh); one device is an axis of one, and ``None`` takes
+    every visible card, raising when there is none.  A CUDA device may
+    appear once; ``"cpu"`` may repeat (its times then measure shared
+    hardware).  ``dilation`` controls heterogeneity emulation:
 
-      * ``None``        — honest measurement only (one device gives
+      * ``None``        — honest measurement only (homogeneous devices give
                           near-equal times, so the controller converges to
                           near-equal batches);
       * ``"from-spec"`` — dilate worker k's measured time by the
@@ -84,25 +88,25 @@ class MeshBackend:
 
     ``growth`` is the bucket-ladder ratio (warm-up reruns per worker are
     bounded by ``ceil(log_growth(b_max/b_min)) + 1``); ``time_alpha`` the
-    measurement EWMA.  BSP, ASP, elastic membership and
-    ``Session.save/restore`` are supported; a ``ClusterSpec.serve`` builds
-    the co-located trainer (``repro_torch.train.colocate``).
+    measurement EWMA.  ``concurrent`` (default on) maps the workers onto
+    disjoint slices of the devices dispatched in parallel, so a BSP round
+    costs max-of-workers time; with fewer devices than workers (one card)
+    the workers take the devices one after another, and
+    ``concurrent=False`` forces that sequential round.  BSP, ASP, elastic
+    membership and ``Session.save/restore`` are supported; a
+    ``ClusterSpec.serve`` builds the co-located trainer
+    (``repro_torch.train.colocate``).
     """
 
     dilation: Union[None, str, Sequence[float]] = None
     growth: float = 1.25
     time_alpha: float = 0.5
-    device: DeviceLike = None
+    device: DevicesLike = None
+    concurrent: bool = True
     name: str = dataclasses.field(default="mesh", init=False)
 
     def build_trainer(self, *, workload, cluster, optimizer, cfg):
-        if isinstance(self.device, (list, tuple)):
-            raise NotImplementedError(
-                "MeshBackend over a list of devices (concurrent worker "
-                "slices through torch.distributed) is not ported yet "
-                "(ROADMAP queue 1, slice 5b); one device runs the workers "
-                "sequentially")
-        device = resolve_device(self.device)
+        devices = resolve_devices(self.device)
         dilation_for_spec = None
         if self.dilation is None:
             worker_dilation = None
@@ -116,7 +120,7 @@ class MeshBackend:
         else:
             worker_dilation = list(self.dilation)
         if workload.to is not None:
-            workload.to(device)
+            workload.to(devices[0])
         kw = dict(
             num_workers=len(cluster.workers),
             init_params=workload.init,
@@ -128,7 +132,8 @@ class MeshBackend:
             time_alpha=self.time_alpha,
             worker_dilation=worker_dilation,
             dilation_for_spec=dilation_for_spec,
-            device=device,
+            device=devices,
+            concurrent=self.concurrent,
         )
         serve = getattr(cluster, "serve", None)
         if serve is not None:

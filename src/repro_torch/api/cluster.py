@@ -7,7 +7,7 @@ events.  A spec is data: every ``build()`` returns a fresh
 
 Spot-market churn is lowered into that schedule by :func:`compile_churn`
 and attached with ``ClusterSpec.with_churn``.  ``serve=`` co-locates a
-continuous-batching decode loop on the measured backend's device
+continuous-batching decode loop on the measured backend's devices
 (:class:`~repro_torch.serve.colocate.ServeSpec`).
 """
 
@@ -284,11 +284,12 @@ class ClusterSpec:
     / ``reallocate_cost_aware``.
 
     ``serve`` co-locates a continuous-batching decode loop on the same
-    device (:class:`~repro_torch.serve.colocate.ServeSpec`, DESIGN.md §13):
-    it time-multiplexes the last worker's device (shared mode), decode
-    latency percentiles are reported in the run result, and the batch
-    controller re-equalizes around the decode interference.  Mesh backend
-    + ``sync="bsp"`` only.
+    devices (:class:`~repro_torch.serve.colocate.ServeSpec`, DESIGN.md
+    §13): it time-multiplexes the last worker's devices (shared mode, the
+    batch controller re-equalizing around the decode interference) or
+    owns devices withheld from training (dedicated mode, resized by the
+    SLO policy); decode latency percentiles are reported in the run
+    result.  Mesh backend + ``sync="bsp"`` only.
     """
 
     workers: list[WorkerSpec]

@@ -5,7 +5,8 @@
 
 Gradients are flat ``dict[str, Tensor]`` keyed like the parameters.
 ``weighted_psum`` is the measured backend's masked mean: a worker's
-gradient SUM over its padded bucket divided once by its mask-weight sum.
+gradient SUM over its padded bucket, added over its slice's devices,
+divided once by its mask-weight sum.
 """
 
 from __future__ import annotations
@@ -72,30 +73,40 @@ def combine_weighted_with_sqnorm(grads: Sequence[Grads],
     return g, tree_sqnorm(g)
 
 
-def weighted_psum(local_grad_sum: Grads,
-                  local_weight_sum: torch.Tensor) -> Grads:
-    """Weighted mean of a worker's gradient on its one device.
+def weighted_psum(local_grad_sum: Grads, local_weight_sum: torch.Tensor,
+                  others: Sequence[tuple[Grads, torch.Tensor]] = ()) -> Grads:
+    """Weighted mean of a worker's gradient over its slice of devices.
 
-    ``local_grad_sum`` holds sum_i w_i * grad_i over the worker's rows,
-    ``local_weight_sum`` the scalar sum_i w_i.  Returns the gradient divided
-    by max(weight sum, 1e-8): exactly Eq. 3 with lambda weighting when the
-    w_i are the bucket's validity mask.  The sums are the caller's scratch
-    and are divided in place (no second copy of the gradient is made); the
-    returned dict holds the same tensors.  (The reference also sums over
-    the worker's data-axis slice; one device is a slice of one.)
+    ``local_grad_sum`` holds sum_i w_i * grad_i over the rows of the
+    slice's first device and ``local_weight_sum`` the scalar sum_i w_i
+    there; ``others`` holds the same pair for each further device of the
+    slice, in slice order (the reference's psum over the slice's data
+    axis).  The partial sums are added on the first device in slice order
+    and divided once by max(total weight, 1e-8): exactly Eq. 3 with lambda
+    weighting when the w_i are the bucket's validity mask.  The first
+    device's sums are the caller's scratch and are accumulated and divided
+    in place (no second copy of the gradient is made); the returned dict
+    holds the same tensors.
     """
-    denom = torch.clamp(local_weight_sum, min=1e-8)
+    wsum = local_weight_sum
+    for grads, weight in others:
+        wsum = wsum + weight.to(wsum.device)
+        for name, g in local_grad_sum.items():
+            g.add_(grads[name].to(g.device))
+    denom = torch.clamp(wsum, min=1e-8)
     for g in local_grad_sum.values():
         g.div_(denom)
     return local_grad_sum
 
 
 def weighted_psum_with_sqnorm(local_grad_sum: Grads,
-                              local_weight_sum: torch.Tensor):
+                              local_weight_sum: torch.Tensor,
+                              others: Sequence[tuple[Grads,
+                                                     torch.Tensor]] = ()):
     """`weighted_psum` plus the squared norm of the worker's mean gradient:
     the |g_k|^2 side statistic of the GNS estimator (DESIGN.md §15).
     Returns ``(g, |g|^2)``."""
-    g = weighted_psum(local_grad_sum, local_weight_sum)
+    g = weighted_psum(local_grad_sum, local_weight_sum, others)
     return g, tree_sqnorm(g)
 
 

@@ -12,16 +12,21 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import importlib
 import os
 import re
 import shutil
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+
+# the kernel packages; each ``<name>/kernel.py`` builds ``SOURCE`` as <name>
+KERNELS = ("flash_attention", "ssd_scan", "rglru_scan")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 BUILD_LOG: dict[str, str] = {}  # library name -> nvcc/ptxas report
@@ -82,3 +87,16 @@ def load(source: Path, name: str) -> ctypes.CDLL:
     if name not in _LIBS:
         _LIBS[name] = ctypes.CDLL(str(build(source, name)))
     return _LIBS[name]
+
+
+def load_all() -> None:
+    """Build (one nvcc per missing library, all started together) and load
+    every kernel library.  Callers that launch kernels from several threads
+    call this first, on one thread: a library is otherwise built at the
+    first launch that needs it, and two threads must not both build it."""
+    mods = [importlib.import_module(f"repro_torch.kernels.{name}.kernel")
+            for name in KERNELS]
+    with ThreadPoolExecutor(len(mods)) as pool:
+        list(pool.map(build, [m.SOURCE for m in mods], KERNELS))
+    for mod in mods:
+        mod._lib()

@@ -10,7 +10,9 @@ policies selectable:
 Real SGD on the reduced config; wall-clock from the calibrated simulator
 (or measured, with ``--backend mesh``); prints per-step records and a
 summary.  ``--full-config`` trains the full-size config.  It runs on the
-CUDA card unless ``--device cpu`` asks for the CPU.
+CUDA card (the mesh backend on every visible card) unless ``--device``
+names others: ``--device cpu`` asks for the CPU, and the mesh backend takes
+a list, ``--device cuda:0,cpu``.
 
 All run construction goes through ``repro_torch.api`` (DESIGN.md §10): the
 CLI parses flags into a declarative Experiment and drives a Session.  The
@@ -50,7 +52,9 @@ def main(argv=None) -> dict:
     ap.add_argument("--backend", default="sim", choices=["sim", "mesh"],
                     help="execution backend (DESIGN.md §11-§12): 'sim' = "
                          "simulated clock; 'mesh' = measured: the workers "
-                         "take the one device in turn over bucket-padded "
+                         "run on disjoint slices of the devices at once "
+                         "(or take them in turn when there are fewer "
+                         "devices than workers) over bucket-padded "
                          "batches, the controller fed their measured step "
                          "times (worker heterogeneity emulated from the "
                          "cluster spec); supports --sync asp and --ckpt")
@@ -124,8 +128,10 @@ def main(argv=None) -> dict:
                          "policy oscillate training's device count (§17)")
     ap.add_argument("--full-config", action="store_true")
     ap.add_argument("--device", default=None,
-                    help="where to train: the CUDA card unless 'cpu' (or "
-                         "another torch device) is given")
+                    help="where to train: the CUDA card (every visible card "
+                         "on the mesh backend) unless 'cpu' (or another "
+                         "torch device) is given; the mesh backend takes a "
+                         "comma-separated list, e.g. 'cuda:0,cpu'")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ckpt", default=None)
     ap.add_argument("--quiet", action="store_true")
@@ -135,7 +141,11 @@ def main(argv=None) -> dict:
     if not args.full_config:
         cfg = reduced(cfg)
 
-    backend = (MeshBackend(dilation="from-spec", device=args.device)
+    devices = args.device.split(",") if args.device else None
+    if devices is not None and len(devices) > 1 and args.backend != "mesh":
+        ap.error("--device with several devices requires --backend mesh: "
+                 "the sim backend trains on one device")
+    backend = (MeshBackend(dilation="from-spec", device=devices)
                if args.backend == "mesh" else SimBackend(device=args.device))
     if args.backend == "mesh" and args.interference:
         ap.error("--interference requires the sim backend: availability "
@@ -149,11 +159,6 @@ def main(argv=None) -> dict:
         if args.sync != "bsp":
             ap.error("--serve requires --sync bsp: the decode loop is "
                      "multiplexed against BSP round boundaries")
-        if args.serve_mode == "dedicated":
-            raise NotImplementedError(
-                "--serve-mode dedicated withholds devices from training for "
-                "the decode loop, which needs more than one device: not "
-                "ported yet (ROADMAP queue 1, slice 5b)")
         serve = ServeSpec(mode=args.serve_mode, devices=args.serve_devices,
                           slots=args.serve_slots, arch=args.arch,
                           requests_per_round=args.serve_rate,
@@ -172,7 +177,8 @@ def main(argv=None) -> dict:
                  "gradient moments (DESIGN.md §15, §18)")
 
     pipe = DataPipeline(cfg, seq_len=args.seq_len, num_workers=args.workers,
-                        seed=args.seed, device=args.device)
+                        seed=args.seed,
+                        device=devices[0] if devices else None)
     lr = (batch_coupled(1e-3, rule=args.lr_couple)
           if args.lr_couple != "none" else 1e-3)
     experiment = Experiment(

@@ -145,18 +145,20 @@ def test_kernel_wrappers_take_plain_version_only_for_cpu_tensors():
 
 
 def test_unported_paths_of_the_ssm_slice_raise():
-    """What stays unported after slice 8 raises, naming its slice:
-    ``MeshBackend`` over a list of devices (slice 5b).  Remat, which the
-    launch slice ported, runs for every architecture with the loss ``==``
-    the run without it.  Every architecture's config loads, and the SSD
+    """What slice 5b ported runs: ``MeshBackend`` over a list of two
+    devices builds two one-device slices.  Remat, which the launch slice
+    ported, runs for every architecture with the loss ``==`` the run
+    without it.  Every architecture's config loads, and the SSD
     and RG-LRU decode branches (slice 6) run: one token through each cache
     gives finite outputs and caches of the cache's shapes."""
-    from repro_torch.api import MeshBackend
+    from repro_torch.api import (ClusterSpec, Experiment, MeshBackend,
+                                 TrainConfig, paper_workload)
     from repro_torch.configs import ARCHITECTURES, get_config
     from repro_torch.models import (encdec_loss, init_caches, init_lm,
                                     init_model, lm_loss, recurrent_block,
                                     reduced, ssd_block)
     from repro_torch.models.layers import sub
+    from repro_torch.optim import sgd
 
     cfg = reduced(get_config("mamba2-1.3b"))
     params = sub(init_lm(torch.Generator().manual_seed(0), cfg),
@@ -191,9 +193,15 @@ def test_unported_paths_of_the_ssm_slice_raise():
             losses.append(ls.item())
         assert losses[0] == losses[1]
     assert families == {"dense", "moe", "ssm", "hybrid", "encdec", "vlm"}
-    with pytest.raises(NotImplementedError, match="slice 5b"):
-        MeshBackend(device=["cpu", "cpu"]).build_trainer(
-            workload=None, cluster=None, optimizer=None, cfg=None)
+    trainer = Experiment(
+        workload=paper_workload("linreg"),
+        cluster=ClusterSpec.homogeneous(
+            20, 2, backend=MeshBackend(device=["cpu", "cpu"])),
+        optimizer=sgd(0.05),
+        config=TrainConfig(b0=8, microbatch=4, batching="uniform")).build()
+    assert trainer.concurrent
+    assert trainer.slice_plan.slices == ((0, 1), (1, 1))
+    assert [list(rec.rows) for rec in trainer._exec] == [[0], [1]]
     hybrid = reduced(get_config("recurrentgemma-9b"))
     rec = sub(init_lm(torch.Generator().manual_seed(0), hybrid),
               "layers.0.rec")

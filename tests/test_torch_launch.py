@@ -112,9 +112,26 @@ def test_cli_errors_match(flags, capsys):
 
 
 def test_cli_dedicated_serving_names_slice_5b():
-    with pytest.raises(NotImplementedError, match="slice 5b"):
-        train.main(CLI + ["--backend", "mesh", "--serve", "--serve-mode",
-                          "dedicated", "--device", "cpu"])
+    """``--serve-mode dedicated`` withholds a device from training: on one
+    device both CLIs raise the reference's reserve error, word for word;
+    over four CPU rows the port's CLI trains on three while the decode
+    loop owns the fourth."""
+    flags = ["--backend", "mesh", "--serve", "--serve-mode", "dedicated"]
+    errors = []
+    for main, extra in ((ref_train.main, []),
+                        (train.main, ["--device", "cpu"])):
+        with pytest.raises(ValueError, match="fully preempted") as exc:
+            main(CLI + flags + extra)
+        errors.append(str(exc.value))
+    assert errors[0] == errors[1]
+    assert errors[1].startswith("reserving 1 of 1 data-axis devices")
+    out = train.main(CLI + flags + ["--device", "cpu,cpu,cpu,cpu"])
+    assert out["steps"] == 4
+    assert all(sum(r.batches) == 3 * 8 for r in out["history"])
+    serve = out["serve"]
+    assert (serve["mode"], serve["reserve"], serve["serve_slice"]) == \
+        ("dedicated", 1, (3, 1))
+    assert serve["charged_seconds"] == 0.0
 
 
 # ------------------------------------------------------------ step programs

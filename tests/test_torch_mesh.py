@@ -37,6 +37,7 @@ import repro.train.mesh as ref_mesh
 from repro.compat import shard_map as ref_shard_map
 from repro.configs import get_config as ref_get_config
 from repro.core import ControllerConfig as RefControllerConfig
+from repro.core import plan_slices as ref_plan_slices
 from repro.core import weighted_psum as ref_weighted_psum
 from repro.data import DataPipeline as RefDataPipeline
 from repro.het.simulator import WorkerSpec as RefWorkerSpec
@@ -458,14 +459,23 @@ def test_dilation_validation_matches_reference(clocks, dilation):
 
 
 def test_several_devices_name_slice_5b():
+    """A list of devices builds the concurrent trainer (slice 5b): three
+    workers over four CPU rows take the reference's slice plan, each
+    worker's bucket quantum is its slice's length, and the round runs
+    with every call in flight."""
     exp = T.Experiment(
         workload=T.paper_workload("linreg"),
         cluster=T.ClusterSpec.hlevel(39, 6, workload="mnist-cnn",
                                      backend=T.MeshBackend(
-                                         device=["cpu", "cpu"])),
+                                         device=["cpu"] * 4)),
         optimizer=sgd(0.05), config=T.TrainConfig(b0=8, microbatch=4))
-    with pytest.raises(NotImplementedError, match="slice 5b"):
-        exp.build()
+    t = exp.build()
+    assert t.concurrent and t.data_extent == t.train_extent == 4
+    assert t.slice_plan.slices == ref_plan_slices(4, 3).slices
+    assert [rec.quantum for rec in t._exec] == [2, 1, 1]
+    rec = t.bsp_step()
+    assert rec.iteration_time == max(rec.worker_times)
+    assert len(t.last_round_stamps) == 3
 
 
 # -------------------------------------------------------------- checkpoints

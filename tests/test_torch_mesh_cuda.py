@@ -89,7 +89,8 @@ def test_event_time_is_bounded_by_the_host_wall(cuda_device):
     mask = (torch.arange(4, device=cuda_device) < 3).to(torch.float32)
 
     def call():
-        return trainer._grad_call(data, mask)
+        return trainer._slice_call(trainer._exec[0], trainer.params,
+                                   [(data, mask)])
 
     call()                                   # warm-up
     for _ in range(3):
