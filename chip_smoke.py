@@ -227,6 +227,7 @@ reports (nvcc's register and shared-memory use, per-case errors) go to
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -3542,7 +3543,402 @@ def check_slice5b() -> dict:
     return res
 
 
-# --------------------------------------------------------------------- main
+# ------------------------------------------------------ phase 16, slice 11
+
+# (a) the dry run: (arch, shape, --mesh, --optimized, the most FLOPs its
+# devices may count together over the same program traced on one rank),
+# each in a fresh interpreter on the machine's CPU, started once (b) and (c)
+# have left the card and the host; the probe programs (1 and 2 block
+# groups) carry the counts.  Every matmul and contraction of these programs
+# is split over the mesh but for a few that DTensor keeps whole on 'model'
+# (1.00-1.13 counted on torch 2.13 and 2.11); a count of global FLOPs, or
+# an op rerun replicated, is many times more
+DRYRUN_CASES = (("llama3-8b", "train_4k", "pod", False, 1.2),
+                ("llama3-8b", "decode_32k", "pod", True, 1.2),
+                ("deepseek-v2-236b", "train_4k", "pod", False, 1.2),
+                ("grok-1-314b", "train_4k", "multipod", False, 1.2))
+DRYRUN_TIMEOUT = 600
+# the same program on one fake rank, for the split check
+ONE_RANK = """
+import json, sys
+from repro_torch.launch import dryrun
+arch, shape, mode, opt, out = sys.argv[1:6]
+over = {"attn_chunk": 512} if opt == "1" and mode == "train" else None
+rec = dryrun.run_one(arch, shape, mesh="1x1", sharding_mode=mode,
+                     config_overrides=over, verbose=False)
+with open(out, "w") as f:
+    json.dump([rec], f)
+"""
+# (b) sharded decode: (arch, config overrides), B rows, tokens
+SHARDED_DECODE = (("gemma-2b", {}),
+                  ("deepseek-v2-236b", dict(num_layers=1, num_experts=32)))
+SHARDED_DECODE_B, SHARDED_DECODE_T = 4, 64
+
+
+def start_dryruns(out_dir: str) -> list:
+    """Phase 16(a), started: ``python -m repro_torch.launch.dryrun`` per
+    case, and the same program on one fake rank, with no card visible."""
+    from repro_torch.configs.shapes import get_shape
+
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src"),
+           "CUDA_VISIBLE_DEVICES": ""}
+    runs = []
+    for arch, shape, mesh, optimized, ceiling in DRYRUN_CASES:
+        out = os.path.join(out_dir, f"dryrun_{arch}_{shape}_{mesh}.json")
+        one = out.replace(".json", "_one_rank.json")
+        mode = "decode2d" if optimized and get_shape(shape).kind == "decode" \
+            else "train"
+        cmds = ([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                 arch, "--shape", shape, "--mesh", mesh, "--out", out]
+                + (["--optimized"] if optimized else []),
+                [sys.executable, "-c", ONE_RANK, arch, shape, mode,
+                 str(int(optimized)), one])
+        runs.append(((arch, shape, mesh, optimized, ceiling), (out, one),
+                     time.perf_counter(),
+                     [subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True)
+                      for cmd in cmds]))
+    return runs
+
+
+def finish_dryruns(runs: list) -> dict:
+    """Phase 16(a), read: each record's argument bytes ``==`` the count
+    from the partition specs; no op rerun replicated; the FLOPs of all
+    devices together at least those of the same program on one rank (a
+    count of global FLOPs would be the devices' number times more) and at
+    most the case's ceiling times them; per-device argument GiB, FLOPs and
+    collective GB logged with the roofline's reading."""
+    from repro_torch.configs.shapes import get_shape
+    from repro_torch.launch import dryrun, roofline
+
+    res = {}
+    for (arch, shape, mesh, optimized, ceiling), outs, t0, procs in runs:
+        recs = []
+        for proc, out in zip(procs, outs):
+            text, _ = proc.communicate(timeout=DRYRUN_TIMEOUT)
+            if proc.returncode:
+                raise AssertionError(f"dry run {arch} {shape} {mesh} exited "
+                                     f"{proc.returncode}: {text[-3000:]}")
+            with open(out) as f:
+                rec, = json.load(f)
+            if rec["status"] != "ok":
+                raise AssertionError(f"dry run {arch} {shape}: {rec}")
+            recs.append(rec)
+        rec, one = recs
+        kind = get_shape(shape).kind
+        mode = "decode2d" if optimized and kind == "decode" else "train"
+        over = {"attn_chunk": 512} if optimized and kind != "decode" \
+            else None
+        want = dryrun.rules_argument_bytes(
+            dryrun.run_config(arch, get_shape(shape), over),
+            get_shape(shape), dryrun.MeshShape(rec["mesh"]), True, mode)
+        r, p = roofline.analyze(rec), rec["probe"]
+        split = p["flops_total"] * rec["devices"] / one["probe"]["flops_total"]
+        res[f"{arch}/{shape}/{rec['mesh']}"] = {
+            "process_s": time.perf_counter() - t0, "record": rec,
+            "roofline": r, "one_rank_flops": one["probe"]["flops_total"],
+            "split_ratio": split, "split_ceiling": ceiling}
+        coll = ", ".join(f"{k} {v / 1e9:.3f}"
+                         for k, v in p["collective_bytes"].items() if v)
+        log(f"  (a) {arch} x {shape} x {rec['mesh']} ({mode}): args "
+            f"{rec['argument_size_in_bytes'] / 2**30:.3f} GiB/device "
+            f"(specs' count {want / 2**30:.3f}), {p['flops_total']:.4g} "
+            f"FLOPs/device, x {rec['devices']} devices = {split:.4f} x the "
+            f"program on one rank (ceiling {ceiling}), collectives "
+            f"{p['collective_bytes_total'] / 1e9:.3f} GB/device ({coll}), "
+            f"useful {r['useful_ratio']:.3f} of the counted FLOPs, bound "
+            f"{r['dominant']} {r['bound_s']:.4g} s; {p['replicated_ops']} "
+            f"ops rerun replicated {p['replicated']}; {rec['wall_s']} s in "
+            f"the dry run, {one['wall_s']} s on one rank")
+        if rec["argument_size_in_bytes"] != want or p["replicated_ops"] \
+                or not 1 - 1e-9 <= split <= ceiling:
+            raise AssertionError(
+                f"dry run {arch} {shape}: argument bytes "
+                f"{rec['argument_size_in_bytes']} (specs {want}), "
+                f"replicated {p['replicated']} {p['replicated_why']}, split "
+                f"ratio {split} (ceiling {ceiling})")
+    return res
+
+
+def one_rank_mesh():
+    """One NCCL rank and a (1, 1) ("data", "model") mesh on the card."""
+    from repro_torch import compat
+    from repro_torch.launch.mesh import make_mesh
+
+    compat.init_group("nccl", 1, 0)
+    return make_mesh((1, 1), ("data", "model"))
+
+
+def placed(tensors: dict, specs: dict, mesh) -> dict:
+    """Whole tensors -> DTensors placed by ``specs`` (on one rank, views
+    of the same storage)."""
+    from repro_torch import compat
+
+    return {k: compat.place(v, mesh, compat.to_placements(specs[k], mesh))
+            for k, v in tensors.items()}
+
+
+def sharded_decode_case(arch: str, overrides: dict, mesh) -> dict:
+    """16(b), one model: the same parameters and tokens decoded one step at
+    a time on the plain path and with the caches as DTensors and the
+    ``decode_attn`` rule set; the sharded attention counted as reached."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import sharding as SH
+    from repro_torch.launch.dryrun import sharded_program
+    from repro_torch.models import (apply_lm, init_caches, init_model,
+                                    shard_hooks, sharded_attn)
+
+    cfg = get_config(arch, **overrides)
+    if cfg.num_experts:     # no token dropped: both paths route alike
+        cfg = cfg.with_(moe_capacity_factor=cfg.num_experts / cfg.moe_top_k)
+    b, t = SHARDED_DECODE_B, SHARDED_DECODE_T
+    g = torch.Generator(device="cuda").manual_seed(0)
+    params = init_model(g, cfg)
+    toks = torch.randint(0, cfg.vocab_size, (b, t), generator=g,
+                         device="cuda")
+    name = "mla_decode_attention" if cfg.attention == "mla" \
+        else "decode_attention"
+    calls = [0]
+    inner = getattr(sharded_attn, name)
+
+    def reached(*a, **kw):
+        calls[0] += 1
+        return inner(*a, **kw)
+
+    def decode(sharded: bool, counted: bool = False):
+        caches = init_caches(cfg, b, t, device="cuda")
+        counter = sharded_program() if counted \
+            else contextlib.nullcontext()
+        if sharded:
+            caches = placed(caches, SH.cache_shardings(caches, mesh), mesh)
+            shard_hooks.set_rules({"decode_attn": (mesh, ("data",),
+                                                   "model")})
+            setattr(sharded_attn, name, reached)
+        out = []
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        try:
+            with torch.no_grad(), counter as counts:
+                start.record()
+                for i in range(t):
+                    lg, caches, _ = apply_lm(
+                        params, cfg, toks[:, i:i + 1], caches=caches,
+                        positions=torch.full((b, 1), i, device="cuda"))
+                    out.append(lg)
+                end.record()
+            torch.cuda.synchronize()
+        finally:
+            shard_hooks.set_rules(None)
+            setattr(sharded_attn, name, inner)
+        return torch.cat(out, 1), start.elapsed_time(end) / t, counts
+
+    torch.cuda.reset_peak_memory_stats()
+    want, plain_ms, _ = decode(False)
+    # counted once (every op through DeviceCounter), timed without it
+    got, counted_ms, counter = decode(True, counted=True)
+    again, ms, _ = decode(True)
+    err = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    res = {"arch": arch, "layers": cfg.num_layers, "tokens": t, "batch": b,
+           "calls": calls[0], "all_reduce": counter.collectives[
+               "all-reduce_count"], "replicated_ops": counter.replicated_ops,
+           "max_abs_err": err, "max_abs_logit": scale,
+           "bit_equal": bool(torch.equal(got, want)),
+           "repeat_bit_equal": bool(torch.equal(again, got)),
+           "plain_ms_per_token": plain_ms, "ms_per_token": ms,
+           "counted_ms_per_token": counted_ms,
+           "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    log(f"  (b) {arch} {cfg.num_layers} layers ({cfg.attention}), B {b}, "
+        f"{t} tokens: sharded {name} reached {calls[0]} times, "
+        f"{res['all_reduce']} logits all-reduces, max abs err {err:.3g} of "
+        f"max |logit| {scale:.3g} (bit-equal {res['bit_equal']}); ms a token"
+        f" sharded {ms:.2f} ({counted_ms:.2f} counting every op), plain "
+        f"{plain_ms:.2f}; peak "
+        f"{res['max_memory_allocated'] / 2**30:.2f} GiB")
+    n = cfg.num_layers * t
+    if not (calls[0] == 2 * n and res["all_reduce"] == n
+            and res["repeat_bit_equal"]
+            and res["replicated_ops"] == 0
+            and err <= 1e-5 * scale and torch.isfinite(got).all()):
+        raise AssertionError(f"sharded decode {arch}: {res}")
+    del params, got, want, again
+    torch.cuda.empty_cache()
+    return res
+
+
+def sharded_step(cfg, batch, mesh=None, steps: int = 2) -> dict:
+    """16(c): ``steps`` train steps of ``make_train_step`` from the seed-0
+    parameters, on the plain path or (``mesh``) with parameters, state and
+    batch as DTensors placed by the partition rules and the hooks' rules
+    set; each step timed by CUDA events (the first sharded one pays
+    DTensor's sharding propagation on the host).  Returns the losses, the
+    parameters after step 0 (plain tensors) and the timings."""
+    import torch
+    from repro_torch import compat
+    from repro_torch.launch import sharding as SH
+    from repro_torch.launch.dryrun import sharded_program
+    from repro_torch.launch.steps import make_train_step, pick_optimizer
+    from repro_torch.models import init_model, shard_hooks
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_model(torch.Generator(device="cuda").manual_seed(0), cfg)
+    opt = pick_optimizer(cfg)
+    program = contextlib.nullcontext()
+    if mesh is not None:
+        program = sharded_program()
+        params = placed(params, SH.params_shardings(params, mesh, cfg=cfg),
+                        mesh)
+        batch = placed(batch, SH.batch_shardings(batch, mesh), mesh)
+        shard_hooks.set_rules({
+            "logits": (mesh, compat.to_placements(("data", None, "model"),
+                                                  mesh)),
+            "activations": (mesh, compat.to_placements(
+                ("data", None, None), mesh)),
+            "attention": (mesh, ("data",), "model")})
+
+    def whole(v):
+        return v.full_tensor() if isinstance(v, compat.DTensor) else v
+
+    state = opt.init(params)    # placed as the parameters
+    step = make_train_step(cfg, opt)
+    losses, ms = [], []
+    try:
+        with program as counter:
+            for i in range(steps):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                params, state, m = step(params, state, i, batch)
+                end.record()
+                torch.cuda.synchronize()
+                ms.append(start.elapsed_time(end))
+                losses.append(whole(m["loss"]).item())
+                if i == 0:
+                    after0 = {k: whole(v).clone() for k, v in params.items()}
+    finally:
+        shard_hooks.set_rules(None)
+    del state, params
+    return {"losses": losses, "params": after0, "step_ms": ms,
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "replicated_ops": getattr(counter, "replicated_ops", None),
+            "replicated": getattr(counter, "replicated", None),
+            "replicated_why": getattr(counter, "replicated_why", None),
+            "collectives": getattr(counter, "collectives", None)}
+
+
+def check_sharded_step(mesh, report: dict) -> dict:
+    """16(c): gemma-2b, 18 layers, bf16, remat "full", B 4 x S 1024, the
+    plain attention: the sharded step against the same step unsharded; the
+    flash kernels refuse a DTensor."""
+    import torch
+    from repro_torch import compat
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.ops import attention
+
+    arch, b, s, _ = GEMMA_STEPS
+    cfg = get_config(arch).with_(**{**DRYRUN, "use_pallas": False},
+                                 remat_policy="full")
+    batch = step_batch(cfg, b, s, 1)
+    plain = sharded_step(cfg, batch)
+    want = plain.pop("params")
+    got = sharded_step(cfg, batch, mesh)
+    have = got.pop("params")
+    worst, equal, n = 0.0, 0, len(want)
+    for k, w in want.items():
+        d = (have[k].float() - w.float()).abs()
+        worst = max(worst, (d / w.float().abs().clamp_min(1e-30)).max()
+                    .item() if d.max() > 0 else 0.0)
+        equal += int(torch.equal(have[k], w))
+    del want, have
+    torch.cuda.empty_cache()
+    q = compat.DTensor.from_local(
+        torch.zeros(1, 128, 2, 64, device="cuda"), mesh,
+        [compat.Replicate()] * 2, run_check=False)
+    try:
+        attention(q, q, q)
+        refused = False
+    except TypeError:
+        refused = True
+    phase14 = report.get("slice8", {}).get("steps", {}).get(
+        "gemma", {}).get("runs", {}).get("full", {})
+    res = {"losses": got["losses"], "plain_losses": plain["losses"],
+           "loss_bit_equal": got["losses"][0] == plain["losses"][0],
+           "tensors": n, "tensors_bit_equal": equal, "max_rel_err": worst,
+           "step_ms": got["step_ms"], "plain_step_ms": plain["step_ms"],
+           "max_memory_allocated": got["max_memory_allocated"],
+           "plain_max_memory_allocated": plain["max_memory_allocated"],
+           "replicated_ops": got["replicated_ops"],
+           "replicated": got["replicated"],
+           "replicated_why": got["replicated_why"],
+           "collectives": got["collectives"],
+           "flash_refuses_dtensor": refused,
+           "phase14_full_step_ms": phase14.get("step_ms"),
+           "phase14_full_peak": phase14.get("max_memory_allocated")}
+    log(f"  (c) {arch} {cfg.num_layers} layers bf16, remat full, B {b} x S "
+        f"{s}, plain attention: losses sharded {got['losses']!r}, "
+        f"unsharded {plain['losses']!r} (step 0 bit-equal "
+        f"{res['loss_bit_equal']}); parameters after step 0 bit-equal "
+        f"{equal} of {n}, max rel err {worst:.3g}; step ms sharded "
+        f"{[round(x, 1) for x in got['step_ms']]}, unsharded "
+        f"{[round(x, 1) for x in plain['step_ms']]} (phase 14(b), flash "
+        f"kernels: "
+        f"{res['phase14_full_step_ms']}); peak sharded "
+        f"{got['max_memory_allocated'] / 2**30:.2f} GiB, unsharded "
+        f"{plain['max_memory_allocated'] / 2**30:.2f} GiB (14(b) "
+        f"{res['phase14_full_peak']} B); "
+        f"{got['replicated_ops']} ops rerun replicated "
+        f"{got['replicated']}; the flash kernels refuse "
+        f"a DTensor: {refused}")
+    l0, p0 = got["losses"][0], plain["losses"][0]
+    if not (refused and got["replicated_ops"] == 0
+            and all(math.isfinite(x) for x in got["losses"])
+            and abs(l0 - p0) <= 1e-5 * abs(p0) and worst <= 1e-5):
+        raise AssertionError(f"sharded step: {res}")
+    return res
+
+
+def check_slice11(report: dict, out_dir: str) -> dict:
+    """Phase 16: over one NCCL rank, (b) the sharded decode and (c) the
+    sharded train step, timed with the host to themselves (they are
+    host-bound); the group is destroyed after each.  Then (a) the dry run
+    on the CPU."""
+    from repro_torch import compat
+
+    res, seconds = {}, {}
+    t0 = time.perf_counter()
+    t = time.perf_counter()
+    mesh = one_rank_mesh()
+    try:
+        res["decode"] = {arch: sharded_decode_case(arch, over, mesh)
+                         for arch, over in SHARDED_DECODE}
+    finally:
+        compat.destroy_group()
+    seconds["decode"] = time.perf_counter() - t
+    t = time.perf_counter()
+    mesh = one_rank_mesh()
+    try:
+        res["step"] = check_sharded_step(mesh, report)
+    finally:
+        compat.destroy_group()
+    seconds["step"] = time.perf_counter() - t
+    t = time.perf_counter()
+    runs = start_dryruns(out_dir)
+    try:
+        res["dryrun"] = finish_dryruns(runs)
+    finally:
+        for *_, procs in runs:      # stopped, whatever failed
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.communicate()
+    seconds["dryrun"] = time.perf_counter() - t
+    seconds["total"] = time.perf_counter() - t0
+    res["seconds"] = seconds
+    log("  phase 16 seconds: " + ", ".join(f"{k} {v:.1f}"
+                                            for k, v in seconds.items()))
+    return res
 
 
 def main() -> int:
@@ -3714,6 +4110,11 @@ def main() -> int:
         "card and the host CPU (mnist-cnn, gemma-2b), dedicated serving on "
         "the CPU, one-card device lists")
     report["slice5b"] = check_slice5b()
+    log("[16] slice 11: the dry run of four production programs on the CPU "
+        "(fake groups of 256 and 512 ranks); over one NCCL rank, the "
+        "sharded decode of gemma-2b (18 layers) and deepseek-v2 (MLA) and "
+        "the sharded gemma-2b train step, each against its plain path")
+    report["slice11"] = check_slice11(report, args.out)
 
     replaces = {
         "flash_fwd": "src/repro/kernels/flash_attention/kernel.py:280",

@@ -21,6 +21,7 @@ from repro_torch.kernels.flash_attention.kernel import (flash_bwd_dkv,
                                                        flash_bwd_dq,
                                                        flash_fwd)
 from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.models.shard_hooks import refuse_dtensor
 
 BWD_IMPLS = ("kernel", "oracle")
 
@@ -78,6 +79,7 @@ def attention(q, k, v, *, num_valid=None, causal: bool = True,
     """
     if bwd_impl not in BWD_IMPLS:
         raise ValueError(f"unknown bwd_impl {bwd_impl!r}; expected {BWD_IMPLS}")
+    refuse_dtensor("flash", q, k, v)
     if num_valid is not None and not isinstance(num_valid, torch.Tensor):
         num_valid = torch.tensor(num_valid, dtype=torch.int32,
                                  device=q.device)

@@ -13,6 +13,7 @@ import torch
 
 from repro_torch.kernels.rglru_scan.kernel import (rglru_linear_scan,
                                                    rglru_linear_scan_bwd)
+from repro_torch.models.shard_hooks import refuse_dtensor
 
 
 class _RGLRU(torch.autograd.Function):
@@ -33,5 +34,6 @@ class _RGLRU(torch.autograd.Function):
 def rglru(a, bx, h0=None):
     """a, bx (B,L,W); h0 (B,W) or None -> (h (B,L,W), hT (B,W)),
     differentiable in a, bx and h0."""
+    refuse_dtensor("RG-LRU", a, bx)
     return _RGLRU.apply(a.contiguous(), bx.contiguous(),
                         None if h0 is None else h0.contiguous())

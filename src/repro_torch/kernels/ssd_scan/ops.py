@@ -23,6 +23,7 @@ import torch
 from repro_torch.kernels.ssd_scan.kernel import (ssd_intra_chunk,
                                                  ssd_intra_chunk_bwd,
                                                  ssd_intra_chunk_plain)
+from repro_torch.models.shard_hooks import refuse_dtensor
 from repro_torch.models.ssm import inter_chunk
 
 BWD_IMPLS = ("kernel", "oracle")
@@ -57,6 +58,7 @@ def ssd(x, a_log, b, c, chunk: int, initial_state=None,
     (y (B,L,H,P), final_state (B,H,P,N)), differentiable in every input."""
     if bwd_impl not in BWD_IMPLS:
         raise ValueError(f"unknown bwd_impl {bwd_impl!r}; expected {BWD_IMPLS}")
+    refuse_dtensor("SSD", x, a_log, b, c)
     bsz, l, h, p = x.shape
     g, n = b.shape[-2:]
     if l % chunk:

@@ -1,7 +1,7 @@
-"""Launch: the training CLI (``train``), the step programs (``steps``) and
-the roofline (``roofline``) of the reference's ``launch/``.
-
-Not ported, as they have no counterpart on one card: ``dryrun`` (lowers
-every step program for 512 placeholder XLA devices), ``sharding`` (GSPMD
-partition specs) and ``mesh`` (the production device meshes).
+"""Launch: the training CLI (``train``), the step programs (``steps``),
+the roofline (``roofline``), and the sharded program of the reference's
+``launch/``: the device meshes (``mesh``, ``DeviceMesh`` over a process
+group), the partition rules (``sharding``, DTensor placements) and the dry
+run (``dryrun``: the step programs traced on fake groups of 256 or 512
+ranks, one device's work counted).
 """

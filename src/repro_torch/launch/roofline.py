@@ -99,11 +99,18 @@ def analyze(rec: dict) -> dict:
         "model_flops": mf,
         "hlo_flops_per_dev": flops,
         "useful_ratio": useful,
-        "hbm_per_dev_bytes": (rec.get("argument_size_in_bytes", 0)
-                              + rec.get("temp_size_in_bytes", 0)
-                              + rec.get("output_size_in_bytes", 0)),
+        "hbm_per_dev_bytes": _hbm_bytes(rec),
         "fix": SUGGESTIONS[dominant],
     }
+
+
+def _hbm_bytes(rec: dict):
+    """Arguments + temporaries + outputs per device; None when one of them
+    was not measured (the port's dry run records no temporaries)."""
+    parts = [rec.get(k, 0) for k in ("argument_size_in_bytes",
+                                     "temp_size_in_bytes",
+                                     "output_size_in_bytes")]
+    return None if None in parts else sum(parts)
 
 
 def table(results: list[dict], mesh: str = "16x16") -> str:
@@ -118,7 +125,8 @@ def table(results: list[dict], mesh: str = "16x16") -> str:
             f"| {r['arch']} | {r['shape']} | {r['compute_s']:.3f} | "
             f"{r['memory_s']:.3f} | {r['collective_s']:.3f} | "
             f"{r['dominant']} | {r['useful_ratio']*100:.0f}% | "
-            f"{r['hbm_per_dev_bytes']/1e9:.1f}GB |")
+            + ("not measured |" if r["hbm_per_dev_bytes"] is None
+               else f"{r['hbm_per_dev_bytes']/1e9:.1f}GB |"))
     return "\n".join(out)
 
 

@@ -17,6 +17,7 @@ import torch
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.shard_hooks import constrain
 
 Params = L.Params
 
@@ -65,6 +66,7 @@ def encode(params: Params, cfg: ModelConfig, frames):
                                 use_rope=False, causal=False)
         x = x + L.apply_mlp(L.sub(p, "mlp"),
                             L.apply_norm(L.sub(p, "norm2"), x, cfg), cfg)
+        x = constrain(x, "activations")
     return L.apply_norm(L.sub(params, "enc_norm"), x, cfg)
 
 
@@ -107,6 +109,7 @@ def decode(params: Params, cfg: ModelConfig, tokens, enc_out, caches=None,
                                 use_rope=False)
         x = x + L.apply_mlp(L.sub(p, "mlp"),
                             L.apply_norm(L.sub(p, "norm2"), x, cfg), cfg)
+        x = constrain(x, "activations")
     x = L.apply_norm(L.sub(params, "final_norm"), x, cfg)
     logits = L.unembed(L.sub(params, "embed"), None, x, cfg)
     return logits, (new_caches if caches is not None else None)

@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.shard_hooks import constrain, get_rules, is_dtensor
 
 Params = dict[str, torch.Tensor]
 
@@ -57,6 +58,8 @@ def init_linear(gen, d_in, d_out, cfg: ModelConfig, use_bias=None) -> Params:
 
 
 def linear(p: Params, x):
+    if is_dtensor(x):
+        x = _sharded_attn().summed(x)
     return F.linear(x, p["weight"].to(x.dtype),
                     p["bias"].to(x.dtype) if "bias" in p else None)
 
@@ -228,10 +231,39 @@ def gqa_attention(p: Params, x, cfg: ModelConfig, *, positions=None,
     dh = cfg.head_dim
     nh = p["wq.weight"].shape[0] // dh
     nkv = p["wk.weight"].shape[0] // dh
-    q = linear(sub(p, "wq"), x).reshape(b, s, nh, dh)
     if positions is None:
         positions = torch.arange(s, device=x.device)[None, :]
 
+    if cache is None and cross_kv is None:
+        def attend(q, k, v):
+            # (B, S, n * dh) projections -> (B, S, nh * dh); on each rank's
+            # heads under the 'attention' rule
+            q, k, v = (t.reshape(t.shape[0], s, -1, dh) for t in (q, k, v))
+            if use_rope:
+                q = rope(q, positions, cfg.rope_theta)
+                k = rope(k, positions, cfg.rope_theta)
+            if cfg.use_pallas and causal and s % 128 == 0:
+                from repro_torch.kernels.flash_attention.ops import attention
+
+                out = attention(q, k, v, causal=True, window=window,
+                                softcap=softcap, num_valid=num_valid)
+            elif (cfg.attn_chunk is not None
+                  and s % min(cfg.attn_chunk, s) == 0):
+                out = chunked_attention_scores(
+                    q, k, v, causal=causal, window=window, softcap=softcap,
+                    chunk=cfg.attn_chunk)
+            else:
+                mask = (causal_mask(s, s, 0, window, device=x.device)
+                        if causal else torch.ones((s, s), dtype=torch.bool,
+                                                  device=x.device))
+                out = attention_scores(q, k, v, mask, softcap)
+            return out.reshape(q.shape[0], s, -1)
+
+        qkv = tuple(linear(sub(p, n), x) for n in ("wq", "wk", "wv"))
+        out = _heads(cfg, attend, qkv, (nh, nkv, nkv))
+        return constrain(linear(sub(p, "wo"), out), "activations")
+
+    q = _split_heads(linear(sub(p, "wq"), x), nh)
     if cross_kv is not None:
         k, v = cross_kv
         if use_rope:
@@ -241,37 +273,68 @@ def gqa_attention(p: Params, x, cfg: ModelConfig, *, positions=None,
             q, k, v, mask, softcap).reshape(b, s, nh * dh))
         return out if cache is None else (out, cache)
 
-    k = linear(sub(p, "wk"), x).reshape(b, s, nkv, dh)
-    v = linear(sub(p, "wv"), x).reshape(b, s, nkv, dh)
+    k = _split_heads(linear(sub(p, "wk"), x), nkv)
+    v = _split_heads(linear(sub(p, "wv"), x), nkv)
     if use_rope:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
 
-    if cache is not None:
-        idx = cache["idx"]
-        t = cache["k"].shape[1]
+    idx = cache["idx"]
+    t = cache["k"].shape[1]
+    mesh_info = get_rules().get("decode_attn")
+    if mesh_info is not None and _sharded_attn().applicable(
+            cfg, b, dh, mesh_info):
+        out, ck, cv = _sharded_attn().decode_attention(
+            q, k, v, cache["k"], cache["v"], idx, mesh_info=mesh_info,
+            softcap=softcap)
+    else:
         ck = _rowwise_write(cache["k"], k, idx)
         cv = _rowwise_write(cache["v"], v, idx)
-        # attend to the slots holding positions <= idx (a ring when windowed)
-        n_written = torch.clamp(idx + 1, max=t)                     # (B,)
-        valid = torch.arange(t, device=x.device)[None, :] < n_written[:, None]
-        out = attention_scores(q, ck, cv, valid[:, None, None, :], softcap)
-        new_cache = {"k": ck, "v": cv, "idx": idx + s}
-        return linear(sub(p, "wo"), out.reshape(b, s, nh * dh)), new_cache
+        # attend to the slots holding positions <= idx (a ring when
+        # windowed)
+        n_written = torch.clamp(idx + 1, max=t)                 # (B,)
+        valid = (torch.arange(t, device=x.device)[None, :]
+                 < n_written[:, None])
+        out = attention_scores(q, ck, cv, valid[:, None, None, :],
+                               softcap)
+    new_cache = {"k": ck, "v": cv, "idx": idx + s}
+    return linear(sub(p, "wo"), _merge_heads(out)), new_cache
 
-    if cfg.use_pallas and causal and s % 128 == 0:
-        from repro_torch.kernels.flash_attention.ops import attention
 
-        out = attention(q, k, v, causal=True, window=window, softcap=softcap,
-                        num_valid=num_valid)
-    elif cfg.attn_chunk is not None and s % min(cfg.attn_chunk, s) == 0:
-        out = chunked_attention_scores(q, k, v, causal=causal, window=window,
-                                       softcap=softcap, chunk=cfg.attn_chunk)
-    else:
-        mask = (causal_mask(s, s, 0, window, device=x.device) if causal
-                else torch.ones((s, s), dtype=torch.bool, device=x.device))
-        out = attention_scores(q, k, v, mask, softcap)
-    return linear(sub(p, "wo"), out.reshape(b, s, nh * dh))
+def _sharded_attn():
+    from repro_torch.models import sharded_attn
+
+    return sharded_attn
+
+
+def _split_heads(x, n: int):
+    """(B, S, n * d) -> (B, S, n, d); a DTensor split over more ranks than
+    whole heads allow (8 kv heads on 16) is gathered on that dim first."""
+    if is_dtensor(x):
+        x = _sharded_attn().whole_heads(x, n)
+    return x.reshape(x.shape[0], x.shape[1], n, -1)
+
+
+def _merge_heads(x):
+    """(B, S, n, d) -> (B, S, n * d); a DTensor split on d is gathered on
+    that dim first (DTensor cannot always flatten a split inner dim)."""
+    if is_dtensor(x):
+        x = _sharded_attn().whole_heads(x, 1)
+    return x.reshape(x.shape[0], x.shape[1], -1)
+
+
+def _heads(cfg: ModelConfig, fn, xs, heads):
+    """``fn(*xs)``; under the 'attention' rule, on each rank's block of the
+    batch and the heads (``sharded_attn.local_heads``).  A sharded program
+    runs the plain paths: the hand-written kernels are refused."""
+    rule = get_rules().get("attention")
+    if rule is None:
+        return fn(*xs)
+    if cfg.use_pallas:
+        raise TypeError("a sharded program runs the plain paths: set "
+                        "use_pallas=False (the hand-written kernels take "
+                        "one card's whole tensors)")
+    return _sharded_attn().local_heads(fn, rule, xs, heads)
 
 
 def init_attn_cache(cfg: ModelConfig, batch: int, length: int, dtype,
@@ -288,12 +351,12 @@ def init_attn_cache(cfg: ModelConfig, batch: int, length: int, dtype,
 def _rowwise_write(cache, update, idx):
     """A copy of ``cache`` (B, T, ...) with row r's one new entry
     ``update[r, 0]`` at slot ``idx[r] % T`` (the reference's per-row
-    ``dynamic_update_slice``, as a scatter into a fresh tensor)."""
+    ``dynamic_update_slice``, as an out-of-place scatter: a DTensor cache
+    has no in-place one)."""
     t = cache.shape[1]
-    out = cache.clone()
     rows = torch.arange(cache.shape[0], device=cache.device)
-    out[rows, (idx % t).long()] = update[:, 0].to(cache.dtype)
-    return out
+    return cache.index_put((rows, (idx % t).long()),
+                           update[:, 0].to(cache.dtype))
 
 
 # ----------------------------------------------------------------------- MLA
@@ -343,53 +406,73 @@ def mla_attention(p: Params, x, cfg: ModelConfig, *, positions=None,
 
     q = linear(sub(p, "wq_b"), apply_norm(sub(p, "q_norm"),
                                           linear(sub(p, "wq_a"), x), cfg))
-    q = q.reshape(b, s, nh, dn + dr)
-    q_nope, q_rope = q[..., :dn], rope(q[..., dn:], positions, cfg.rope_theta)
-
     kv_a = linear(sub(p, "wkv_a"), x)
     c_kv = apply_norm(sub(p, "kv_norm"), kv_a[..., :rank], cfg)
+
+    if cache is None:
+        # full sequence: the expanded (fewest-flops) form
+        def attend(q, kv, k_rope):
+            # (B, S, n * d) blocks -> (B, S, nh * dv); on each rank's heads
+            # under the 'attention' rule
+            bl = q.shape[0]
+            q = q.reshape(bl, s, -1, dn + dr)
+            q = torch.cat([q[..., :dn], rope(q[..., dn:], positions,
+                                             cfg.rope_theta)], dim=-1)
+            k_rope = rope(k_rope.reshape(bl, s, 1, dr), positions,
+                          cfg.rope_theta)
+            kv = kv.reshape(bl, s, -1, dn + dv)
+            k = torch.cat([kv[..., :dn], k_rope.expand(
+                bl, s, kv.shape[2], dr).to(kv.dtype)], dim=-1)
+            out = attention_scores(q, k, kv[..., dn:], causal_mask(
+                s, s, 0, window, device=x.device))
+            return out.reshape(bl, s, -1)
+
+        kv = linear(sub(p, "wkv_b"), c_kv)
+        out = _heads(cfg, attend, (q, kv, kv_a[..., rank:]), (nh, nh, None))
+        return constrain(linear(sub(p, "wo"), out), "activations")
+
+    if s != 1:
+        raise ValueError(f"a cached MLA step takes one token per row, "
+                         f"got {s}")
+    q = q.reshape(b, s, nh, dn + dr)
+    q_nope, q_rope = q[..., :dn], rope(q[..., dn:], positions, cfg.rope_theta)
     k_rope = rope(kv_a[..., rank:].reshape(b, s, 1, dr), positions,
                   cfg.rope_theta)
-
-    if cache is not None:
-        if s != 1:
-            raise ValueError(f"a cached MLA step takes one token per row, "
-                             f"got {s}")
-        idx = cache["idx"]
-        t = cache["c_kv"].shape[1]
-        # wkv_b's weight is (nh * (dn + dv), rank): per head, dn rows of
-        # W_UK then dv rows of W_UV
-        w_b = p["wkv_b.weight"].reshape(nh, dn + dv, rank)
-        w_uk, w_uv = w_b[:, :dn], w_b[:, dn:]
-        q_eff = torch.einsum("bshd,hdr->bshr", q_nope.float(),
-                             w_uk.float()).to(x.dtype)
+    idx = cache["idx"]
+    t = cache["c_kv"].shape[1]
+    # wkv_b's weight is (nh * (dn + dv), rank): per head, dn rows of
+    # W_UK then dv rows of W_UV
+    w_b = p["wkv_b.weight"].reshape(nh, dn + dv, rank)
+    w_uk, w_uv = w_b[:, :dn], w_b[:, dn:]
+    q_eff = torch.einsum("bshd,hdr->bshr", q_nope.float(),
+                         w_uk.float()).to(x.dtype)
+    sm_scale = 1.0 / math.sqrt(dn + dr)
+    mesh_info = get_rules().get("decode_attn")
+    if mesh_info is not None and _sharded_attn().mla_applicable(
+            cfg, b, mesh_info):
+        out_lat, c_all, kr_all = _sharded_attn().mla_decode_attention(
+            q_eff, q_rope, c_kv, k_rope, cache["c_kv"], cache["k_rope"],
+            idx, mesh_info=mesh_info, sm_scale=sm_scale)
+    else:
         c_all = _rowwise_write(cache["c_kv"], c_kv, idx)
         kr_all = _rowwise_write(cache["k_rope"], k_rope, idx)
-        n_written = torch.clamp(idx + 1, max=t)                     # (B,)
-        mask = torch.arange(t, device=x.device)[None, :] < n_written[:, None]
+        n_written = torch.clamp(idx + 1, max=t)                 # (B,)
+        mask = (torch.arange(t, device=x.device)[None, :]
+                < n_written[:, None])
         logits = (torch.einsum("bshr,btr->bhst", q_eff.float(),
                                c_all.float())
                   + torch.einsum("bshd,btd->bhst", q_rope.float(),
                                  kr_all[:, :, 0].float()))
-        logits = logits * (1.0 / math.sqrt(dn + dr))
+        logits = logits * sm_scale
         logits = torch.where(mask[:, None, None, :], logits,
                              torch.full_like(logits, -1e30))
         probs = torch.softmax(logits, dim=-1)
         out_lat = torch.einsum("bhst,btr->bshr", probs,
                                c_all.float()).to(x.dtype)
-        out = torch.einsum("bshr,hdr->bshd", out_lat.float(),
-                           w_uv.float()).to(x.dtype)
-        new_cache = {"c_kv": c_all, "k_rope": kr_all, "idx": idx + s}
-        return linear(sub(p, "wo"), out.reshape(b, s, nh * dv)), new_cache
-
-    # full sequence: the expanded (fewest-flops) form
-    kv = linear(sub(p, "wkv_b"), c_kv).reshape(b, s, nh, dn + dv)
-    k = torch.cat([kv[..., :dn], k_rope.expand(b, s, nh, dr).to(kv.dtype)],
-                  dim=-1)
-    out = attention_scores(torch.cat([q_nope, q_rope], dim=-1), k,
-                           kv[..., dn:],
-                           causal_mask(s, s, 0, window, device=x.device))
-    return linear(sub(p, "wo"), out.reshape(b, s, nh * dv))
+    out = torch.einsum("bshr,hdr->bshd", out_lat.float(),
+                       w_uv.float()).to(x.dtype)
+    new_cache = {"c_kv": c_all, "k_rope": kr_all, "idx": idx + s}
+    return linear(sub(p, "wo"), _merge_heads(out)), new_cache
 
 
 def init_mla_cache(cfg: ModelConfig, batch: int, length: int, dtype,
@@ -486,7 +569,8 @@ def apply_moe(p: Params, x, cfg: ModelConfig):
     b, s, d = x.shape
     e = cfg.num_experts
     g = min(cfg.moe_group_size, b * s)
-    tokens = x.reshape(-1, d)
+    # the gradient comes back to (B, S, D) in the activations' placement
+    tokens = constrain(x.reshape(-1, d), "activations")
     t = tokens.shape[0]
     if (-t) % g:
         tokens = F.pad(tokens, (0, 0, 0, (-t) % g))
@@ -502,14 +586,26 @@ def apply_moe(p: Params, x, cfg: ModelConfig):
     # choices has one term: both are exact, whatever the order
     dispatch = torch.einsum("ngke,ngkc->ngec", sel * fits[..., None], pos_oh)
     combine = torch.einsum("ngke,ngkc->ngec", sel * gate[..., None], pos_oh)
-
     dt = xt.dtype
-    xin = torch.einsum("ngd,ngec->necd", xt, dispatch.to(dt))
-    act = F.silu(torch.einsum("necd,edf->necf", xin, p["w_gate"].to(dt)))
-    up = torch.einsum("necd,edf->necf", xin, p["w_up"].to(dt))
-    xout = torch.einsum("necf,efd->necd", act * up, p["w_down"].to(dt))
-    out = torch.einsum("necd,ngec->ngd", xout, combine.to(dt))
-    out = out.reshape(-1, d)[:t].reshape(b, s, d)
+
+    def experts(xt, dispatch, combine, w_gate, w_up, w_down):
+        # expert-major buffers, so that the expert contractions batch over
+        # e without a transpose (a sharded program's local shards stay
+        # contiguous); the slot is 'p' here, after 'e': einsum folds the
+        # dims it sums in label order, and DTensor folds a split dim only
+        # outermost
+        xin = torch.einsum("ngd,ngep->enpd", xt, dispatch.to(dt))
+        act = F.silu(torch.einsum("enpd,edf->enpf", xin, w_gate.to(dt)))
+        up = torch.einsum("enpd,edf->enpf", xin, w_up.to(dt))
+        xout = torch.einsum("enpf,efd->enpd", act * up, w_down.to(dt))
+        return torch.einsum("enpd,ngep->ngd", xout, combine.to(dt))
+
+    args = (xt, dispatch, combine, p["w_gate"], p["w_up"], p["w_down"])
+    rule = get_rules().get("experts")
+    out = experts(*args) if rule is None else \
+        _sharded_attn().local_experts(experts, rule, *args)
+    # tokens back to the activations' placement before they are (B, S, D)
+    out = constrain(out.reshape(-1, d)[:t], "activations").reshape(b, s, d)
 
     # Switch-style load-balance loss
     aux = (probs.mean(1) * sel.sum(2).mean(1)).sum(-1).mean() * e
@@ -527,7 +623,11 @@ def init_embedding(gen, cfg: ModelConfig) -> Params:
 
 
 def embed(p: Params, tokens, cfg: ModelConfig):
-    x = p["table"][tokens].to(cfg.act_dtype)
+    if is_dtensor(p["table"]):
+        x = _sharded_attn().local_rows(p["table"], tokens)
+    else:
+        x = p["table"][tokens]
+    x = x.to(cfg.act_dtype)
     if cfg.scale_embeddings:
         x = x * math.sqrt(cfg.d_model)
     return x
@@ -539,6 +639,7 @@ def unembed(p_embed: Params, p_head: Optional[Params], x, cfg: ModelConfig):
         logits = F.linear(x, p_embed["table"].to(x.dtype))
     else:
         logits = linear(p_head, x)
+    logits = constrain(logits, "logits")
     if cfg.logit_softcap is not None:
         logits = _softcap(logits.float(), cfg.logit_softcap).to(x.dtype)
     return logits
@@ -554,17 +655,27 @@ class _TokenXent(torch.autograd.Function):
         lf = logits.float()
         m = lf.amax(-1)
         logz = torch.log(torch.exp(lf - m[..., None]).sum(-1)) + m
-        tgt = lf.gather(-1, targets[..., None])[..., 0]
+        # the target logit stays (B,S,1) until the subtraction: a DTensor
+        # gather over a vocabulary-sharded dim is a masked partial, which
+        # is reduced at the subtraction and cannot be indexed before
+        tgt = lf.gather(-1, targets[..., None])
         ctx.save_for_backward(logits, targets, logz)
-        return logz - tgt
+        return (logz[..., None] - tgt)[..., 0]
 
     @staticmethod
     def backward(ctx, g):
         logits, targets, logz = ctx.saved_tensors
         probs = torch.exp(logits.float() - logz[..., None])
-        probs.scatter_add_(-1, targets[..., None],
-                           torch.full_like(targets[..., None], -1.0,
-                                           dtype=probs.dtype))
+        if is_dtensor(probs):
+            # a scatter over a vocabulary-sharded dim has no sharding
+            # strategy: subtract the reference's one-hot (the same values)
+            onehot = targets[..., None] == torch.arange(
+                probs.shape[-1], device=probs.device)
+            probs = probs - onehot.to(probs.dtype)
+        else:
+            probs.scatter_add_(-1, targets[..., None],
+                               torch.full_like(targets[..., None], -1.0,
+                                               dtype=probs.dtype))
         return (probs * g[..., None]).to(logits.dtype), None
 
 

@@ -20,8 +20,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import (Params, _dense_init, apply_norm,
-                                       init_norm, linear, prefixed, sub)
+from repro_torch.models.layers import (Params, _dense_init, _heads,
+                                       apply_norm, init_norm, linear,
+                                       prefixed, sub)
 
 
 def segsum(a):
@@ -178,7 +179,19 @@ def ssd_block(p: Params, x, cfg: ModelConfig, cache=None):
         y = torch.einsum("bhpn,bhn->bhp", state, ch)[:, None]
         new_cache = {"conv": new_conv, "state": state}
     else:
-        y = _scan(x_dt, a_log_step, bmat, cmat, cfg)[:, :s]
+        def scan(x_dt, a_log_step, bmat, cmat):
+            # flat (B, S, n * d) blocks; on each rank's heads under the
+            # 'attention' rule
+            bl = x_dt.shape[0]
+            y = _scan(x_dt.reshape(bl, s, -1, ph), a_log_step,
+                      bmat.reshape(bl, s, -1, n), cmat.reshape(bl, s, -1, n),
+                      cfg)
+            return y[:, :s].reshape(bl, s, -1)
+
+        y = _heads(cfg, scan, (x_dt.reshape(bsz, s, h * ph), a_log_step,
+                               bmat.reshape(bsz, s, g * n),
+                               cmat.reshape(bsz, s, g * n)),
+                   (h, h, g, g)).reshape(bsz, s, h, ph)
         new_cache = None
 
     y = y + xs.float() * p["d_skip"][None, None, :, None]

@@ -34,6 +34,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import recurrent as R
 from repro_torch.models import ssm as S
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.shard_hooks import constrain
 
 Params = L.Params
 
@@ -186,6 +187,7 @@ def apply_lm(params: Params, cfg: ModelConfig, tokens, *, prefix_embeds=None,
     if prefix_embeds is not None:
         p = prefix_embeds.shape[1]
         x = torch.cat([prefix_embeds.to(x.dtype), x[:, p:]], dim=1)
+    x = constrain(x, "activations")
     if positions is None:
         positions = torch.arange(s, device=tokens.device)[None, :]
     new_caches = {}
@@ -197,6 +199,7 @@ def apply_lm(params: Params, cfg: ModelConfig, tokens, *, prefix_embeds=None,
                                    pattern[i % period], positions, num_valid,
                                    None if caches is None
                                    else L.sub(caches, name))
+            x = constrain(x, "activations")
             aux = aux + a
             if caches is not None:
                 new_caches.update(L.prefixed(name, nc))
@@ -234,8 +237,11 @@ def lm_loss(params: Params, cfg: ModelConfig, tokens, targets, mask,
     nll = L.token_xent(logits, targets)
     tok_w = mask[:, None].expand_as(nll) if mask.dim() == 1 else mask
     if prefix_embeds is not None:  # no loss on the patch positions
-        tok_w = tok_w.clone()
-        tok_w[:, :prefix_embeds.shape[1]] = 0.0
+        # out of place: a DTensor has no in-place fill of a slice
+        patch = torch.arange(tok_w.shape[1], device=tok_w.device) \
+            < prefix_embeds.shape[1]
+        tok_w = torch.where(patch, torch.zeros((), dtype=tok_w.dtype,
+                                               device=tok_w.device), tok_w)
     return (nll * tok_w).sum(), tok_w.sum(), aux
 
 

@@ -61,8 +61,46 @@ def test_scan_sees_the_whole_port():
                  "serve/colocate.py", "train/colocate.py",
                  "models/encdec.py", "configs/shapes.py",
                  "configs/deepseek_v2_236b.py", "configs/whisper_medium.py",
-                 "configs/phi_3_vision_4_2b.py", "configs/grok_1_314b.py"):
+                 "configs/phi_3_vision_4_2b.py", "configs/grok_1_314b.py",
+                 "compat.py", "launch/dryrun.py", "launch/mesh.py",
+                 "launch/sharding.py", "models/shard_hooks.py",
+                 "models/sharded_attn.py"):
         assert must in names
+
+
+def test_every_reference_module_has_a_counterpart():
+    """A diff of the two packages' module lists is empty."""
+    ref = ROOT / "src" / "repro"
+    port = ROOT / "src" / "repro_torch"
+    missing = sorted(p.relative_to(ref).as_posix() for p in ref.rglob("*.py")
+                     if not (port / p.relative_to(ref)).exists())
+    assert missing == []
+
+
+def test_importing_the_port_makes_no_process_group():
+    """Every module of the port imports in a fresh interpreter without
+    starting a process group (meshes and groups are made by functions)."""
+    import subprocess
+    import sys
+
+    mods = sorted(
+        "repro_torch." + ".".join(p.relative_to(
+            ROOT / "src" / "repro_torch").with_suffix("").parts)
+        for p in PORT_FILES[:-1])
+    mods = [m[:-len(".__init__")] if m.endswith(".__init__") else m
+            for m in mods]
+    code = ("import importlib, sys\n"
+            "import torch.distributed as dist\n"
+            "for m in sys.argv[1:]:\n"
+            "    importlib.import_module(m)\n"
+            "    assert not dist.is_initialized(), m\n"
+            "print('ok', len(sys.argv) - 1)\n")
+    proc = subprocess.run(
+        [sys.executable, "-c", code, *mods], capture_output=True, text=True,
+        timeout=120, env={"PYTHONPATH": str(ROOT / "src"),
+                          "PATH": "/usr/bin:/bin"})
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.split() == ["ok", str(len(mods))]
 
 
 @pytest.fixture
