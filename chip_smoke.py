@@ -40,11 +40,17 @@ Phases, each of which fails the run (nonzero exit) when it goes wrong:
      a float64 scan, then kernel and plain timings (no single PyTorch call
      computes the RG-LRU scan), with a second rglru_fwd launch repeating the
      first bit for bit and the forward kernel alone against a float64 scan;
-     then the flash trio on bf16 and fp16 inputs at the gemma shapes
-     (num_valid 1 and 2) against the plain versions on the same inputs
-     (outputs in the inputs' dtype, within HALF_TOL of each tensor's
-     largest value, padded rows exact zeros), and the bf16 wrapper's times,
-     its casts included, beside SDPA's bf16 call, with its bound at the bf16
+     then the 16-bit flash entries (csrc/flash_attention_16.cu: a wgmma +
+     TMA forward, m16n8k16 backward kernels and the backward's delta) on
+     bf16 and fp16 inputs at the gemma (num_valid 1 and 2), llama3-8b and
+     phi-3-vision (D 96) shapes against the plain versions on the same
+     inputs (outputs in the inputs' dtype, within HALF_TOL of each tensor's
+     largest value, delta within DELTA_TOL, padded rows exact zeros, a
+     second dq and dk/dv launch bit-equal, each call launching its 16-bit
+     entry alone and allocating no fp32 copy of an input), and their bf16
+     times at the gemma and llama3-8b shapes, no cast in the timed call,
+     beside SDPA's flash backend (the memory-efficient call beside it),
+     with their device time by torch.profiler and their bound at the bf16
      tensor-core rate (the fp32 and 3xTF32 bounds beside it);
   3. small-input checks that the LM loss and its gradients through the
      kernels equal those of the plain path, on the card: reduced gemma-2b
@@ -179,12 +185,15 @@ Phases, each of which fails the run (nonzero exit) when it goes wrong:
      with remat off, "full" and "dots", then 3 with accum_steps 4: step 0's
      loss equal across the three settings (bit-equality reported), flash
      launches 2 x 18 x microbatches forward under remat (18 x without),
-     18 x microbatches each backward, peak memory and step ms by CUDA
+     18 x microbatches each backward, each through its 16-bit entry (and
+     the delta kernel once a backward), peak memory and step ms by CUDA
      events; llama3-8b at full depth (32 layers), B 2 x S 2048, remat
      "full", adafactor over the reference's stacked leaves, 3 steps and a
      fourth profiled: losses finite, step 2's below step 0's, the flash
-     kernels' share of busy time, useful TFLOP/s (6 x active parameters x
-     tokens) beside the bf16 peak of ``launch/roofline.py``; then its serve
+     kernels' and the dtype casts' shares of busy time, no cast inside
+     the flash attention function's forward or backward, useful TFLOP/s
+     (6 x active parameters x tokens) beside the bf16 peak of
+     ``launch/roofline.py``; then its serve
      step over SERVE_TOKENS tokens from empty caches against its prefill
      step on the same tokens (the kernels), within SERVE_TOL x max|logit|;
      (c) phase 6's hybrid path for one step with remat: the loss of phase
@@ -231,6 +240,7 @@ import contextlib
 import json
 import math
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -446,38 +456,54 @@ def check_fp64() -> dict:
 
 # (label, B, S, T, H, Hkv, D, window, softcap): the gemma main path's
 # attention, recurrentgemma's local blocks on the hybrid path, and slice 7's
-# phi-3-vision (phase 13(a)) and grok-1 (13(c)) shapes
+# phi-3-vision (phase 13(a)) and grok-1 (13(c)) shapes; on 16-bit inputs
+# gemma's and llama3-8b's (phase 14(b))
 FLASH_TIMED = [("gemma", 2, 1024, 1024, 8, 1, 256, None, None),
                ("hybrid", 2, 2048, 2048, 16, 1, 256, 2048, None),
                ("phi3", 2, 1024, 1024, 32, 32, 96, None, None),
                ("grok", 2, 1024, 1024, 48, 8, 128, None, 30.0)]
+FLASH_TIMED_16 = [FLASH_TIMED[0],
+                  ("llama3", 2, 2048, 2048, 32, 8, 128, None, None)]
+
+
+YARDSTICK_ROUNDS = 5  # the 16-bit forward alternated with SDPA's default
 
 
 def time_kernels(peak: tuple, report: dict, shape=FLASH_TIMED[0],
                  dtype: str = "float32") -> dict:
     """kernel / plain / library times at one of ``FLASH_TIMED``'s shapes
-    (causal, nv = B) on inputs of ``dtype``, with the bound and, as all
-    three kernels run on the tensor cores, the 3xTF32 bound (three TF32
-    products per fp32 one).  ``peak`` is a ``PEAKS`` entry.
+    (causal, nv = B) on inputs of ``dtype``, with the bound.  ``peak`` is a
+    ``PEAKS`` entry.  Each input is counted read once and each output
+    written once; the FLOPs are those of the visible pairs.
 
-    On fp32 inputs the bound takes the fp32 rate.  On 16-bit inputs the
-    kernel times include the wrapper's casts to fp32 and back, the bytes
-    are 16-bit ones (lse and delta stay fp32), and the bound takes the
-    16-bit tensor-core rate: bf16 products accumulated in fp32 compute
-    Q.K^T of 16-bit inputs exactly, so that is the least time for the
-    function; the fp32 bound stands beside it as ``fp32_bound_ms``.
+    On fp32 inputs the fp32 entry runs, and the bound takes the fp32 rate,
+    with the 3xTF32 bound beside it (three TF32 products per fp32 one, as
+    the fp32 kernels compute).  The library is SDPA's memory-efficient
+    attention in fp32 on (B,H,S,D) tensors with the kv head repeated to H
+    (the window, where given, does not bite at these S, so causal SDPA
+    computes the same function; SDPA has no softcap, so with one it times
+    the uncapped function, a yardstick only: ``library_same_function``
+    False and no error against it).  Its backward is one call that
+    computes dq, dk and dv together, so both backward kernels carry its
+    time; compare it with the sum of theirs.  Its dk/dv come per query
+    head; summed over each kv head's group they are checked against the
+    kernels' here.
 
-    The library is SDPA's memory-efficient attention in fp32 on (B,H,S,D)
-    tensors with the kv head repeated to H (the window, where given, does
-    not bite at these S, so causal SDPA computes the same function; SDPA
-    has no softcap, so with one it times the uncapped function, a yardstick
-    only: ``library_same_function`` False and no error against it).  Its
-    backward is one call that computes dq, dk and dv together, so both
-    backward kernels carry its time; compare it with the sum of theirs.
-    Its dk/dv come per query head; summed over each kv head's group they
-    are checked against the kernels' here.  On 16-bit inputs SDPA keeps
-    the operands on the tensor cores with fp32 accumulation, another
-    internal precision than the kernels' 3xTF32."""
+    On 16-bit inputs the 16-bit entries run (keys ``flash_fwd_16`` ...,
+    and ``flash_delta_16``, the backward's delta), reading the inputs as
+    they are: no cast in the timed call.  Bytes are 16-bit ones (lse,
+    delta and the GQA partials' fp32 scratch aside), and the bound takes
+    the 16-bit tensor-core rate (products of 16-bit inputs accumulated in
+    fp32 compute Q.K^T exactly); the fp32 and 3xTF32 bounds stand beside
+    it.  The library is SDPA's flash backend alone
+    (``aten._scaled_dot_product_flash_attention`` and its backward), the
+    memory-efficient call's times beside it as ``efficient_ms`` (and, for
+    the forward, ``F.scaled_dot_product_attention``'s own choice of
+    backend as ``sdpa_default_ms``, the yardstick of the 16-bit path's
+    earlier timings).
+    ``device_ms`` is the kernels' device time a call by torch.profiler,
+    where ``ms`` (CUDA events around back-to-back calls) also holds the
+    wrapper's host time when that is the longer."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import kernel as K
@@ -489,6 +515,7 @@ def time_kernels(peak: tuple, report: dict, shape=FLASH_TIMED[0],
         raise ValueError(f"{label}: a biting window has no SDPA yardstick")
     peak_fp32, peak_bw, peak_tf32, peak_16 = peak
     dt = getattr(torch, dtype)
+    half = dt != torch.float32
     g = torch.Generator(device=dev).manual_seed(0)
     q, k, v, do = (torch.randn(x, generator=g, device=dev).to(dt)
                    for x in ((b, s, h, d), (b, t, hkv, d), (b, t, hkv, d),
@@ -496,7 +523,7 @@ def time_kernels(peak: tuple, report: dict, shape=FLASH_TIMED[0],
     nv = torch.tensor(b, dtype=torch.int32, device=dev)
     kw = dict(causal=True, window=window, softcap=cap)
     out, lse = K.flash_fwd(q, k, v, nv, **kw)
-    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    delta = K.flash_delta_plain(do, out)
     pairs = int(visible_mask(s, t, causal=True, window=window).sum())
     size = q.element_size()  # bytes per input value; lse and delta fp32
     q_bytes, kv_bytes, row_bytes = b * s * h * d * size, \
@@ -508,6 +535,7 @@ def time_kernels(peak: tuple, report: dict, shape=FLASH_TIMED[0],
                          3 * q_bytes + 2 * kv_bytes + 2 * row_bytes),
         "flash_bwd_dkv": (8 * d * pairs * h * b,
                           2 * q_bytes + 4 * kv_bytes + 2 * row_bytes),
+        "flash_delta": (2 * b * s * h * d, 2 * q_bytes + row_bytes),
     }
     rep = h // hkv
     qt = q.transpose(1, 2).contiguous()
@@ -516,16 +544,34 @@ def time_kernels(peak: tuple, report: dict, shape=FLASH_TIMED[0],
     dot = do.transpose(1, 2).contiguous()
     eff_fwd = torch.ops.aten._scaled_dot_product_efficient_attention
     eff_bwd = torch.ops.aten._scaled_dot_product_efficient_attention_backward
-    out_l, lse_l, seed, offset = eff_fwd(qt, kt, vt, None, True, 0.0, True)
+    out_e, lse_e, seed, offset = eff_fwd(qt, kt, vt, None, True, 0.0, True)
 
-    def lib_bwd():
-        return eff_bwd(dot, qt, kt, vt, None, out_l, lse_l, seed, offset, 0.0,
+    def eff_backward():
+        return eff_bwd(dot, qt, kt, vt, None, out_e, lse_e, seed, offset, 0.0,
                        [True, True, True, False], True)
 
-    dq_l, dk_l, dv_l, _ = lib_bwd()
+    if half:
+        fa_fwd = torch.ops.aten._scaled_dot_product_flash_attention
+        fa_bwd = torch.ops.aten._scaled_dot_product_flash_attention_backward
+        fa = fa_fwd(qt, kt, vt, 0.0, True, False)
+
+        def lib_fwd():
+            return fa_fwd(qt, kt, vt, 0.0, True, False)
+
+        def lib_bwd():
+            return fa_bwd(dot, qt, kt, vt, fa[0], fa[1], fa[2], fa[3], fa[4],
+                          fa[5], 0.0, True, fa[6], fa[7])
+
+        out_l, (dq_l, dk_l, dv_l) = fa[0], lib_bwd()
+    else:
+        def lib_fwd():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+
+        lib_bwd = eff_backward
+        out_l, (dq_l, dk_l, dv_l, _) = out_e, lib_bwd()
     dq, (dk, dv) = (K.flash_bwd_dq(q, k, v, do, lse, delta, nv, **kw),
                     K.flash_bwd_dkv(q, k, v, do, lse, delta, nv, **kw))
-    key = label if dt == torch.float32 else f"{label}-{dtype}"
+    key = label if not half else f"{label}-{dtype}"
     report.setdefault("library_vs_kernel", {})[key] = None if cap else {
         "out": (out_l.transpose(1, 2).float() - out.float()).abs().max()
         .item(),
@@ -538,9 +584,7 @@ def time_kernels(peak: tuple, report: dict, shape=FLASH_TIMED[0],
     del dq_l, dk_l, dv_l
     calls = {
         "flash_fwd": (lambda: K.flash_fwd(q, k, v, nv, **kw),
-                      lambda: K.flash_fwd_plain(q, k, v, nv, **kw),
-                      lambda: F.scaled_dot_product_attention(
-                          qt, kt, vt, is_causal=True)),
+                      lambda: K.flash_fwd_plain(q, k, v, nv, **kw), lib_fwd),
         "flash_bwd_dq": (lambda: K.flash_bwd_dq(q, k, v, do, lse, delta, nv,
                                                 **kw),
                          lambda: K.flash_bwd_dq_plain(q, k, v, do, lse, delta,
@@ -551,50 +595,113 @@ def time_kernels(peak: tuple, report: dict, shape=FLASH_TIMED[0],
                                                         delta, nv, **kw),
                           lib_bwd),
     }
-    times, lib_ms = {}, {}  # the library backward is timed once, for both
+    if half:
+        calls["flash_delta"] = (lambda: K.flash_delta(do, out),
+                                lambda: K.flash_delta_plain(do, out), None)
+    times, lib_ms = {}, {None: None}  # a library call is timed once
+    efficient = {"flash_fwd": lambda: eff_fwd(qt, kt, vt, None, True, 0.0,
+                                              True)}
     for name, (kern, plain, lib) in calls.items():
         flops, nbytes = work[name]
         t_mem = nbytes / peak_bw * 1e3
         t_fp32 = flops / peak_fp32 * 1e3
-        t_ops = t_fp32 if dt == torch.float32 else flops / peak_16 * 1e3
+        t_ops = t_fp32 if not half else flops / peak_16 * 1e3
         if lib not in lib_ms:
             lib_ms[lib] = time_ms(lib, 20)
-        times[name] = {
+        tm = {
             "ms": time_ms(kern, 20),
             "plain_ms": time_ms(plain, 5),
             "library_ms": lib_ms[lib],
             "bound_ms": max(t_ops, t_mem),
             "bound_by": "operations" if t_ops >= t_mem else "bytes",
             "flops": flops, "bytes": nbytes,
-            "library_same_function": not cap,
+            "library_same_function": lib is not None and not cap,
         }
-        times[name]["tf32x3_bound_ms"] = max(3 * flops / peak_tf32 * 1e3,
-                                             t_mem)
-        if dt != torch.float32:
-            times[name]["fp32_bound_ms"] = max(t_fp32, t_mem)
+        if name != "flash_delta":
+            tm["tf32x3_bound_ms"] = max(3 * flops / peak_tf32 * 1e3, t_mem)
+        if half:
+            tm["fp32_bound_ms"] = max(t_fp32, t_mem)
+            tm["device_ms"] = device_ms(kern, FLASH16[f"{name}_16"])
+            if name in efficient:
+                tm["efficient_ms"] = time_ms(efficient[name], 20)
+
+                def sdpa():  # the backend SDPA picks by itself: the yardstick
+                    return F.scaled_dot_product_attention(qt, kt, vt,
+                                                          is_causal=True)
+
+                # its readings spread from call to call: alternate it with
+                # the kernel, YARDSTICK_ROUNDS times, and keep every reading
+                rounds = [(time_ms(kern, 20), time_ms(sdpa, 20))
+                          for _ in range(YARDSTICK_ROUNDS)]
+                tm["kernel_ms_alternated"] = [a for a, _ in rounds]
+                tm["sdpa_default_ms_alternated"] = [b for _, b in rounds]
+                tm["sdpa_default_ms"] = statistics.median(
+                    tm["sdpa_default_ms_alternated"])
+                prof = device_profile(sdpa)
+                tm["sdpa_default_device_ms"] = sum(prof.values()) or None
+                tm["sdpa_default_kernels"] = [n[:100] for n in prof]
+            elif name != "flash_delta":
+                if "bwd" not in lib_ms:
+                    lib_ms["bwd"] = time_ms(eff_backward, 20)
+                tm["efficient_ms"] = lib_ms["bwd"]
+        times[f"{name}_16" if half else name] = tm
     return times
 
 
 # ------------------------------------------ phase 2, 16-bit flash inputs
 
-HALF_TOL = 1e-2         # of each tensor's max |value|: one 16-bit rounding apart
+HALF_TOL = 1e-2   # of each tensor's max |value|: 16-bit outputs, and the 16-bit
+                  # kernels round P and dS to 16 bits (ROADMAP queue 3); each
+                  # (b, s, h) row is also held to ``K.row_error``'s limit and
+                  # lse to ``K.LSE_TOL`` of its max
+DELTA_TOL = 1e-5  # of max |delta|: fp32 sums of exact products, another order
+# (label, B, S, H, Hkv, D, num_valid): gemma's main path (one and two valid
+# rows), llama3-8b's (phase 14(b)) and phi-3-vision's (D 96, phase 13(a))
+HALF_CASES = [("gemma-nv1", 2, 1024, 8, 1, 256, 1),
+              ("gemma-nv2", 2, 1024, 8, 1, 256, 2),
+              ("llama3", 2, 2048, 32, 8, 128, None),
+              ("phi3-nv1", 2, 1024, 32, 32, 96, 1)]
 
 
 def check_flash_half(report: dict) -> dict:
-    """The flash trio on bf16 and fp16 inputs at gemma's shapes (B 2, S = T
-    1024, H 8, Hkv 1, D 256, num_valid 1 and 2) against the plain versions
-    on the same inputs: outputs in the inputs' dtype (lse f32) within
-    HALF_TOL of each tensor's largest value, padded rows exact zeros.
-    Returns each kernel's largest error."""
+    """The 16-bit flash entries on bf16 and fp16 inputs at ``HALF_CASES``
+    against the plain versions on the same inputs: out, dq, dk and dv in the
+    inputs' dtype and lse f32 within HALF_TOL of each tensor's largest
+    value, each row of out, dq, dk and dv within ``K.row_error``'s limit (a
+    few units in the last place of the row's own largest value) and lse
+    within ``K.LSE_TOL`` of its largest (fp32), padded rows exact zeros, a
+    second dq and dk/dv launch bit-equal,
+    ``flash_delta`` within DELTA_TOL of its plain version.  Each call must
+    launch its 16-bit entry alone (``LAUNCHES_16`` moves with ``LAUNCHES``:
+    the fp32 entry does not run) and allocate no more than its outputs and
+    scratch (1 MiB of slack; an fp32 copy of an input would not fit).
+    Returns each 16-bit kernel's largest error and, under ``"rows"``, each
+    one's largest ``row_error`` (lse's: its error over LSE_TOL x max)."""
     import torch
     from repro_torch.kernels.flash_attention import kernel as K
 
     dev = torch.device("cuda")
-    errs = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
-    b, s, h, hkv, d = 2, 1024, 8, 1, 256
+    errs = {k: 0.0 for k in FLASH16}
+    row_errs = {k: 0.0 for k in ("out", "lse", "dq", "dk", "dv")}
+    slack = 1 << 20
+
+    def run(fn, allowed: int):
+        """fn()'s result, its launches, and the bytes it allocated at peak
+        (and whether that stayed within ``allowed``)"""
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        new = torch.cuda.max_memory_allocated() - before
+        counts = {k: v for k, v in {**K.LAUNCHES, **K.LAUNCHES_16}.items()
+                  if v}
+        return out, counts, new, new <= allowed + slack
+
     for dtype in (torch.bfloat16, torch.float16):
-        for nv in (1, 2):
-            name = f"{str(dtype)[6:]}-nv{nv}"
+        for label, b, s, h, hkv, d, nv in HALF_CASES:
+            name = f"{label}-{str(dtype)[6:]}"
             g = torch.Generator(device=dev).manual_seed(zlib.crc32(
                 name.encode()))
             q, k, v, do = (torch.randn(shape, generator=g, device=dev)
@@ -602,45 +709,126 @@ def check_flash_half(report: dict) -> dict:
                                                     (b, s, hkv, d),
                                                     (b, s, hkv, d),
                                                     (b, s, h, d)))
-            nvt = torch.tensor(nv, dtype=torch.int32, device=dev)
-            out, lse = K.flash_fwd(q, k, v, nvt)
+            nvt = None if nv is None else torch.tensor(nv, dtype=torch.int32,
+                                                       device=dev)
+            qb, kb, rows = q.numel() * 2, k.numel() * 2, b * h * s * 4
+            scratch = 2 * b * s * h * d * 4 if h > hkv else 0
             out_p, lse_p = K.flash_fwd_plain(q, k, v, nvt)
-            delta = (do.float() * out_p.float()).sum(-1).transpose(1, 2) \
-                .contiguous()
-            got = {"out": out, "lse": lse,
-                   "dq": K.flash_bwd_dq(q, k, v, do, lse_p, delta, nvt)}
-            got["dk"], got["dv"] = K.flash_bwd_dkv(q, k, v, do, lse_p, delta,
-                                                   nvt)
+            delta_p = K.flash_delta_plain(do, out_p)
+            calls = {
+                "fwd": (lambda: K.flash_fwd(q, k, v, nvt), qb + rows,
+                        {"flash_fwd": 1, "flash_fwd_16": 1}),
+                "dq": (lambda: K.flash_bwd_dq(q, k, v, do, lse_p, delta_p,
+                                              nvt), qb,
+                       {"flash_bwd_dq": 1, "flash_bwd_dq_16": 1}),
+                "dkv": (lambda: K.flash_bwd_dkv(q, k, v, do, lse_p, delta_p,
+                                                nvt), 2 * kb + scratch,
+                        {"flash_bwd_dkv": 1, "flash_bwd_dkv_16": 1}),
+            }
+            got, res = {}, {}
+            for key, (fn, allowed, want_counts) in calls.items():
+                got[key], counts, new, fits = run(fn, allowed)
+                res[f"{key}_launches"] = counts
+                res[f"{key}_new_bytes"] = new
+                res[f"{key}_entry_16_alone"] = counts == want_counts
+                res[f"{key}_no_fp32_copy"] = fits
+            (out, lse), dq, (dk, dv) = got["fwd"], got["dq"], got["dkv"]
+            delta, counts, new, fits = run(lambda: K.flash_delta(do, out),
+                                           rows)
+            res["delta_entry_16_alone"] = counts == {"flash_delta_16": 1}
+            res["delta_no_fp32_copy"] = fits
+            dq2 = K.flash_bwd_dq(q, k, v, do, lse_p, delta_p, nvt)
+            dk2, dv2 = K.flash_bwd_dkv(q, k, v, do, lse_p, delta_p, nvt)
+            torch.cuda.synchronize()
+            res["dq_repeats_bit_for_bit"] = bool(torch.equal(dq, dq2))
+            res["dkv_repeats_bit_for_bit"] = bool(torch.equal(dk, dk2)
+                                                  and torch.equal(dv, dv2))
             want = {"out": out_p, "lse": lse_p,
-                    "dq": K.flash_bwd_dq_plain(q, k, v, do, lse_p, delta,
+                    "dq": K.flash_bwd_dq_plain(q, k, v, do, lse_p, delta_p,
                                                nvt)}
             want["dk"], want["dv"] = K.flash_bwd_dkv_plain(
-                q, k, v, do, lse_p, delta, nvt)
-            res = {}
-            for key, x in got.items():
+                q, k, v, do, lse_p, delta_p, nvt)
+            kernel_of = {"out": "flash_fwd_16", "lse": "flash_fwd_16",
+                         "dq": "flash_bwd_dq_16", "dk": "flash_bwd_dkv_16",
+                         "dv": "flash_bwd_dkv_16"}
+            for key, x in {"out": out, "lse": lse, "dq": dq, "dk": dk,
+                           "dv": dv}.items():
                 ref = want[key]
                 err = (x.float() - ref.float()).abs().max().item()
                 scale = ref.float().abs().max().item()
+                row = (err / (K.LSE_TOL * scale) if key == "lse"
+                       else K.row_error(x, ref))
+                row_errs[key] = max(row_errs[key], row)
                 res[key] = {"max_abs_err": err, "ref_max": scale,
-                            "dtype": str(x.dtype),
-                            "ok": (err <= HALF_TOL * scale
+                            "dtype": str(x.dtype), "row_error": row,
+                            "ok": (err <= HALF_TOL * scale and row <= 1
                                    and x.dtype == ref.dtype
                                    and x.dtype == (torch.float32
                                                    if key == "lse" else dtype)
-                                   and bool((x[nv:] == 0).all()))}
-                kname = {"out": "flash_fwd", "lse": "flash_fwd",
-                         "dq": "flash_bwd_dq"}.get(key, "flash_bwd_dkv")
-                errs[kname] = max(errs[kname], err)
+                                   and (nv is None
+                                        or bool((x[nv:] == 0).all())))}
+                errs[kernel_of[key]] = max(errs[kernel_of[key]], err)
+            ref = K.flash_delta_plain(do, out)
+            err = (delta - ref).abs().max().item()
+            scale = ref.abs().max().item()
+            res["delta"] = {"max_abs_err": err, "ref_max": scale,
+                            "ok": err <= DELTA_TOL * max(scale, 1e-30)}
+            errs["flash_delta_16"] = max(errs["flash_delta_16"], err)
             log(f"  case {name}: " + ", ".join(
-                f"{key} err {r['max_abs_err']:.3g} (max {r['ref_max']:.3g})"
-                for key, r in res.items()) + ", padded rows zero "
-                + str(all(r["ok"] for r in res.values())))
+                f"{key} err {res[key]['max_abs_err']:.3g} (max "
+                f"{res[key]['ref_max']:.3g}"
+                + (f", row {res[key]['row_error']:.3g})" if key != "delta"
+                   else ")")
+                for key in ("out", "lse", "dq", "dk", "dv", "delta"))
+                + f"; 16-bit entries alone "
+                + str(all(res[f"{c}_entry_16_alone"]
+                          for c in ("fwd", "dq", "dkv", "delta")))
+                + ", no fp32 copy " + str(all(
+                    res[f"{c}_no_fp32_copy"]
+                    for c in ("fwd", "dq", "dkv", "delta")))
+                + f" (new bytes fwd {res['fwd_new_bytes']}, dq "
+                f"{res['dq_new_bytes']}, dkv {res['dkv_new_bytes']})"
+                + f", dq / dk,dv repeat bit for bit "
+                f"{res['dq_repeats_bit_for_bit']} / "
+                f"{res['dkv_repeats_bit_for_bit']}")
             report.setdefault("half_cases", {})[name] = res
-            bad = [key for key, r in res.items() if not r["ok"]]
+            bad = [key for key, r in res.items()
+                   if (isinstance(r, dict) and not r.get("ok", True))
+                   or (isinstance(r, bool) and not r)]
             if bad:
                 raise AssertionError(f"16-bit flash case {name} failed on "
                                      f"{bad}: {res}")
+    errs["rows"] = row_errs
     return errs
+
+
+def device_profile(fn, iters: int = 10) -> dict:
+    """Each CUDA kernel's name -> its device ms a call of ``fn`` by
+    torch.profiler (CUPTI), over ``iters`` calls; empty where the profiler
+    records no device time."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    ms: dict = {}
+    for ev in prof.events():
+        if str(getattr(ev, "device_type", "")) == "DeviceType.CUDA":
+            ms[ev.name] = (ms.get(ev.name, 0.0)
+                           + ev.device_time_total / iters / 1e3)
+    return ms
+
+
+def device_ms(fn, frags: tuple, iters: int = 10) -> float:
+    """Device time a call of ``fn``: the kernels whose names hold one of
+    ``frags``; None where the profiler records no device time."""
+    ms = sum(t for name, t in device_profile(fn, iters).items()
+             if any(f in name for f in frags))
+    return ms or None
 
 
 # ------------------------------------------- phase 2, the scans' shared parts
@@ -1057,6 +1245,14 @@ def all_launches() -> dict:
     return {k: v for mod in kernel_modules() for k, v in mod.LAUNCHES.items()}
 
 
+def launches_16() -> dict:
+    """The 16-bit flash entries' launches (each also counted under its fp32
+    name in ``all_launches``)."""
+    from repro_torch.kernels.flash_attention import LAUNCHES_16
+
+    return dict(LAUNCHES_16)
+
+
 def reset_all_launches() -> None:
     for mod in kernel_modules():
         mod.reset_launches()
@@ -1066,6 +1262,11 @@ def reset_all_launches() -> None:
 # launches (flash_bwd_dkv: the per-head kernel, then the group-sum)
 FLASH = {"flash_fwd": ("::fwd_kernel<",), "flash_bwd_dq": ("::dq_kernel<",),
          "flash_bwd_dkv": ("::dkv_kernel<", "::dkv_sum_kernel(")}
+# the 16-bit entries' kernels (csrc/flash_attention_16.cu)
+FLASH16 = {"flash_fwd_16": ("::fwd16_kernel<",),
+           "flash_bwd_dq_16": ("::dq16_kernel<",),
+           "flash_bwd_dkv_16": ("::dkv16_kernel<", "::dkv_sum16_kernel<"),
+           "flash_delta_16": ("::delta16_kernel<",)}
 # path -> (arch, layers, seq, the path's kernels: name -> (profiler name
 # fragments, layers of the path that launch it once per microbatch)); each
 # kernel's table entry reads the first path listing it
@@ -1258,6 +1459,28 @@ def profile_summary(prof, wall_us: float, own: dict, top: int = 8) -> dict:
             "sqnorm_kernels": sorted({k.name[:60] for ev in dots
                                       for k in getattr(ev, "kernels", ())}),
             "top": [(n[:90], t) for n, t in ranked[:top]]}
+
+
+def cast_summary(prof) -> dict:
+    """The dtype casts (``aten::_to_copy``) of a profiled step: how many,
+    their device time, and how many ran inside the flash attention
+    function's forward or backward (a ``_FlashAttention`` range: the
+    autograd function's own range, the backward node's)."""
+    events = prof.events()
+    casts = [ev for ev in events if ev.name == "aten::_to_copy"]
+
+    def in_flash(ev) -> bool:
+        while ev.cpu_parent is not None:
+            ev = ev.cpu_parent
+            if "_FlashAttention" in ev.name:
+                return True
+        return False
+
+    return {"casts": len(casts),
+            "casts_us": sum(ev.device_time_total for ev in casts),
+            "flash_ranges": sum("_FlashAttention" in ev.name
+                                for ev in events),
+            "flash_casts": sum(in_flash(ev) for ev in casts)}
 
 
 def log_path(mp: dict) -> None:
@@ -3001,10 +3224,13 @@ def run_steps(cfg, params, opt, batch, n: int, accum: int = 1,
         if i == profile_step:
             wall = (time.perf_counter() - t0) * 1e6
             prof.__exit__(None, None, None)
-            prof = profile_summary(prof, wall, FLASH)
+            casts = cast_summary(prof)
+            prof = profile_summary(prof, wall, {**FLASH, **FLASH16})
+            prof["casts"] = casts
         ms.append(a.elapsed_time(e))
         losses.append(m["loss"].item())
     res = {"losses": losses, "step_ms": ms, "launches": all_launches(),
+           "launches_16": launches_16(),
            "max_memory_allocated": torch.cuda.max_memory_allocated(),
            "profile": prof}
     del state
@@ -3051,6 +3277,9 @@ def check_step_programs(report: dict) -> dict:
         r["expected_launches"] = {
             "flash_fwd": (2 if c.remat else 1) * layers * micro,
             "flash_bwd_dq": layers * micro, "flash_bwd_dkv": layers * micro}
+        r["expected_launches_16"] = {
+            **{f"{k}_16": v for k, v in r["expected_launches"].items()},
+            "flash_delta_16": layers * micro}
         runs[label] = r
         log(f"  (b) {arch} {layers} layers bf16, B {b} x S {s}, {label}: "
             f"losses {[round(x, 5) for x in r['losses']]}, step ms "
@@ -3067,6 +3296,8 @@ def check_step_programs(report: dict) -> dict:
     bad = [k for k, r in runs.items()
            if {k2: v for k2, v in r["launches"].items() if v}
            != r["expected_launches"]
+           or {k2: v for k2, v in r["launches_16"].items() if v}
+           != r["expected_launches_16"]
            or not all(math.isfinite(x) for x in r["losses"])]
     if bad or max(step0) - min(step0) > 1e-6 * abs(step0[0]):
         raise AssertionError(f"gemma step programs ({bad}): {res['gemma']}")
@@ -3096,10 +3327,14 @@ def check_step_programs(report: dict) -> dict:
              expected_launches={"flash_fwd": 2 * cfg.num_layers * (n + 1),
                                 "flash_bwd_dq": cfg.num_layers * (n + 1),
                                 "flash_bwd_dkv": cfg.num_layers * (n + 1)})
+    r["expected_launches_16"] = {
+        **{f"{k}_16": v for k, v in r["expected_launches"].items()},
+        "flash_delta_16": cfg.num_layers * (n + 1)}
     pr = r["profile"]
     if pr and pr["device_busy_us"]:
         r["flash_share"] = sum(pr["kernels_us"].values()) \
             / pr["device_busy_us"]
+        r["cast_share"] = pr["casts"]["casts_us"] / pr["device_busy_us"]
     res["llama"] = r
     log(f"  (b) {arch} {cfg.num_layers} layers bf16 ({n_params / 1e9:.2f}B),"
         f" B {b} x S {s}, remat full, adafactor: losses "
@@ -3109,12 +3344,22 @@ def check_step_programs(report: dict) -> dict:
         f"{r['bf16_peak_tflops']:.0f} bf16, launches "
         f"{ {k: v for k, v in r['launches'].items() if v} }, peak "
         f"{r['max_memory_allocated'] / 2**30:.2f} GiB, flash share of busy "
-        f"time {r.get('flash_share', float('nan')):.3f}")
+        f"time {r.get('flash_share', float('nan')):.3f}, casts "
+        f"{r.get('cast_share', float('nan')):.3f}")
+    if pr:
+        log(f"  (b) 16-bit launches {r['launches_16']}; casts in the profiled "
+            f"step: {pr['casts']['casts']} ({pr['casts']['casts_us'] / 1e3:.1f}"
+            f" ms), {pr['casts']['flash_casts']} of them inside the "
+            f"{pr['casts']['flash_ranges']} flash attention ranges")
     log_profile(pr)
     if not (all(math.isfinite(x) for x in r["losses"])
             and r["losses"][2] < r["losses"][0]
             and {k: v for k, v in r["launches"].items() if v}
-            == r["expected_launches"]):
+            == r["expected_launches"]
+            and {k: v for k, v in r["launches_16"].items() if v}
+            == r["expected_launches_16"]
+            and pr is not None and pr["casts"]["flash_ranges"]
+            and not pr["casts"]["flash_casts"]):
         raise AssertionError(f"llama3-8b steps: {r}")
 
     # llama3-8b serving on the trained parameters: 128 tokens through the
@@ -3974,16 +4219,25 @@ def main() -> int:
         f"; peaks ({peak_name}): {peak_flops / 1e12:.0f} TFLOP/s fp32, "
         f"{peak_bw / 1e12:.2f} TB/s")
     t0 = time.perf_counter()
-    sources = {"flash_attention": K.SOURCE, "ssd_scan": KS.SOURCE,
-               "rglru_scan": KR.SOURCE}
+    sources = build.sources()
+    build_s = {}
+
+    def timed_build(item):
+        name, source = item
+        t = time.perf_counter()
+        lib = build.build(source, name)
+        build_s[name] = time.perf_counter() - t
+        return lib
+
     with ThreadPoolExecutor(len(sources)) as pool:
-        libs = dict(zip(sources, pool.map(lambda kv: build.build(kv[1], kv[0]),
-                                          sources.items())))
-    log("    built " + ", ".join(os.path.relpath(lib, ROOT)
-                                 for lib in libs.values())
+        libs = dict(zip(sources, pool.map(timed_build, sources.items())))
+    log("    built " + ", ".join(
+        f"{os.path.relpath(lib, ROOT)} ({build_s[name]:.1f} s)"
+        for name, lib in libs.items())
         + f" in {time.perf_counter() - t0:.1f} s (in parallel)")
-    report = {"gpu": smi, "build_log": dict(build.BUILD_LOG), "cases": {},
-              "ssd_cases": {}, "rglru_cases": {}}
+    report = {"gpu": smi, "build_log": dict(build.BUILD_LOG),
+              "build_s": build_s, "cases": {}, "ssd_cases": {},
+              "rglru_cases": {}}
 
     # 2. kernels against plain versions, then timings
     log("[2] kernels vs plain versions "
@@ -3999,18 +4253,31 @@ def main() -> int:
                               for shape in FLASH_TIMED[2:]}
     torch.cuda.empty_cache()
     log(f"  library vs kernel max abs err: {report['library_vs_kernel']}")
-    log(f"  flash kernels on bf16 and fp16 inputs vs plain versions (max err"
-        f" <= {HALF_TOL} x max|ref|, outputs in the inputs' dtype)")
+    log(f"  16-bit flash kernels on bf16 and fp16 inputs vs plain versions "
+        f"(max err <= {HALF_TOL} x max|ref|, delta {DELTA_TOL}; a row's "
+        f"err <= {K.ROW_ULPS} ulps of its max + {K.ROW_ATOL} x max|ref| "
+        f"(row <= 1), lse {K.LSE_TOL} x max; outputs in the inputs' dtype)")
     half_errs = check_flash_half(report)
-    report["bf16_times"] = time_kernels(peak, report, dtype="bfloat16")
+    report["bf16_times"] = {shape[0]: time_kernels(peak, report, shape,
+                                                   dtype="bfloat16")
+                            for shape in FLASH_TIMED_16}
     torch.cuda.empty_cache()
-    for name, tm in report["bf16_times"].items():
-        log(f"  {name} on bf16 at the gemma shapes (casts included): kernel "
-            f"{tm['ms']:.3f} ms, plain {tm['plain_ms']:.3f} ms, SDPA bf16 "
-            f"{tm['library_ms']:.3f} ms, bound at the bf16 tensor-core rate "
-            f"{tm['bound_ms']:.4f} ms ({tm['bound_by']}); fp32 bound "
-            f"{tm['fp32_bound_ms']:.4f} ms, 3xTF32 bound "
-            f"{tm['tf32x3_bound_ms']:.4f} ms")
+    for label, tms in report["bf16_times"].items():
+        for name, tm in tms.items():
+            lib = ("" if tm["library_ms"] is None else
+                   f", SDPA flash backend {tm['library_ms']:.4f} ms "
+                   f"(memory-efficient {tm['efficient_ms']:.4f} ms"
+                   + (f", SDPA's default {tm['sdpa_default_ms']:.4f} ms"
+                      if "sdpa_default_ms" in tm else "") + ")")
+            dev_ms = ("not measured" if tm["device_ms"] is None
+                      else f"{tm['device_ms']:.4f} ms")
+            log(f"  {name} on bf16 at the {label} shapes: kernel "
+                f"{tm['ms']:.4f} ms (device {dev_ms}), plain "
+                f"{tm['plain_ms']:.3f} ms{lib}, bound at the bf16 "
+                f"tensor-core rate {tm['bound_ms']:.4f} ms ({tm['bound_by']});"
+                f" fp32 bound {tm['fp32_bound_ms']:.4f} ms"
+                + (f", 3xTF32 bound {tm['tf32x3_bound_ms']:.4f} ms"
+                   if "tf32x3_bound_ms" in tm else ""))
     shaped = [("hybrid", FLASH_TIMED[1], report["hybrid_times"])] + [
         (shape[0], shape, report["slice7_times"][shape[0]])
         for shape in FLASH_TIMED[2:]]
@@ -4159,12 +4426,6 @@ def main() -> int:
                if name in report["hybrid_times"] else {}),
             **({"launches_vlm_path":
                 report["slice7"]["vlm"]["launches"][name],
-                "launches_llama3_bf16_path":
-                report["slice8"]["steps"]["llama"]["launches"][name],
-                "bf16": {**{key: report["bf16_times"][name][key] for key in (
-                    "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
-                    "fp32_bound_ms", "tf32x3_bound_ms")},
-                    "max_abs_err": half_errs[name], "tol": HALF_TOL},
                 "shapes": {label: {key: tms[name][key] for key in (
                     "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                     "library_same_function")}
@@ -4172,6 +4433,48 @@ def main() -> int:
                if name in FLASH else {}),
             **{key: tm[key] for key in ("launch_ms", "per_head_ms",
                                         "per_head_bound_ms") if key in tm},
+        })
+    # the 16-bit entries: bf16 at the gemma shapes (llama3-8b's beside),
+    # launches from phase 14(b)'s llama3-8b steps, errors from phase 2's
+    # bf16 and fp16 cases
+    replaces_16 = {
+        "flash_fwd_16": replaces["flash_fwd"],
+        "flash_bwd_dq_16": replaces["flash_bwd_dq"],
+        "flash_bwd_dkv_16": replaces["flash_bwd_dkv"],
+        # flash_attention_bwd's delta = rowsum(dO . O)
+        "flash_delta_16": "src/repro/kernels/flash_attention/kernel.py:610",
+    }
+    fa_bwd = ("_scaled_dot_product_flash_attention_backward (dq, dk and dv "
+              "in one call)")
+    library_16 = {"flash_fwd_16": "_scaled_dot_product_flash_attention",
+                  "flash_bwd_dq_16": fa_bwd, "flash_bwd_dkv_16": fa_bwd,
+                  "flash_delta_16": None}
+    rows_of = {"flash_fwd_16": ("out", "lse"), "flash_bwd_dq_16": ("dq",),
+               "flash_bwd_dkv_16": ("dk", "dv"), "flash_delta_16": ()}
+    llama = report["slice8"]["steps"]["llama"]
+    for name in replaces_16:
+        tm = report["bf16_times"]["gemma"][name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": os.path.relpath(K.SOURCE_16, ROOT),
+            "replaces": replaces_16[name],
+            "launches": llama["launches_16"][name],
+            "max_abs_err": half_errs[name],
+            "tol": DELTA_TOL if name == "flash_delta_16" else HALF_TOL,
+            # each output's largest row_error (lse: error / LSE_TOL x max),
+            # at most 1
+            "row_error": {key: half_errs["rows"][key]
+                          for key in rows_of[name]},
+            "ms": tm["ms"], "kernel_ms": tm["ms"],
+            "device_ms": tm["device_ms"], "plain_ms": tm["plain_ms"],
+            "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],
+            "library_ms": tm["library_ms"], "library_call": library_16[name],
+            "efficient_ms": tm.get("efficient_ms"),
+            "sdpa_default_ms": tm.get("sdpa_default_ms"), "dtype": "bfloat16",
+            "shapes": {label: {key: tms[name].get(key) for key in (
+                "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "efficient_ms", "sdpa_default_ms")}
+                for label, tms in report["bf16_times"].items()},
         })
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start

@@ -25,7 +25,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 
-# the kernel packages; each ``<name>/kernel.py`` builds ``SOURCE`` as <name>
+# the kernel packages; each ``<name>/kernel.py`` lists its libraries in
+# ``SOURCES`` (library name -> source)
 KERNELS = ("flash_attention", "ssd_scan", "rglru_scan")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -89,14 +90,22 @@ def load(source: Path, name: str) -> ctypes.CDLL:
     return _LIBS[name]
 
 
+def sources() -> dict[str, Path]:
+    """Every kernel library's name -> its source."""
+    found: dict[str, Path] = {}
+    for name in KERNELS:
+        mod = importlib.import_module(f"repro_torch.kernels.{name}.kernel")
+        found.update(mod.SOURCES)
+    return found
+
+
 def load_all() -> None:
     """Build (one nvcc per missing library, all started together) and load
     every kernel library.  Callers that launch kernels from several threads
     call this first, on one thread: a library is otherwise built at the
     first launch that needs it, and two threads must not both build it."""
-    mods = [importlib.import_module(f"repro_torch.kernels.{name}.kernel")
-            for name in KERNELS]
-    with ThreadPoolExecutor(len(mods)) as pool:
-        list(pool.map(build, [m.SOURCE for m in mods], KERNELS))
-    for mod in mods:
-        mod._lib()
+    libs = sources()
+    with ThreadPoolExecutor(len(libs)) as pool:
+        list(pool.map(build, libs.values(), libs.keys()))
+    for name, source in libs.items():
+        load(source, name)

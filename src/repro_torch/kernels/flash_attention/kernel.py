@@ -4,34 +4,43 @@ PyTorch versions beside them.
 ``flash_fwd``, ``flash_bwd_dq`` and ``flash_bwd_dkv`` port the reference's
 Pallas ``flash_attention`` and ``flash_attention_bwd`` (the dq and dk/dv
 kernels).  The tensor's device picks the implementation: a CPU tensor takes
-the plain version, a CUDA tensor launches the kernel (built from
-``csrc/flash_attention.cu`` on first use) or raises.  Each launch adds one to
-``LAUNCHES[name]``; nothing else does.
+the plain version, a CUDA tensor launches a kernel or raises.  The inputs'
+dtype picks the kernel: float32 launches the fp32 entry (3xTF32 products,
+built from ``csrc/flash_attention.cu``), bfloat16 and float16 the 16-bit
+one (``csrc/flash_attention_16.cu``: a ``wgmma`` + TMA forward and
+``mma.sync`` m16n8k16 backward kernels that read the 16-bit tensors as
+they are, accumulate in fp32 and store in the inputs' dtype, as the
+reference's kernels load 16-bit blocks, widen them and store in the input
+dtype).  Each launch adds one to ``LAUNCHES[name]`` whichever entry ran,
+and a 16-bit one also to ``LAUNCHES_16[name + "_16"]``; nothing else does.
+``flash_delta`` is the backward's ``delta = rowsum(dO * O)`` on 16-bit
+inputs (a kernel of its own, so that no fp32 copy of dO or O is made).
 
 Semantics shared by kernel and plain version: q (B,S,H,D), k/v (B,T,Hkv,D)
-of any floating dtype, computed in fp32 (the kernels take fp32: the
-wrapper casts q, k, v and dO up and hands out, dq, dk and dv back in the
-inputs' dtypes, as the reference's kernels load in f32 and store in the
-input dtype; lse and delta stay f32); queries right-aligned when S < T;
-optional sliding ``window`` and tanh ``softcap``; ``num_valid`` (a 0-d
-int32 tensor on the inputs' device, or None for all rows) marks batch rows
->= num_valid as padding, whose outputs and gradients are exact zeros.  The backward takes the forward's lse and
+(and dO) of one dtype, float32, bfloat16 or float16 (mixed dtypes raise
+``TypeError``); outputs in that dtype, lse and delta f32; queries
+right-aligned when S < T; optional sliding ``window`` and tanh
+``softcap``; ``num_valid`` (a 0-d int32 tensor on the inputs' device, or
+None for all rows) marks batch rows >= num_valid as padding, whose outputs
+and gradients are exact zeros.  The backward takes the forward's lse and
 ``delta = rowsum(dO * O)`` as (B,H,S) f32, and returns dk/dv per kv head
 (summed over the query heads that share it).  Like the reference, the dk/dv
 kernel computes them per query head (``flash_bwd_dkv_heads_plain`` is that
-step's plain version) into (B,T,H,D) scratch, then sums each group in a
-fixed order.
+step's plain version) into (B,T,H,D) fp32 scratch, then sums each group in
+a fixed order.  The 16-bit kernels round P and dS to the inputs' dtype
+before the products that take them (the plain versions and the reference
+keep them fp32): a deliberate difference, ROADMAP queue 3.
 
 The kernels are built for the head dims in ``HEAD_DIMS``.  Any other head
-dim up to the largest is zero-padded to the next of them and the outputs
-sliced back, as the reference pads to its 128 lanes; ``sm_scale`` stays
-``1/sqrt(true D)``.  Padding lanes are inert: a zero lane adds nothing to
-q.k, to dO.v or to delta, and the padded columns of out, dq, dk and dv come
-out as P.0 = 0 and are dropped.  A head dim above the largest is refused,
-a deliberate difference (ROADMAP queue 3): the reference pads any head dim
-to a multiple of 128, but the forward's tiles at D 512 (a 64-row Q tile
-and two stages of 32-row K and V tiles) would need 384 KB of shared memory,
-against sm_90's 227 KB a block.
+dim up to the largest is zero-padded (in the inputs' dtype) to the next of
+them and the outputs sliced back, as the reference pads to its 128 lanes;
+``sm_scale`` stays ``1/sqrt(true D)``.  Padding lanes are inert: a zero
+lane adds nothing to q.k, to dO.v or to delta, and the padded columns of
+out, dq, dk and dv come out as P.0 = 0 and are dropped.  A head dim above
+the largest is refused, a deliberate difference (ROADMAP queue 3): the
+reference pads any head dim to a multiple of 128, but the fp32 forward's
+tiles at D 512 (a 64-row Q tile and two stages of 32-row K and V tiles)
+would need 384 KB of shared memory, against sm_90's 227 KB a block.
 """
 
 from __future__ import annotations
@@ -49,13 +58,21 @@ from repro_torch.kernels.flash_attention.ref import visible_mask
 NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 96, 128, 256)
 SOURCE = Path(__file__).with_name("csrc") / "flash_attention.cu"
+SOURCE_16 = SOURCE.with_name("flash_attention_16.cu")
+# library name -> source, for ``build.load_all``
+SOURCES = {"flash_attention": SOURCE, "flash_attention_16": SOURCE_16}
 
 LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+# the launches of the 16-bit entries alone (also counted in LAUNCHES)
+LAUNCHES_16 = {"flash_fwd_16": 0, "flash_bwd_dq_16": 0,
+               "flash_bwd_dkv_16": 0, "flash_delta_16": 0}
+_HALF = {torch.bfloat16: 0, torch.float16: 1}  # the 16-bit entries' dtype
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, LAUNCHES_16):
+        for name in counts:
+            counts[name] = 0
 
 
 # ------------------------------------------------------------ plain versions
@@ -149,6 +166,32 @@ def flash_bwd_dkv_heads_plain(q, k, v, do, lse, delta, num_valid=None, *,
             _zero_padded(dv.reshape(b, t, h, d), valid))
 
 
+def flash_delta_plain(do, out):
+    """-> delta = rowsum(dO * O), (B,H,S) f32, of (B,S,H,D) tensors."""
+    return (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+
+
+# The 16-bit kernels against their plain versions, a row at a time: P and
+# dS are rounded to 16 bits before their products, so each (B,S,H) row of
+# out, dq, dk and dv may sit a few units in the last place of the row's own
+# largest value from the plain version; a row of values near zero is held to ROW_ATOL x the tensor's largest value.  lse is
+# fp32 from fp32 sums of exact products, held to LSE_TOL x its largest.
+ROW_ULPS = 4
+ROW_ATOL = 1e-4
+LSE_TOL = 1e-5
+
+
+def row_error(x, ref) -> float:
+    """The largest over the (B,S,H) rows of (B,S,H,D) ``x`` of max|x - ref|
+    over the row's limit, ROW_ULPS x eps(ref.dtype) x the row's max|ref| +
+    ROW_ATOL x the tensor's max|ref|: at most 1 passes."""
+    ref = ref.float()
+    mag = ref.abs()
+    lim = (ROW_ULPS * torch.finfo(x.dtype).eps * mag.amax(-1)
+           + ROW_ATOL * mag.max()).clamp_min(torch.finfo(torch.float32).tiny)
+    return ((x.float() - ref).abs().amax(-1) / lim).max().item()
+
+
 def flash_bwd_dkv_plain(q, k, v, do, lse, delta, num_valid=None, *,
                         causal: bool = True, window: Optional[int] = None,
                         softcap: Optional[float] = None):
@@ -173,28 +216,60 @@ _SIGNATURES = {
     "flash_bwd_dq": [_P] * 8 + _GEOM,
     "flash_bwd_dkv": [_P] * 11 + _GEOM,
 }
+# the 16-bit entries take the dtype (0 bfloat16, 1 float16) first
+SIGNATURES_16 = {
+    "flash_fwd_16": [_I] + _SIGNATURES["flash_fwd"],
+    "flash_bwd_dq_16": [_I] + _SIGNATURES["flash_bwd_dq"],
+    "flash_bwd_dkv_16": [_I] + _SIGNATURES["flash_bwd_dkv"],
+    # dtype, dO, O, delta, B, S, H, D, stream
+    "flash_delta_16": [_I] + [_P] * 3 + [_I] * 4 + [_P],
+}
 
 
-def _lib() -> ctypes.CDLL:
-    lib = build.load(SOURCE, "flash_attention")
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+_TYPED: dict[str, ctypes.CDLL] = {}  # library name -> lib, signatures set
+
+
+def _load(source: Path, name: str, signatures: dict) -> ctypes.CDLL:
+    lib = _TYPED.get(name)
+    if lib is None:
+        lib = build.load(source, name)
+        for fn_name, argtypes in signatures.items():
+            fn = getattr(lib, fn_name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _TYPED[name] = lib
     return lib
 
 
-def _check(name, q, k, v, *rest):
-    for x in (q, k, v, *rest):
+def _lib() -> ctypes.CDLL:
+    return _load(SOURCE, "flash_attention", _SIGNATURES)
+
+
+def _lib16() -> ctypes.CDLL:
+    return _load(SOURCE_16, "flash_attention_16", SIGNATURES_16)
+
+
+def _on_card(name, *xs):
+    for x in xs:
         if x.device.type != "cuda":
             raise ValueError(f"{name}: all tensors must be on one CUDA device")
-        if x.dtype != torch.float32:
-            raise TypeError(f"{name}: the kernel takes float32, got {x.dtype}")
         if not x.is_contiguous():
             raise ValueError(f"{name}: inputs must be contiguous")
         if x.data_ptr() % 16:
             raise ValueError(f"{name}: inputs must be 16-byte aligned (the "
                              "kernels copy 16-byte chunks)")
+
+
+def _check(name, q, k, v, *rest):
+    """q, k, v (and dO) on the card, of one dtype the kernels take."""
+    _on_card(name, q, k, v, *rest)
+    dtypes = {x.dtype for x in (q, k, v, *rest)}
+    if len(dtypes) > 1:
+        raise TypeError(f"{name}: q, k, v (and dO) must share one dtype, got "
+                        f"{sorted(map(str, dtypes))}")
+    if q.dtype != torch.float32 and q.dtype not in _HALF:
+        raise TypeError(f"{name}: the kernels take float32, bfloat16 or "
+                        f"float16, got {q.dtype}")
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"{name}: want q (B,S,H,D), k/v (B,T,Hkv,D); got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
@@ -214,7 +289,10 @@ def _check_bwd(name, q, do, lse, delta):
     b, s, h, _ = q.shape
     if do.shape != q.shape:
         raise ValueError(f"{name}: dO {tuple(do.shape)} != q {tuple(q.shape)}")
+    _on_card(name, lse, delta)
     for x, what in ((lse, "lse"), (delta, "delta")):
+        if x.dtype != torch.float32:
+            raise TypeError(f"{name}: {what} must be float32, got {x.dtype}")
         if x.shape != (b, h, s):
             raise ValueError(f"{name}: {what} must be {(b, h, s)}, got "
                              f"{tuple(x.shape)}")
@@ -226,20 +304,15 @@ def _nv_ptr(num_valid, device):
         return None, None
     if not isinstance(num_valid, torch.Tensor):
         num_valid = torch.tensor(num_valid, dtype=torch.int32)
-    nv = num_valid.to(device=device, dtype=torch.int32).reshape(())
+    nv = num_valid
+    if nv.dtype != torch.int32 or nv.device != device or nv.dim():
+        nv = nv.to(device=device, dtype=torch.int32).reshape(())
     return nv.data_ptr(), nv
 
 
 def _padded_dim(d: int) -> int:
     """The smallest instantiated head dim >= d."""
     return next(dp for dp in HEAD_DIMS if dp >= d)
-
-
-def _f32(xs):
-    """Each tensor as a contiguous float32 one (the same tensors when they
-    are float32 already: those must come contiguous, as ``_check`` says)."""
-    return [x if x.dtype == torch.float32 else x.float().contiguous()
-            for x in xs]
 
 
 def _pad(xs, dp: int):
@@ -259,17 +332,28 @@ def _geom(q, k, causal, window, softcap, d):
             torch.cuda.current_stream(q.device).cuda_stream]
 
 
-def _narrow(x, d: int, dtype):
-    """A kernel's fp32 output cut back to the true head dim ``d`` and cast
-    to ``dtype`` (the same tensor when neither changes anything)."""
-    if x.shape[-1] != d:
-        x = x[..., :d]
-    return x.to(dtype).contiguous()
+def _narrow(x, d: int):
+    """A kernel's output cut back to the true head dim ``d`` (the same
+    tensor when that is its width)."""
+    return x if x.shape[-1] == d else x[..., :d].contiguous()
 
 
 def _raise_on(name: str, rc: int) -> None:
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed (code {rc})")
+
+
+def _launch(name: str, dtype, args) -> None:
+    """Launch entry ``name`` (fp32) or its 16-bit twin for ``dtype``; raises
+    if the launch fails, counts it if not."""
+    if dtype == torch.float32:
+        rc = getattr(_lib(), name)(*args)
+    else:
+        rc = getattr(_lib16(), f"{name}_16")(_HALF[dtype], *args)
+    _raise_on(name, rc)
+    LAUNCHES[name] += 1
+    if dtype != torch.float32:
+        LAUNCHES_16[f"{name}_16"] += 1
 
 
 def flash_fwd(q, k, v, num_valid=None, *, causal: bool = True,
@@ -278,20 +362,16 @@ def flash_fwd(q, k, v, num_valid=None, *, causal: bool = True,
     if q.device.type == "cpu":
         return flash_fwd_plain(q, k, v, num_valid, causal=causal,
                                window=window, softcap=softcap)
-    dtype = q.dtype
-    q, k, v = _f32((q, k, v))
     _check("flash_fwd", q, k, v)
     b, s, h, d = q.shape
     q, k, v = _pad((q, k, v), _padded_dim(d))
     out = torch.empty_like(q)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     nv, _keep = _nv_ptr(num_valid, q.device)
-    rc = _lib().flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), nv,
-                          out.data_ptr(), lse.data_ptr(),
-                          *_geom(q, k, causal, window, softcap, d))
-    _raise_on("flash_fwd", rc)
-    LAUNCHES["flash_fwd"] += 1
-    return _narrow(out, d, dtype), lse
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), nv, out.data_ptr(),
+            lse.data_ptr(), *_geom(q, k, causal, window, softcap, d))
+    _launch("flash_fwd", q.dtype, args)
+    return _narrow(out, d), lse
 
 
 def flash_bwd_dq(q, k, v, do, lse, delta, num_valid=None, *,
@@ -302,21 +382,17 @@ def flash_bwd_dq(q, k, v, do, lse, delta, num_valid=None, *,
         return flash_bwd_dq_plain(q, k, v, do, lse, delta, num_valid,
                                   causal=causal, window=window,
                                   softcap=softcap)
-    dtype = q.dtype
-    q, k, v, do = _f32((q, k, v, do))
-    _check("flash_bwd_dq", q, k, v, do, lse, delta)
+    _check("flash_bwd_dq", q, k, v, do)
     _check_bwd("flash_bwd_dq", q, do, lse, delta)
     d = q.shape[3]
     q, k, v, do = _pad((q, k, v, do), _padded_dim(d))
     dq = torch.empty_like(q)
     nv, _keep = _nv_ptr(num_valid, q.device)
-    rc = _lib().flash_bwd_dq(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                             do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                             nv, dq.data_ptr(),
-                             *_geom(q, k, causal, window, softcap, d))
-    _raise_on("flash_bwd_dq", rc)
-    LAUNCHES["flash_bwd_dq"] += 1
-    return _narrow(dq, d, dtype)
+    _launch("flash_bwd_dq", q.dtype,
+            (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+             lse.data_ptr(), delta.data_ptr(), nv, dq.data_ptr(),
+             *_geom(q, k, causal, window, softcap, d)))
+    return _narrow(dq, d)
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, num_valid=None, *,
@@ -331,9 +407,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, num_valid=None, *,
         return flash_bwd_dkv_plain(q, k, v, do, lse, delta, num_valid,
                                    causal=causal, window=window,
                                    softcap=softcap)
-    dtypes = k.dtype, v.dtype
-    q, k, v, do = _f32((q, k, v, do))
-    _check("flash_bwd_dkv", q, k, v, do, lse, delta)
+    _check("flash_bwd_dkv", q, k, v, do)
     _check_bwd("flash_bwd_dkv", q, do, lse, delta)
     d = q.shape[3]
     q, k, v, do = _pad((q, k, v, do), _padded_dim(d))
@@ -345,13 +419,36 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, num_valid=None, *,
         heads = tuple(torch.empty((b, t, h, dp), dtype=torch.float32,
                                   device=q.device) for _ in range(2))
     nv, _keep = _nv_ptr(num_valid, q.device)
-    rc = _lib().flash_bwd_dkv(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                              do.data_ptr(), lse.data_ptr(),
-                              delta.data_ptr(), nv, dk.data_ptr(),
-                              dv.data_ptr(),
-                              *(x if x is None else x.data_ptr()
-                                for x in heads),
-                              *_geom(q, k, causal, window, softcap, d))
-    _raise_on("flash_bwd_dkv", rc)
-    LAUNCHES["flash_bwd_dkv"] += 1
-    return _narrow(dk, d, dtypes[0]), _narrow(dv, d, dtypes[1])
+    _launch("flash_bwd_dkv", q.dtype,
+            (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+             lse.data_ptr(), delta.data_ptr(), nv, dk.data_ptr(),
+             dv.data_ptr(), *(x if x is None else x.data_ptr()
+                              for x in heads),
+             *_geom(q, k, causal, window, softcap, d)))
+    return _narrow(dk, d), _narrow(dv, d)
+
+
+def flash_delta(do, out):
+    """delta = rowsum(dO * O), (B,H,S) f32, of (B,S,H,D) dO and O of one
+    dtype.  On 16-bit CUDA tensors a kernel sums the products, each exact
+    in fp32, in fp32, as the reference's rowsum of the widened tensors
+    (``flash_delta_plain``), without writing fp32 copies of either; float32
+    inputs have nothing to widen and take the plain version on any device,
+    as CPU tensors do."""
+    if do.device.type == "cpu" or (do.dtype == out.dtype == torch.float32):
+        return flash_delta_plain(do, out)
+    _on_card("flash_delta", do, out)
+    if do.dtype not in _HALF or out.dtype != do.dtype:
+        raise TypeError(f"flash_delta: want dO and O of one dtype, float32 "
+                        f"or 16-bit, got {do.dtype} and {out.dtype}")
+    if do.dim() != 4 or out.shape != do.shape:
+        raise ValueError(f"flash_delta: want dO and O of one (B,S,H,D) "
+                         f"shape, got {tuple(do.shape)}, {tuple(out.shape)}")
+    b, s, h, d = do.shape
+    delta = torch.empty((b, h, s), dtype=torch.float32, device=do.device)
+    rc = _lib16().flash_delta_16(
+        _HALF[do.dtype], do.data_ptr(), out.data_ptr(), delta.data_ptr(), b,
+        s, h, d, torch.cuda.current_stream(do.device).cuda_stream)
+    _raise_on("flash_delta", rc)
+    LAUNCHES_16["flash_delta_16"] += 1
+    return delta

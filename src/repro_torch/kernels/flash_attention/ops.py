@@ -19,6 +19,7 @@ import torch
 
 from repro_torch.kernels.flash_attention.kernel import (flash_bwd_dkv,
                                                        flash_bwd_dq,
+                                                       flash_delta,
                                                        flash_fwd)
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.models.shard_hooks import refuse_dtensor
@@ -57,15 +58,11 @@ class _FlashAttention(torch.autograd.Function):
                     o = mask_rows(o, nv)
                 dq, dk, dv = torch.autograd.grad(o, (qq, kk, vv), g)
         else:
-            # 16-bit inputs are cast to fp32 once here, for both kernels
-            # (the wrappers pass fp32 through), and the grads cast back
-            dtypes = (q.dtype, k.dtype, v.dtype)
-            q, k, v, g = (x.float().contiguous() for x in (q, k, v, g))
-            # delta = rowsum(dO . O), (B, H, S) f32 like lse
-            delta = (g * out.float()).sum(-1).transpose(1, 2).contiguous()
+            # delta = rowsum(dO . O), (B, H, S) f32 like lse, with no fp32
+            # copy of 16-bit dO or O
+            delta = flash_delta(g, out)
             dq = flash_bwd_dq(q, k, v, g, lse, delta, nv, **ctx.opts)
             dk, dv = flash_bwd_dkv(q, k, v, g, lse, delta, nv, **ctx.opts)
-            dq, dk, dv = (x.to(dt) for x, dt in zip((dq, dk, dv), dtypes))
         return dq, dk, dv, None, None, None, None, None
 
 

@@ -33,6 +33,8 @@ import torch
 from repro_torch.kernels import build
 
 SOURCE = Path(__file__).with_name("csrc") / "rglru_scan.cu"
+# library name -> source, for ``build.load_all``
+SOURCES = {"rglru_scan": SOURCE}
 
 LAUNCHES = {"rglru_fwd": 0, "rglru_bwd": 0}
 

@@ -36,6 +36,8 @@ from repro_torch.kernels import build
 
 MAX_CHUNK, MAX_HEAD_DIM, MAX_STATE = 64, 64, 128
 SOURCE = Path(__file__).with_name("csrc") / "ssd_scan.cu"
+# library name -> source, for ``build.load_all``
+SOURCES = {"ssd_scan": SOURCE}
 
 LAUNCHES = {"ssd_fwd": 0, "ssd_bwd": 0}
 

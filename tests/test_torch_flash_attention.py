@@ -26,11 +26,14 @@ try:
 except ImportError:  # the card's machine has no JAX: run it with -m cuda
     jnp = None
 from repro_torch.configs import get_config
+from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels.flash_attention import (attention, flash_bwd_dkv,
                                                  flash_bwd_dkv_heads_plain,
                                                  flash_bwd_dkv_plain,
                                                  flash_bwd_dq,
                                                  flash_bwd_dq_plain,
+                                                 flash_delta,
+                                                 flash_delta_plain,
                                                  flash_fwd, flash_fwd_plain)
 from repro_torch.models import layers as L
 from repro_torch.models import params_from_jax, reduced
@@ -168,34 +171,37 @@ def test_use_kernel_false_is_the_masked_reference():
         attention(q, k, v, bwd_impl="pallas")
 
 
-def _bf16_attention_grads(port: bool, x32, p32, do32):
-    """Reduced gemma's first attention layer in bf16 with ``use_pallas``
-    (seq 128, so the kernel path is taken; two of three rows valid):
-    output and the gradients of x and of wq, wk, wv, as fp32 numpy."""
+def _bf16_attention_grads(port: bool, x32, p32, do32,
+                          dtype: str = "bfloat16"):
+    """Reduced gemma's first attention layer in ``dtype`` (bf16 or fp16)
+    with ``use_pallas`` (seq 128, so the kernel path is taken; two of three
+    rows valid): output and the gradients of x and of wq, wk, wv, as fp32
+    numpy."""
     if port:
+        dt = getattr(torch, dtype)
         cfg = reduced(get_config("gemma-2b")).with_(
-            dtype="bfloat16", param_dtype="bfloat16", use_pallas=True)
+            dtype=dtype, param_dtype=dtype, use_pallas=True)
         params = params_from_jax(p32, cfg, device="cpu")
-        p = {k: v.to(torch.bfloat16).requires_grad_()
+        p = {k: v.to(dt).requires_grad_()
              for k, v in L.sub(params, "layers.0.attn").items()}
-        x = torch.from_numpy(x32).to(torch.bfloat16).requires_grad_()
+        x = torch.from_numpy(x32).to(dt).requires_grad_()
         out = L.gqa_attention(p, x, cfg, num_valid=2)
-        out.backward(torch.from_numpy(do32).to(torch.bfloat16))
+        out.backward(torch.from_numpy(do32).to(dt))
         grads = [x.grad] + [p[f"{w}.weight"].grad.T for w in ("wq", "wk",
                                                               "wv")]
         return [t.float().numpy() for t in [out.detach()] + grads]
+    dt = getattr(jnp, dtype)
     cfg = ref_reduced(ref_get_config("gemma-2b")).with_(
-        dtype="bfloat16", param_dtype="bfloat16", use_pallas=True)
+        dtype=dtype, param_dtype=dtype, use_pallas=True)
     p = jax.tree_util.tree_map(
-        lambda a: jnp.asarray(a[0], jnp.bfloat16),
-        p32["groups"]["b0"]["attn"])
+        lambda a: jnp.asarray(a[0], dt), p32["groups"]["b0"]["attn"])
 
     def f(x, p):
         return ref_layers.gqa_attention(p, x, cfg,
                                         num_valid=jnp.int32(2))[0]
 
-    out, vjp = jax.vjp(f, jnp.asarray(x32, jnp.bfloat16), p)
-    gx, gp = vjp(jnp.asarray(do32, jnp.bfloat16))
+    out, vjp = jax.vjp(f, jnp.asarray(x32, dt), p)
+    gx, gp = vjp(jnp.asarray(do32, dt))
     return [np.asarray(t, np.float32) for t in
             (out, gx, gp["wq"]["w"], gp["wk"]["w"], gp["wv"]["w"])]
 
@@ -219,6 +225,28 @@ def test_bf16_gqa_attention_with_use_pallas_matches_reference():
     want = _bf16_attention_grads(False, x32, p32, do32)
     for a, b in zip(got, want):
         assert a.shape == b.shape
+        assert np.abs(a - b).max() <= 1e-2 * np.abs(b).max()
+    assert (got[0][2:] == 0).all() and (got[1][2:] == 0).all()
+
+
+def test_fp16_gqa_attention_with_use_pallas_matches_reference():
+    """The fp16 twin of the bf16 test above: fp16 through the flash path
+    (its plain versions on the CPU, the 16-bit kernels on the card), against
+    the reference's Pallas kernels (interpret mode) in fp16 on the same
+    fp16-rounded inputs; 1e-2 of each tensor's largest value (fp16 keeps 11
+    bits where bf16 keeps 8, so the bf16 test's reasons hold with room),
+    padded rows exact zeros on both sides."""
+    cfg = ref_reduced(ref_get_config("gemma-2b"))
+    p32 = jax.tree_util.tree_map(np.asarray,
+                                 ref_init_lm(jax.random.PRNGKey(0), cfg))
+    rng = np.random.default_rng(6)
+    x32 = rng.standard_normal((3, 128, cfg.d_model)).astype(np.float32)
+    do32 = rng.standard_normal((3, 128, cfg.d_model)).astype(np.float32)
+    got = _bf16_attention_grads(True, x32, p32, do32, "float16")
+    want = _bf16_attention_grads(False, x32, p32, do32, "float16")
+    for a, b in zip(got, want):
+        assert a.shape == b.shape
+        assert np.isfinite(a).all()
         assert np.abs(a - b).max() <= 1e-2 * np.abs(b).max()
     assert (got[0][2:] == 0).all() and (got[1][2:] == 0).all()
 
@@ -316,10 +344,11 @@ HALF_CASES = [(2, 1024, 1024, 8, 1, 256, True, None, None, nv)
 @pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
 @pytest.mark.parametrize("case", HALF_CASES, ids=["nv1", "nv2"])
 def test_cuda_kernels_take_16_bit_inputs(case, dtype, cuda_device):
-    """The wrapper casts 16-bit q, k, v and dO to fp32 for the kernels and
-    hands back out, dq, dk and dv in the inputs' dtype (lse f32), as the
-    plain versions do: within 1e-2 of each tensor's largest value (one
-    rounding to 16 bits apart), padded rows exact zeros."""
+    """16-bit q, k, v and dO go to the 16-bit kernels as they are, which
+    hand back out, dq, dk and dv in the inputs' dtype (lse f32), as the
+    plain versions do: within 1e-2 of each tensor's largest value (16-bit
+    outputs, and the kernels round P and dS to 16 bits before their
+    products), padded rows exact zeros."""
     dt = getattr(torch, dtype)
     q, k, v, do = (torch.from_numpy(x).to(cuda_device, dt)
                    for x in _inputs(case, seed=7))
@@ -337,6 +366,114 @@ def test_cuda_kernels_take_16_bit_inputs(case, dtype, cuda_device):
         assert (a.float() - b.float()).abs().max() <= \
             1e-2 * b.float().abs().max()
         assert (a[case[9]:] == 0).all()
+
+
+# the CUDA_CASES shapes and llama3-8b's (phase 14(b)'s step), 16-bit
+HALF_CUDA_CASES = CASES + CUDA_CASES + [
+    (2, 2048, 2048, 32, 8, 128, True, None, None, None)]
+HALF_CUDA_IDS = IDS + CUDA_IDS + ["llama3-8b"]
+
+
+def _peak_new_bytes(fn):
+    """fn()'s result and the bytes it allocated on the card at its peak."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() - before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("case", HALF_CUDA_CASES, ids=HALF_CUDA_IDS)
+def test_cuda_16_bit_kernels_match_plain_versions(case, dtype, cuda_device):
+    """The 16-bit entries (a wgmma + TMA forward, m16n8k16 backward, the
+    delta kernel) against the plain versions on the same 16-bit inputs:
+    within 1e-2 of each tensor's largest value (16-bit outputs; P and dS
+    rounded to 16 bits before their products, ROADMAP queue 3), each row of
+    out, dq, dk and dv within ``row_error``'s limit (a few units in the
+    last place of the row's own largest value), lse within ``LSE_TOL`` of
+    its largest and delta within 1e-5 (fp32 sums of exact products).
+    Padded rows are exact zeros; a second dq and dk/dv launch is bit-equal;
+    every call launched its 16-bit entry alone (``LAUNCHES_16`` moved with
+    ``LAUNCHES``) and allocated no more than its outputs, its scratch and
+    the zero-padded copies of a head dim that is not built, plus 1 MiB, so
+    no fp32 copy of an input was made."""
+    dt = getattr(torch, dtype)
+    q, k, v, do = (torch.from_numpy(x).to(cuda_device, dt)
+                   for x in _inputs(case, seed=8))
+    b, s, t, h, hkv, d, nv = *case[:6], case[9]
+    nvt = None if nv is None else torch.tensor(nv, dtype=torch.int32,
+                                               device=cuda_device)
+    kw = _opts(case)
+    dp = next(x for x in (32, 64, 96, 128, 256) if x >= d)
+    qs, ks = b * s * h, b * t * hkv  # rows of q (and dO), of k (and v)
+    out_p, lse_p = flash_fwd_plain(q, k, v, nvt, **kw)
+    delta = flash_delta_plain(do, out_p)
+    FA.reset_launches()
+    (out, lse), new_fwd = _peak_new_bytes(
+        lambda: flash_fwd(q, k, v, nvt, **kw))
+    dq, new_dq = _peak_new_bytes(
+        lambda: flash_bwd_dq(q, k, v, do, lse_p, delta, nvt, **kw))
+    (dk, dv), new_dkv = _peak_new_bytes(
+        lambda: flash_bwd_dkv(q, k, v, do, lse_p, delta, nvt, **kw))
+    got_delta = flash_delta(do, out)
+    assert {k_: v_ for k_, v_ in FA.LAUNCHES.items() if v_} == {
+        "flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
+    assert {k_: v_ for k_, v_ in FA.LAUNCHES_16.items() if v_} == {
+        "flash_fwd_16": 1, "flash_bwd_dq_16": 1, "flash_bwd_dkv_16": 1,
+        "flash_delta_16": 1}
+    # 2 bytes an element: the outputs, then (d not built) the padded copies
+    # of the inputs and the padded outputs that are sliced back
+    padded = 0 if dp == d else 2 * dp
+    scratch = 2 * b * t * h * dp * 4 if h > hkv else 0
+    slack = 1 << 20
+    assert new_fwd <= (2 * qs * d + b * h * s * 4
+                       + padded * (qs + 2 * ks + qs) + slack)
+    assert new_dq <= 2 * qs * d + padded * (2 * qs + 2 * ks + qs) + slack
+    assert new_dkv <= (2 * 2 * ks * d + scratch
+                       + padded * (2 * qs + 2 * ks + 2 * ks) + slack)
+    want = [out_p, lse_p,
+            flash_bwd_dq_plain(q, k, v, do, lse_p, delta, nvt, **kw),
+            *flash_bwd_dkv_plain(q, k, v, do, lse_p, delta, nvt, **kw)]
+    for i, (a, w) in enumerate(zip([out, lse, dq, dk, dv], want)):
+        assert a.dtype == w.dtype == (torch.float32 if i == 1 else dt)
+        assert a.shape == w.shape and a.is_contiguous()
+        assert (a.float() - w.float()).abs().max() <= \
+            1e-2 * w.float().abs().max()
+        if i == 1:
+            assert (a - w).abs().max() <= FA.LSE_TOL * w.abs().max()
+        else:
+            assert FA.row_error(a, w) <= 1
+        if nv is not None:
+            assert (a[nv:] == 0).all()
+    ref_delta = flash_delta_plain(do, out)
+    assert (got_delta - ref_delta).abs().max() <= \
+        1e-5 * ref_delta.abs().max()
+    again = flash_bwd_dkv(q, k, v, do, lse_p, delta, nvt, **kw)
+    assert all(torch.equal(a, w) for a, w in zip(again, (dk, dv)))
+    assert torch.equal(flash_bwd_dq(q, k, v, do, lse_p, delta, nvt, **kw),
+                       dq)
+
+
+@pytest.mark.cuda
+def test_cuda_mixed_dtypes_raise(cuda_device):
+    """q, k, v (and dO) must share one dtype: the wrappers no longer cast,
+    so a mix raises instead of taking either entry."""
+    q = torch.zeros((1, 64, 2, 64), device=cuda_device, dtype=torch.bfloat16)
+    k = torch.zeros((1, 64, 1, 64), device=cuda_device, dtype=torch.bfloat16)
+    lse = torch.zeros((1, 2, 64), device=cuda_device)
+    with pytest.raises(TypeError, match="one dtype"):
+        flash_fwd(q, k.float(), k)
+    with pytest.raises(TypeError, match="one dtype"):
+        flash_fwd(q.half(), k, k)
+    with pytest.raises(TypeError, match="one dtype"):
+        flash_bwd_dq(q, k, k, q.float(), lse, lse)
+    with pytest.raises(TypeError, match="one dtype"):
+        flash_bwd_dkv(q, k, k, q.half(), lse, lse)
+    with pytest.raises(TypeError, match="16-bit"):
+        flash_delta(q, q.float())
 
 
 @pytest.mark.cuda

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Time design variants of three of the port's CUDA kernels on the card, to
-pick their tuning constants.
+"""Time design variants of the port's CUDA kernels on the card, to pick
+their tuning constants.
 
-    python3 tools/kernel_variants.py [--out DIR]
+    python3 tools/kernel_variants.py [--flash16] [--out DIR]
 
 Needs one CUDA card and nvcc, as ``chip_smoke.py`` does.
 
@@ -17,9 +17,16 @@ Needs one CUDA card and nvcc, as ``chip_smoke.py`` does.
   2048, W 4096, no h0).
 * ``rglru_fwd``: the forward ring's stages and steps (``FWD_STAGES``,
   ``FWD_STEPS``), built and timed the same way at the same shapes.
+* ``--flash16`` (alone): the 16-bit flash kernels' tile shapes
+  (``Fwd16Cfg``, ``Dq16Cfg``, ``Dkv16Cfg`` in
+  ``csrc/flash_attention_16.cu``): each variant is the source with
+  ``FLASH16_VARIANTS``' text replacements, built by nvcc under
+  ``build/variants/`` in parallel, held to the plain versions in bf16 at
+  the gemma-2b, llama3-8b and phi-3-vision shapes (1e-2 x max), then timed
+  at those shapes by CUDA events and by torch.profiler's device time.
 
 Every variant is first held to the plain version (the SSD tolerance 1e-4
-abs and rel; RG-LRU bit-equality) and then timed with CUDA events over 20
+abs and rel; RG-LRU bit-equality; flash 1e-2 x max) and then timed with CUDA events over 20
 launches after two warm-ups, each variant twice in turn.  Prints the card
 and one JSON object; exits 1 if a variant disagrees.
 """
@@ -157,9 +164,126 @@ def rglru_variants() -> dict:
     }
 
 
+# variant -> text replacements of csrc/flash_attention_16.cu ("chosen" is the
+# source as it stands)
+FLASH16_VARIANTS = {
+    "chosen": [],
+    "fwd ring of 2 K/V stages at D <= 128": [
+        ("static constexpr int STAGES = D == 256 ? 2 : 3;",
+         "static constexpr int STAGES = 2;")],
+    "fwd three consumer warpgroups at D <= 128": [
+        ("static constexpr int NWG = D <= 128 ? 2 : 1;",
+         "static constexpr int NWG = D <= 128 ? 3 : 1;")],
+    "fwd 128-key tiles at D 128": [
+        ("static constexpr int BK = D <= 96 ? 128 : 64;",
+         "static constexpr int BK = D <= 128 ? 128 : 64;")],
+    "fwd two consumer warpgroups at D 256": [
+        ("static constexpr int NWG = D <= 128 ? 2 : 1;",
+         "static constexpr int NWG = 2;")],
+    "dq one block an SM": [
+        ("static constexpr int MINB = D <= 128 ? 2 : 1;",
+         "static constexpr int MINB = 1;")],
+    "dk/dv 32-key tiles at D 256": [
+        ("static constexpr int BK = D == 256 ? 64 : 32, BQ = 64;",
+         "static constexpr int BK = 32, BQ = 64;")],
+    "dk/dv 64-key tiles at D <= 128": [
+        ("static constexpr int BK = D == 256 ? 64 : 32, BQ = 64;",
+         "static constexpr int BK = 64, BQ = 64;")],
+}
+FLASH16_SHAPES = (("gemma", 2, 1024, 8, 1, 256), ("llama3", 2, 2048, 32, 8, 128),
+                  ("phi3", 2, 1024, 32, 32, 96))
+
+
+def flash16_variant_libs() -> dict:
+    """Each ``FLASH16_VARIANTS`` entry built (in parallel) and loaded."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import kernel as K
+
+    src = K.SOURCE_16.read_text()
+    for inc in ("../../csrc/mma_16.cuh", "flash_common.cuh"):
+        src = src.replace(f'#include "{inc}"',
+                          f'#include "{(K.SOURCE_16.parent / inc).resolve()}"')
+    paths = {}
+    for i, (label, reps) in enumerate(FLASH16_VARIANTS.items()):
+        text = src
+        for old, new in reps:
+            assert old in text, (label, old)
+            text = text.replace(old, new)
+        path = build.BUILD_DIR.parent / "variants" / f"flash16_v{i}.cu"
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_text(text)
+        paths[label] = path
+    with ThreadPoolExecutor(len(paths)) as pool:
+        built = dict(zip(paths, pool.map(lambda p: build.build(p, p.stem),
+                                         paths.values())))
+    libs = {}
+    for label, path in built.items():
+        lib = ctypes.CDLL(str(path))
+        for name, argtypes in K.SIGNATURES_16.items():
+            getattr(lib, name).argtypes = argtypes
+            getattr(lib, name).restype = ctypes.c_int
+        libs[label] = lib
+    return libs
+
+
+def flash16_variants() -> dict:
+    import torch
+    from chip_smoke import FLASH16, HALF_TOL, device_ms, time_ms
+    from repro_torch.kernels.flash_attention import kernel as K
+
+    dev = torch.device("cuda")
+    libs = flash16_variant_libs()
+    chosen = K._lib16
+    out = {label: {} for label in libs}
+    try:
+        for rnd in range(2):
+            for label_s, b, s, h, hkv, d in FLASH16_SHAPES:
+                g = torch.Generator(device=dev).manual_seed(0)
+                q, k, v, do = (torch.randn(x, generator=g, device=dev)
+                               .to(torch.bfloat16)
+                               for x in ((b, s, h, d), (b, s, hkv, d),
+                                         (b, s, hkv, d), (b, s, h, d)))
+                out_p, lse = K.flash_fwd_plain(q, k, v)
+                delta = K.flash_delta_plain(do, out_p)
+                want = {"flash_fwd": out_p,
+                        "flash_bwd_dq": K.flash_bwd_dq_plain(q, k, v, do, lse,
+                                                             delta),
+                        "flash_bwd_dkv": K.flash_bwd_dkv_plain(
+                            q, k, v, do, lse, delta)[0]}
+                calls = {
+                    "flash_fwd": lambda: K.flash_fwd(q, k, v)[0],
+                    "flash_bwd_dq": lambda: K.flash_bwd_dq(q, k, v, do, lse,
+                                                           delta),
+                    "flash_bwd_dkv": lambda: K.flash_bwd_dkv(
+                        q, k, v, do, lse, delta)[0]}
+                for label, lib in libs.items():
+                    K._lib16 = lambda lib=lib: lib
+                    rec = out[label].setdefault(label_s, {})
+                    for name, fn in calls.items():
+                        if rnd == 0:
+                            err = (fn().float() - want[name].float()).abs() \
+                                .max().item()
+                            if err > HALF_TOL * want[name].float().abs() \
+                                    .max().item():
+                                raise AssertionError(
+                                    f"{name} variant {label!r} at "
+                                    f"{label_s}: max err {err}")
+                        rec.setdefault(f"{name}_ms", []).append(
+                            time_ms(fn, 20))
+                        rec.setdefault(f"{name}_device_ms", []).append(
+                            device_ms(fn, FLASH16[f"{name}_16"]))
+    finally:
+        K._lib16 = chosen
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=str(ROOT / "chiprun_out"))
+    ap.add_argument("--flash16", action="store_true",
+                    help="time the 16-bit flash kernels' variants alone")
     args = ap.parse_args()
     import torch
 
@@ -169,10 +293,15 @@ def main() -> int:
     from chip_smoke import gpu_line
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    res = {"gpu": gpu_line(), "ssd_fwd_ms": ssd_variants(),
-           **rglru_variants()}
+    if args.flash16:
+        res = {"gpu": gpu_line(), "flash16": flash16_variants()}
+        name = "kernel_variants_flash16.json"
+    else:
+        res = {"gpu": gpu_line(), "ssd_fwd_ms": ssd_variants(),
+               **rglru_variants()}
+        name = "kernel_variants.json"
     os.makedirs(args.out, exist_ok=True)
-    with open(os.path.join(args.out, "kernel_variants.json"), "w") as f:
+    with open(os.path.join(args.out, name), "w") as f:
         json.dump(res, f, indent=1)
     print(res["gpu"])
     print(json.dumps(res))
