@@ -466,7 +466,8 @@ FLASH_TIMED_16 = [FLASH_TIMED[0],
                   ("llama3", 2, 2048, 2048, 32, 8, 128, None, None)]
 
 
-YARDSTICK_ROUNDS = 5  # the 16-bit forward alternated with SDPA's default
+YARDSTICK_ROUNDS = 5  # the 16-bit forward alternated with SDPA's default,
+                      # the 16-bit backward pair with SDPA's flash backward
 
 
 def time_kernels(peak: tuple, report: dict, shape=FLASH_TIMED[0],
@@ -645,6 +646,21 @@ def time_kernels(peak: tuple, report: dict, shape=FLASH_TIMED[0],
                     lib_ms["bwd"] = time_ms(eff_backward, 20)
                 tm["efficient_ms"] = lib_ms["bwd"]
         times[f"{name}_16" if half else name] = tm
+    if half:
+        # dq + dk/dv against SDPA's flash backward (dq, dk and dv in one
+        # call), in turn YARDSTICK_ROUNDS times, by the profiler's device
+        # time: every reading kept, on the dk/dv entry
+        def pair():
+            calls["flash_bwd_dq"][0]()
+            calls["flash_bwd_dkv"][0]()
+
+        frags = FLASH16["flash_bwd_dq_16"] + FLASH16["flash_bwd_dkv_16"]
+        rounds = [(device_ms(pair, frags),
+                   sum(device_profile(lib_bwd).values()) or None)
+                  for _ in range(YARDSTICK_ROUNDS)]
+        tm = times["flash_bwd_dkv_16"]
+        tm["pair_device_ms_alternated"] = [a for a, _ in rounds]
+        tm["library_device_ms_alternated"] = [b for _, b in rounds]
     return times
 
 
@@ -655,12 +671,17 @@ HALF_TOL = 1e-2   # of each tensor's max |value|: 16-bit outputs, and the 16-bit
                   # (b, s, h) row is also held to ``K.row_error``'s limit and
                   # lse to ``K.LSE_TOL`` of its max
 DELTA_TOL = 1e-5  # of max |delta|: fp32 sums of exact products, another order
-# (label, B, S, H, Hkv, D, num_valid): gemma's main path (one and two valid
-# rows), llama3-8b's (phase 14(b)) and phi-3-vision's (D 96, phase 13(a))
-HALF_CASES = [("gemma-nv1", 2, 1024, 8, 1, 256, 1),
-              ("gemma-nv2", 2, 1024, 8, 1, 256, 2),
-              ("llama3", 2, 2048, 32, 8, 128, None),
-              ("phi3-nv1", 2, 1024, 32, 32, 96, 1)]
+# (label, B, S, H, Hkv, D, num_valid, window, softcap), causal, S = T:
+# gemma's main path (one and two valid rows), llama3-8b's (phase 14(b)),
+# phi-3-vision's (D 96, phase 13(a)), grok-1's heads with its softcap 30,
+# and the hybrid's local blocks (D 256, H 16, Hkv 1) with a window that
+# bites (half of S)
+HALF_CASES = [("gemma-nv1", 2, 1024, 8, 1, 256, 1, None, None),
+              ("gemma-nv2", 2, 1024, 8, 1, 256, 2, None, None),
+              ("llama3", 2, 2048, 32, 8, 128, None, None, None),
+              ("phi3-nv1", 2, 1024, 32, 32, 96, 1, None, None),
+              ("grok-softcap", 2, 1024, 48, 8, 128, 1, None, 30.0),
+              ("hybrid-window", 2, 2048, 16, 1, 256, 1, 1024, None)]
 
 
 def check_flash_half(report: dict) -> dict:
@@ -674,7 +695,9 @@ def check_flash_half(report: dict) -> dict:
     ``flash_delta`` within DELTA_TOL of its plain version.  Each call must
     launch its 16-bit entry alone (``LAUNCHES_16`` moves with ``LAUNCHES``:
     the fp32 entry does not run) and allocate no more than its outputs and
-    scratch (1 MiB of slack; an fp32 copy of an input would not fit).
+    scratch (1 MiB of slack; an fp32 copy of an input would not fit): for
+    dk/dv that is the fp32 partials of ``K.dkv16_splits`` splits, none where
+    a kv head's whole group of query heads runs in one block.
     Returns each 16-bit kernel's largest error and, under ``"rows"``, each
     one's largest ``row_error`` (lse's: its error over LSE_TOL x max)."""
     import torch
@@ -700,8 +723,9 @@ def check_flash_half(report: dict) -> dict:
         return out, counts, new, new <= allowed + slack
 
     for dtype in (torch.bfloat16, torch.float16):
-        for label, b, s, h, hkv, d, nv in HALF_CASES:
+        for label, b, s, h, hkv, d, nv, window, cap in HALF_CASES:
             name = f"{label}-{str(dtype)[6:]}"
+            kw = dict(causal=True, window=window, softcap=cap)
             g = torch.Generator(device=dev).manual_seed(zlib.crc32(
                 name.encode()))
             q, k, v, do = (torch.randn(shape, generator=g, device=dev)
@@ -712,20 +736,24 @@ def check_flash_half(report: dict) -> dict:
             nvt = None if nv is None else torch.tensor(nv, dtype=torch.int32,
                                                        device=dev)
             qb, kb, rows = q.numel() * 2, k.numel() * 2, b * h * s * 4
-            scratch = 2 * b * s * h * d * 4 if h > hkv else 0
-            out_p, lse_p = K.flash_fwd_plain(q, k, v, nvt)
+            # the dk/dv kernel's fp32 partials: (B, T, Hkv * splits, D) for
+            # dk and for dv where it splits the groups, else none
+            splits = K.dkv16_splits(b, s, h, hkv, d)
+            scratch = 2 * b * s * hkv * splits * d * 4 if splits > 1 else 0
+            out_p, lse_p = K.flash_fwd_plain(q, k, v, nvt, **kw)
             delta_p = K.flash_delta_plain(do, out_p)
             calls = {
-                "fwd": (lambda: K.flash_fwd(q, k, v, nvt), qb + rows,
+                "fwd": (lambda: K.flash_fwd(q, k, v, nvt, **kw), qb + rows,
                         {"flash_fwd": 1, "flash_fwd_16": 1}),
                 "dq": (lambda: K.flash_bwd_dq(q, k, v, do, lse_p, delta_p,
-                                              nvt), qb,
+                                              nvt, **kw), qb,
                        {"flash_bwd_dq": 1, "flash_bwd_dq_16": 1}),
                 "dkv": (lambda: K.flash_bwd_dkv(q, k, v, do, lse_p, delta_p,
-                                                nvt), 2 * kb + scratch,
+                                                nvt, **kw), 2 * kb + scratch,
                         {"flash_bwd_dkv": 1, "flash_bwd_dkv_16": 1}),
             }
-            got, res = {}, {}
+            got, res = {}, {"dkv_splits": splits,
+                            "dkv_scratch_bytes": scratch}
             for key, (fn, allowed, want_counts) in calls.items():
                 got[key], counts, new, fits = run(fn, allowed)
                 res[f"{key}_launches"] = counts
@@ -737,17 +765,18 @@ def check_flash_half(report: dict) -> dict:
                                            rows)
             res["delta_entry_16_alone"] = counts == {"flash_delta_16": 1}
             res["delta_no_fp32_copy"] = fits
-            dq2 = K.flash_bwd_dq(q, k, v, do, lse_p, delta_p, nvt)
-            dk2, dv2 = K.flash_bwd_dkv(q, k, v, do, lse_p, delta_p, nvt)
+            dq2 = K.flash_bwd_dq(q, k, v, do, lse_p, delta_p, nvt, **kw)
+            dk2, dv2 = K.flash_bwd_dkv(q, k, v, do, lse_p, delta_p, nvt,
+                                       **kw)
             torch.cuda.synchronize()
             res["dq_repeats_bit_for_bit"] = bool(torch.equal(dq, dq2))
             res["dkv_repeats_bit_for_bit"] = bool(torch.equal(dk, dk2)
                                                   and torch.equal(dv, dv2))
             want = {"out": out_p, "lse": lse_p,
                     "dq": K.flash_bwd_dq_plain(q, k, v, do, lse_p, delta_p,
-                                               nvt)}
+                                               nvt, **kw)}
             want["dk"], want["dv"] = K.flash_bwd_dkv_plain(
-                q, k, v, do, lse_p, delta_p, nvt)
+                q, k, v, do, lse_p, delta_p, nvt, **kw)
             kernel_of = {"out": "flash_fwd_16", "lse": "flash_fwd_16",
                          "dq": "flash_bwd_dq_16", "dk": "flash_bwd_dkv_16",
                          "dv": "flash_bwd_dkv_16"}
@@ -787,7 +816,8 @@ def check_flash_half(report: dict) -> dict:
                     res[f"{c}_no_fp32_copy"]
                     for c in ("fwd", "dq", "dkv", "delta")))
                 + f" (new bytes fwd {res['fwd_new_bytes']}, dq "
-                f"{res['dq_new_bytes']}, dkv {res['dkv_new_bytes']})"
+                f"{res['dq_new_bytes']}, dkv {res['dkv_new_bytes']}; dk/dv "
+                f"splits {splits}, partials {scratch} bytes)"
                 + f", dq / dk,dv repeat bit for bit "
                 f"{res['dq_repeats_bit_for_bit']} / "
                 f"{res['dkv_repeats_bit_for_bit']}")
@@ -1262,7 +1292,9 @@ def reset_all_launches() -> None:
 # launches (flash_bwd_dkv: the per-head kernel, then the group-sum)
 FLASH = {"flash_fwd": ("::fwd_kernel<",), "flash_bwd_dq": ("::dq_kernel<",),
          "flash_bwd_dkv": ("::dkv_kernel<", "::dkv_sum_kernel(")}
-# the 16-bit entries' kernels (csrc/flash_attention_16.cu)
+# the 16-bit entries' kernels (csrc/flash_attention_16.cu; flash_bwd_dkv_16:
+# the group-summing kernel, then the sum of the splits' partials where the
+# launcher splits the groups)
 FLASH16 = {"flash_fwd_16": ("::fwd16_kernel<",),
            "flash_bwd_dq_16": ("::dq16_kernel<",),
            "flash_bwd_dkv_16": ("::dkv16_kernel<", "::dkv_sum16_kernel<"),
@@ -4278,6 +4310,11 @@ def main() -> int:
                 f" fp32 bound {tm['fp32_bound_ms']:.4f} ms"
                 + (f", 3xTF32 bound {tm['tf32x3_bound_ms']:.4f} ms"
                    if "tf32x3_bound_ms" in tm else ""))
+        tm = tms["flash_bwd_dkv_16"]
+        log(f"  dq16 + dkv16 on bf16 at the {label} shapes, alternated "
+            f"with SDPA's flash backward (device ms): "
+            f"{tm['pair_device_ms_alternated']} against "
+            f"{tm['library_device_ms_alternated']}")
     shaped = [("hybrid", FLASH_TIMED[1], report["hybrid_times"])] + [
         (shape[0], shape, report["slice7_times"][shape[0]])
         for shape in FLASH_TIMED[2:]]

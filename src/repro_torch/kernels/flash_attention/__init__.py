@@ -2,6 +2,7 @@ from repro_torch.kernels.flash_attention.kernel import (
     LAUNCHES,
     LAUNCHES_16,
     LSE_TOL,
+    dkv16_splits,
     flash_bwd_dkv,
     flash_bwd_dkv_heads_plain,
     flash_bwd_dkv_plain,
@@ -23,6 +24,7 @@ __all__ = [
     "LSE_TOL",
     "attention",
     "attention_ref",
+    "dkv16_splits",
     "flash_bwd_dkv",
     "flash_bwd_dkv_heads_plain",
     "flash_bwd_dkv_plain",

@@ -26,37 +26,68 @@
 // causal) each q tile meets up to 16-32 kv tiles, hundreds of flops per
 // byte, so the bound is the 989 TFLOP/s of the 16-bit tensor cores.
 //
-// flash_fwd_16 is FlashAttention-3's shape: one producer warp keeps a ring
-// of two K/V stages filled by TMA (cp.async.bulk.tensor, mbarriers with
-// transaction counts; K and V of a stage have barriers of their own, so
-// K_{i+1} streams in once S_{i-1} is done); consumer warpgroups of 64
-// query rows compute
-// S = Q K^T with wgmma m64nBKk16 (Q and K in shared memory), the online
-// softmax in fp32 registers (base 2), convert P to 16 bits in registers and
-// feed it as wgmma's A operand for O += P V (V in shared memory, N-major).
-// All tiles use TMA's 64-byte swizzle: each row of D values is D / 32
-// atoms of 32 columns, one TMA box per atom, and the wgmma descriptors walk
-// atoms and 16-column k steps inside them.  O's fp32 accumulator stays in
-// registers: D / 2 a thread.  At D 256 that is 128, so one consumer
-// warpgroup (64 query rows, a ring of two 64-row K/V tiles: 160 KB of
-// shared memory); at D <= 128 two warpgroups (128 query rows) share a ring
-// of three K/V tiles of 64 rows (128 at D <= 96).  One block of 160 or 288
-// threads an SM.  Tile i's S is issued together with P_{i-1} V_{i-1}, and
-// its softmax runs while that product does.
+// All three are FlashAttention-3's shape: TMA (cp.async.bulk.tensor,
+// mbarriers with transaction counts) keeps a ring of tiles filled ahead of
+// consumer warpgroups of 64 rows that run wgmma.  Every operand is a
+// [rows][D] tile of q, k, v or dO in one layout: TMA's 64-byte swizzle,
+// each row of D values D / 32 atoms of 32 columns, one TMA box per atom;
+// the wgmma descriptors walk atoms and 16-column k steps inside them.  Every
+// product has one of two forms: SS (both operands K-major in shared
+// memory: S = Q K^T and dP = dO V^T, and in the dk/dv kernel S^T = K Q^T
+// and dP^T = V dO^T, the same tiles in the other roles) or RS (A from
+// registers: P or dS in 16 bits, converted in the accumulator's layout,
+// which is wgmma's A-fragment layout; B a [k][n] tile, N-major: O += P V,
+// dQ += dS K, dV += P^T dO, dK += dS^T Q; the backward's take up to 128
+// columns, four atoms, a wgmma).  Computing S^T and dP^T directly puts P^T
+// and dS^T where the RS products take them, so nothing is staged through
+// shared memory.  No wgmma sits under a branch that is not uniform over its
+// warpgroup (ptxas serializes them there, C7520): masked tiles differ from
+// whole ones in their elementwise code only.  A barrier wait of over 4 s
+// traps (../../csrc/mma_16.cuh), so a lost arrival is an error, not a hang.
 //
-// flash_bwd_dq_16 / flash_bwd_dkv_16 keep flash_attention.cu's grids (dq: a
-// block per (q tile, query head, batch row), longest causal rows first;
-// dk/dv: a block per (k tile, query head, batch row), per-head fp32 partials
-// into (B,T,H,D) scratch when H > Hkv, then dkv_sum16_kernel adds each
-// group in a fixed order and writes 16 bits).  Their products are one
-// mma.sync m16n8k16 each (../../csrc/mma_16.cuh), tiles come by 16-byte
-// cp.async into swizzled 16-bit tiles and fragments by ldmatrix (.trans for
-// the [k][n] operands).  At 2 bytes a value the tiles hold twice the rows
-// of the fp32 kernels: dq takes 64 query rows and 64-key K/V tiles in two
-// stages (200.5 KB at D 256; two blocks an SM at D <= 128), dk/dv 64 keys
-// at D 256 (32 below) and 64-row Q/dO tiles in two stages (209 KB at D
-// 256).  Warps tile each product as WM x WN = 8 warps.  They use
-// mma.sync, not wgmma, so the CPU emulator (tools/cuda_emu) rehearses them.
+// flash_fwd_16: one producer warp fills a ring of two or three K/V stages
+// (K and V of a stage on barriers of their own, so K_{i+1} streams in once
+// S_{i-1} is done); S = Q K^T, the online softmax in fp32 registers (base
+// 2), P V.  O's fp32 accumulator stays in registers: D / 2 a thread.  At D
+// 256 that is 128, so one consumer warpgroup (64 query rows, a ring of two
+// 64-row K/V tiles: 160 KB of shared memory); at D <= 128 two warpgroups
+// (128 query rows) share a ring of three K/V tiles of 64 rows (128 at D <=
+// 96).  One block of 160 or 288 threads an SM.  Tile i's S is started
+// together with P_{i-1} V_{i-1}, and its softmax runs while that product
+// does.
+//
+// The backward kernels have no producer warp: a ninth warp puts three on
+// one quarter of the SM's register file and caps every thread at 168
+// registers, which their accumulators overflow (ptxas does not raise a
+// warpgroup's allocation after setmaxnreg).  A consumer refills the ring in
+// band instead, as each stage comes free, and keeps 255.  Each starts S
+// (S^T) and dP (dP^T) together and computes p f, the softcap's factor
+// folded in, while dP runs, then dS = p f (dP - delta).
+//
+// flash_bwd_dq_16: a block per (q tile, query head, batch row), longest
+// causal rows first; Q and dO once, then a ring of K/V tiles loaded by
+// thread 0 (Dq16Cfg: two warpgroups and 128-key tiles at D 128, else one
+// warpgroup and 64-key tiles, two blocks an SM below D 256); per tile S and
+// dP (SS), dS in registers, dQ += dS K (RS); dQ's fp32 accumulator (D / 2
+// registers a thread) is scaled and stored once.
+//
+// flash_bwd_dkv_16: a block per (k tile, kv head, batch row, split of the
+// kv head's group of query heads); K and V once, then a ring of Q / dO
+// tiles with their lse and delta (warp 0: Q and dO by TMA, lse and delta by
+// cp.async counted on the same barrier), walked head by head of the split,
+// each head's visible q tiles in order; per tile S^T and dP^T (SS), P^T and
+// dS^T in registers, dV += P^T dO while dS^T is computed, then dK += dS^T Q
+// (RS).  dK and dV sum the group in fp32 registers and are cast once.  A
+// warpgroup of 64 keys accumulates dK and dV (D registers a thread; at D 96
+// and 128 one a block, two blocks an SM; at D <= 64 two a block, 128-row
+// Q/dO tiles).  At D 256 that would be 256 registers, so two warpgroups
+// share one 64-key tile, warpgroup 0 accumulating dV (S^T only) and
+// warpgroup 1 dK (S^T and dP^T), 128 registers each (Dkv16Cfg).  With one
+// split (the whole group in a block) dk and dv are stored in 16 bits
+// directly; where the (k tile, kv head, batch row) grid alone would leave
+// SMs idle, the group is cut into splits (dkv16_splits), each storing an
+// fp32 partial that dkv_sum16_kernel adds in a fixed order.  Every sum has
+// a fixed order, so two launches agree bit for bit.
 
 #ifndef CUDA_EMU
 #include <cuda.h>
@@ -68,75 +99,26 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "../../csrc/mma_16.cuh"
 #include "flash_common.cuh"
 
 namespace {
 
-template <typename T>
-__device__ __forceinline__ T zero16() {
-  return H16<T>::of_f(0.f);
-}
-
-template <typename T, int D>
-__device__ __forceinline__ void zero_rows16(T* __restrict__ dst, int b,
-                                            int row0, int nrows, int L, int NH,
-                                            int head, int nthreads) {
+// rows [row0, row0 + nrows) of head `head` of a (B, L, NH, D) tensor of E
+// (fp32 or 16-bit) set to zero by `nthreads` threads
+template <typename E, int D>
+__device__ __forceinline__ void zero_head_rows(E* __restrict__ dst, int b,
+                                               int row0, int nrows, int L,
+                                               int NH, int head,
+                                               int nthreads) {
+  E z;
+  if constexpr (std::is_same<E, float>::value) z = 0.f;
+  else z = H16<E>::of_f(0.f);
   for (int i = threadIdx.x; i < nrows * D; i += nthreads) {
     const int r = i / D, c = i % D, row = row0 + r;
-    if (row < L) dst[((size_t)(b * L + row) * NH + head) * D + c] = zero16<T>();
-  }
-}
-
-// rows [row0, row0 + R) of head `head` of a (B, L, NH, D) 16-bit tensor
-// into a swizzled R x D tile, 16 bytes (8 values) a copy; rows past L are
-// zero-filled
-template <int D, int R, typename T>
-__device__ __forceinline__ void copy_tile16(T* dst, const T* __restrict__ src,
-                                            int b, int row0, int L, int NH,
-                                            int head) {
-  constexpr int C8 = D / 8;
-  for (int i = threadIdx.x; i < R * C8; i += NT) {
-    const int r = i / C8, c = (i % C8) * 8, row = row0 + r;
-    const bool in = row < L;
-    const T* from = in ? src + ((size_t)(b * L + row) * NH + head) * D + c : src;
-    cp_async16v(dst + swz16<D>(r, c), from, in ? 16 : 0);
-  }
-}
-
-// c[j] += a B_j for the N n-tiles j of B (N even), from n0 on, of a
-// swizzled [n][k] tile (B is its transpose) at k step k0
-template <int W, int N, typename T>
-__device__ __forceinline__ void mma_row_nk(float (&c)[N][4],
-                                           const uint32_t (&a)[4],
-                                           const T* s, int n0, int k0) {
-  static_assert(N % 2 == 0, "pairs of n tiles");
-#pragma unroll
-  for (int j = 0; j < N; j += 2) {
-    uint32_t b[2][2];
-    load_b16_nk2<W>(s, n0 + 8 * j, k0, b);
-    mma16<T>(c[j], a, b[0]);
-    mma16<T>(c[j + 1], a, b[1]);
-  }
-}
-
-// the same from a swizzled [k][n] tile (B is the tile), N odd too (dk/dv
-// at D 32 and 96)
-template <int W, int N, typename T>
-__device__ __forceinline__ void mma_row_kn(float (&c)[N][4],
-                                           const uint32_t (&a)[4],
-                                           const T* s, int k0, int n0) {
-#pragma unroll
-  for (int j = 0; j + 1 < N; j += 2) {
-    uint32_t b[2][2];
-    load_b16_kn2<W>(s, k0, n0 + 8 * j, b);
-    mma16<T>(c[j], a, b[0]);
-    mma16<T>(c[j + 1], a, b[1]);
-  }
-  if constexpr (N % 2) {
-    uint32_t b[2];
-    load_b16_kn<W>(s, k0, n0 + 8 * (N - 1), b);
-    mma16<T>(c[N - 1], a, b);
+    if (row < L) dst[((size_t)(b * L + row) * NH + head) * D + c] = z;
   }
 }
 
@@ -148,366 +130,6 @@ __device__ __forceinline__ bool tile_whole(int row0, int nq, int k0, int nk,
   return row0 + nq <= g.S && k0 + nk <= g.T &&
          (!g.causal || k0 + nk - 1 <= row0 + shift) &&
          (g.window <= 0 || k0 > row0 + nq - 1 + shift - g.window);
-}
-
-// ---------------------------------------------------------------- backward
-//
-// Per visible (q tile, kv tile) pair, as in the reference's _bwd_tile:
-//   s_soft = softcap(q k^T * sm_scale)    p  = exp(s_soft - lse), masked to 0
-//   dp = dO v^T                           ds = p (dp - delta) [* (1 - (s_soft/cap)^2)]
-//   dq += ds k * sm_scale   dk += ds^T q * sm_scale   dv += p^T dO
-
-template <int D>
-struct Dq16Cfg {
-  static constexpr int BQ = 64, BK = 64;
-  // two blocks an SM where both fit (107 KB at D 128; at D 256 one block
-  // takes 200.5 KB, and 128 registers a thread would spill)
-  static constexpr int MINB = D <= 128 ? 2 : 1;
-  // Q and dO; two stages of K and V; dS (16-bit); then lse and delta (fp32)
-  static constexpr size_t smem =
-      (size_t)(2 * BQ * D + 4 * BK * D + BQ * BK) * 2 + 2 * BQ * sizeof(float);
-};
-
-template <typename T, int D>
-__global__ void __launch_bounds__(NT, Dq16Cfg<D>::MINB)
-    dq16_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                const T* __restrict__ v, const T* __restrict__ dout,
-                const float* __restrict__ lse, const float* __restrict__ delta,
-                const int* __restrict__ nv_ptr, T* __restrict__ dq, Geom g) {
-  using C = Dq16Cfg<D>;
-  constexpr int BQ = C::BQ, BK = C::BK;
-  constexpr int WM = BQ / 16, WN = 8 / WM;  // warps over rows x columns
-  constexpr int NS = BK / 8 / WN;           // S and dP n-tiles a warp
-  constexpr int ND = D / 8 / WN;            // dq n-tiles a warp
-  extern __shared__ __align__(16) float tc_smem[];
-  T* Qs = reinterpret_cast<T*>(tc_smem);  // BQ x D
-  T* dOs = Qs + BQ * D;                   // BQ x D
-  T* Ks = dOs + BQ * D;                   // 2 x BK x D
-  T* Vs = Ks + 2 * BK * D;                // 2 x BK x D
-  T* dSs = Vs + 2 * BK * D;               // BQ x BK
-  float* rows = reinterpret_cast<float*>(dSs + BQ * BK);  // lse, delta
-
-  const int per = g.H * g.B, nq = (g.S + BQ - 1) / BQ;
-  const int iq = nq - 1 - (int)(blockIdx.x / per);  // longest rows first
-  const int h = (int)(blockIdx.x % per) % g.H, b = (int)(blockIdx.x % per) / g.H;
-  const int kvh = h / (g.H / g.Hkv);
-  const int row0 = iq * BQ;
-
-  if (b >= num_valid_rows(nv_ptr, g.B)) {
-    zero_rows16<T, D>(dq, b, row0, BQ, g.S, g.H, h, NT);
-    return;
-  }
-
-  const int warp = threadIdx.x >> 5, gq = lane_g(), tq = lane_t();
-  const int m1 = (warp % WM) * 16;            // query rows of both phases
-  const int n1 = (warp / WM) * (BK / WN);     // key columns of S and dP
-  const int c2 = (warp / WM) * (D / WN);      // head-dim columns of dq
-  const int shift = g.T - g.S;
-  const size_t at = ((size_t)b * g.H + h) * g.S;
-  const int2 range =
-      visible_range<true>((g.T + BK - 1) / BK, BK, row0, BQ, g);
-
-  copy_tile16<D, BQ>(Qs, q, b, row0, g.S, g.H, h);
-  copy_tile16<D, BQ>(dOs, dout, b, row0, g.S, g.H, h);
-  copy_rows<BQ>(rows, lse, at, row0, g.S);
-  copy_rows<BQ>(rows + BQ, delta, at, row0, g.S);
-  if (range.x <= range.y) {
-    copy_tile16<D, BK>(Ks, k, b, range.x * BK, g.T, g.Hkv, kvh);
-    copy_tile16<D, BK>(Vs, v, b, range.x * BK, g.T, g.Hkv, kvh);
-  }
-  cp_commit();
-
-  float dq_acc[ND][4];
-#pragma unroll
-  for (int j = 0; j < ND; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dq_acc[j][e] = 0.f;
-
-  for (int ik = range.x; ik <= range.y; ++ik) {
-    const int stage = (ik - range.x) & 1;
-    cp_wait_all();
-    __syncthreads();  // this tile landed; the other stage's readers are done
-    if (ik < range.y) {
-      copy_tile16<D, BK>(Ks + (stage ^ 1) * BK * D, k, b, (ik + 1) * BK, g.T,
-                         g.Hkv, kvh);
-      copy_tile16<D, BK>(Vs + (stage ^ 1) * BK * D, v, b, (ik + 1) * BK, g.T,
-                         g.Hkv, kvh);
-    }
-    cp_commit();
-    const T* Kt = Ks + stage * BK * D;
-    const T* Vt = Vs + stage * BK * D;
-    const int k_first = ik * BK;
-    const bool whole = tile_whole(row0, BQ, k_first, BK, g);
-
-    // S = Q K^T and dP = dO V^T on query rows m1.., key columns n1..
-    float sa[NS][4], pa[NS][4];
-#pragma unroll
-    for (int j = 0; j < NS; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sa[j][e] = pa[j][e] = 0.f;
-#pragma unroll 4
-    for (int k0 = 0; k0 < D; k0 += 16) {
-      uint32_t aq[4], ad[4];
-      load_a16<D>(Qs, m1, k0, aq);
-      load_a16<D>(dOs, m1, k0, ad);
-      mma_row_nk<D, NS>(sa, aq, Kt, n1, k0);
-      mma_row_nk<D, NS>(pa, ad, Vt, n1, k0);
-    }
-    // p = exp(s_soft - lse), ds = p (dp - delta) [* (1 - (s_soft/cap)^2)],
-    // rounded to T into the dS tile
-#pragma unroll
-    for (int j = 0; j < NS; ++j)
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int r = m1 + gq + 8 * hh, c = n1 + 8 * j + 2 * tq;
-        float ds[2];
-#pragma unroll
-        for (int x = 0; x < 2; ++x) {
-          const int e = 2 * hh + x;
-          const float s_soft = soft(sa[j][e] * g.sm_scale, g.softcap);
-          ds[x] = 0.f;
-          if (whole || (row0 + r < g.S &&
-                        pair_visible(row0 + r + shift, k_first + c + x, g))) {
-            ds[x] = expf(s_soft - rows[r]) * (pa[j][e] - rows[BQ + r]);
-            if (g.softcap > 0.f) {
-              const float t = s_soft / g.softcap;
-              ds[x] *= 1.f - t * t;
-            }
-          }
-        }
-        *reinterpret_cast<uint32_t*>(dSs + swz16<BK>(r, c)) =
-            pack2<T>(ds[0], ds[1]);
-      }
-    __syncthreads();
-
-    // dQ += dS K on query rows m1.., head-dim columns c2..
-#pragma unroll
-    for (int k0 = 0; k0 < BK; k0 += 16) {
-      uint32_t as[4];
-      load_a16<BK>(dSs, m1, k0, as);
-      mma_row_kn<D, ND>(dq_acc, as, Kt, k0, c2);
-    }
-  }
-  cp_wait_all();
-
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const int s = row0 + m1 + gq + 8 * hh;
-    if (s >= g.S) continue;
-    T* o = dq + ((size_t)(b * g.S + s) * g.H + h) * D;
-#pragma unroll
-    for (int j = 0; j < ND; ++j) {
-      const int c = c2 + 8 * j + 2 * tq;
-      *reinterpret_cast<uint32_t*>(o + c) =
-          pack2<T>(dq_acc[j][2 * hh] * g.sm_scale,
-                   dq_acc[j][2 * hh + 1] * g.sm_scale);
-    }
-  }
-}
-
-template <int D>
-struct Dkv16Cfg {
-  // 64-key tiles at D 256 (1.3x faster there), 32 below (64 is slower)
-  static constexpr int BK = D == 256 ? 64 : 32, BQ = 64;
-  // K, V; two stages of Q and dO; P^T and dS^T (16-bit); two stages of lse
-  // and delta (fp32)
-  static constexpr size_t smem =
-      (size_t)(2 * BK * D + 4 * BQ * D + 2 * BK * BQ) * 2 +
-      4 * BQ * sizeof(float);
-};
-
-// one block per (k tile, query head, batch row), looping over the visible q
-// tiles: dk / dv of this query head alone, written to head h of a
-// (B, T, H, D) tensor: 16-bit outputs when H == Hkv, else fp32 partials
-// that dkv_sum16_kernel adds up (`partial`)
-template <typename T, int D>
-__global__ void __launch_bounds__(NT, 1)
-    dkv16_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const T* __restrict__ dout,
-                 const float* __restrict__ lse,
-                 const float* __restrict__ delta,
-                 const int* __restrict__ nv_ptr, void* __restrict__ dk,
-                 void* __restrict__ dv, int partial, Geom g) {
-  using C = Dkv16Cfg<D>;
-  constexpr int BK = C::BK, BQ = C::BQ;
-  constexpr int WM = BK / 16, WN = 8 / WM;  // warps over rows x columns
-  constexpr int NS = BQ / 8 / WN;           // S^T and dP^T n-tiles a warp
-  constexpr int ND = D / 8 / WN;            // dk / dv n-tiles a warp
-  extern __shared__ __align__(16) float tc_smem[];
-  T* Ks = reinterpret_cast<T*>(tc_smem);  // BK x D
-  T* Vs = Ks + BK * D;                    // BK x D
-  T* Qs = Vs + BK * D;                    // 2 x BQ x D
-  T* dOs = Qs + 2 * BQ * D;               // 2 x BQ x D
-  T* Pt = dOs + 2 * BQ * D;               // BK x BQ
-  T* dSt = Pt + BK * BQ;                  // BK x BQ
-  float* rows = reinterpret_cast<float*>(dSt + BK * BQ);  // 2 x (lse, delta)
-
-  const int per = g.H * g.B;
-  const int ik = (int)(blockIdx.x / per);  // causal: most q tiles first
-  const int h = (int)(blockIdx.x % per) % g.H, b = (int)(blockIdx.x % per) / g.H;
-  const int kvh = h / (g.H / g.Hkv);
-  const int k_first = ik * BK;
-
-  if (b >= num_valid_rows(nv_ptr, g.B)) {
-    if (partial) {
-      zero_rows<D>(static_cast<float*>(dk), b, k_first, BK, g.T, g.H, h);
-      zero_rows<D>(static_cast<float*>(dv), b, k_first, BK, g.T, g.H, h);
-    } else {
-      zero_rows16<T, D>(static_cast<T*>(dk), b, k_first, BK, g.T, g.H, h, NT);
-      zero_rows16<T, D>(static_cast<T*>(dv), b, k_first, BK, g.T, g.H, h, NT);
-    }
-    return;
-  }
-
-  const int warp = threadIdx.x >> 5, gq = lane_g(), tq = lane_t();
-  const int m1 = (warp % WM) * 16;         // key rows of both phases
-  const int n1 = (warp / WM) * (BQ / WN);  // query columns of S^T and dP^T
-  const int c2 = (warp / WM) * (D / WN);   // head-dim columns of dk and dv
-  const int shift = g.T - g.S;
-  const size_t at = ((size_t)b * g.H + h) * g.S;
-  const int2 range =
-      visible_range<false>((g.S + BQ - 1) / BQ, BQ, k_first, BK, g);
-
-  copy_tile16<D, BK>(Ks, k, b, k_first, g.T, g.Hkv, kvh);
-  copy_tile16<D, BK>(Vs, v, b, k_first, g.T, g.Hkv, kvh);
-  if (range.x <= range.y) {
-    copy_tile16<D, BQ>(Qs, q, b, range.x * BQ, g.S, g.H, h);
-    copy_tile16<D, BQ>(dOs, dout, b, range.x * BQ, g.S, g.H, h);
-    copy_rows<BQ>(rows, lse, at, range.x * BQ, g.S);
-    copy_rows<BQ>(rows + BQ, delta, at, range.x * BQ, g.S);
-  }
-  cp_commit();
-
-  float dk_acc[ND][4], dv_acc[ND][4];
-#pragma unroll
-  for (int j = 0; j < ND; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[j][e] = dv_acc[j][e] = 0.f;
-
-  for (int iq = range.x; iq <= range.y; ++iq) {
-    const int stage = (iq - range.x) & 1;
-    cp_wait_all();
-    __syncthreads();  // this tile landed; the other stage's readers are done
-    if (iq < range.y) {
-      const int next = (iq + 1) * BQ, o = stage ^ 1;
-      copy_tile16<D, BQ>(Qs + o * BQ * D, q, b, next, g.S, g.H, h);
-      copy_tile16<D, BQ>(dOs + o * BQ * D, dout, b, next, g.S, g.H, h);
-      copy_rows<BQ>(rows + 2 * o * BQ, lse, at, next, g.S);
-      copy_rows<BQ>(rows + (2 * o + 1) * BQ, delta, at, next, g.S);
-    }
-    cp_commit();
-    const T* Qt = Qs + stage * BQ * D;
-    const T* dOt = dOs + stage * BQ * D;
-    const float* lse_t = rows + 2 * stage * BQ;
-    const float* delta_t = lse_t + BQ;
-    const int row0 = iq * BQ;
-    const bool whole = tile_whole(row0, BQ, k_first, BK, g);
-
-    // S^T = K Q^T and dP^T = V dO^T on key rows m1.., query columns n1..
-    float sa[NS][4], pa[NS][4];
-#pragma unroll
-    for (int j = 0; j < NS; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sa[j][e] = pa[j][e] = 0.f;
-#pragma unroll 4
-    for (int k0 = 0; k0 < D; k0 += 16) {
-      uint32_t ak[4], av[4];
-      load_a16<D>(Ks, m1, k0, ak);
-      load_a16<D>(Vs, m1, k0, av);
-      mma_row_nk<D, NS>(sa, ak, Qt, n1, k0);
-      mma_row_nk<D, NS>(pa, av, dOt, n1, k0);
-    }
-    // p = exp(s_soft - lse), ds = p (dp - delta) [* (1 - (s_soft/cap)^2)],
-    // rounded to T into the P^T and dS^T tiles
-#pragma unroll
-    for (int j = 0; j < NS; ++j)
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int kr = m1 + gq + 8 * hh, qc = n1 + 8 * j + 2 * tq;
-        float p[2], ds[2];
-#pragma unroll
-        for (int x = 0; x < 2; ++x) {
-          const int e = 2 * hh + x;
-          const float s_soft = soft(sa[j][e] * g.sm_scale, g.softcap);
-          p[x] = ds[x] = 0.f;
-          if (whole || (row0 + qc + x < g.S &&
-                        pair_visible(row0 + qc + x + shift, k_first + kr, g))) {
-            p[x] = expf(s_soft - lse_t[qc + x]);
-            ds[x] = p[x] * (pa[j][e] - delta_t[qc + x]);
-            if (g.softcap > 0.f) {
-              const float t = s_soft / g.softcap;
-              ds[x] *= 1.f - t * t;
-            }
-          }
-        }
-        *reinterpret_cast<uint32_t*>(Pt + swz16<BQ>(kr, qc)) =
-            pack2<T>(p[0], p[1]);
-        *reinterpret_cast<uint32_t*>(dSt + swz16<BQ>(kr, qc)) =
-            pack2<T>(ds[0], ds[1]);
-      }
-    __syncthreads();
-
-    // dV += P^T dO and dK += dS^T Q on key rows m1.., columns c2..
-#pragma unroll
-    for (int k0 = 0; k0 < BQ; k0 += 16) {
-      uint32_t ap[4], as[4];
-      load_a16<BQ>(Pt, m1, k0, ap);
-      load_a16<BQ>(dSt, m1, k0, as);
-      mma_row_kn<D, ND>(dv_acc, ap, dOt, k0, c2);
-      mma_row_kn<D, ND>(dk_acc, as, Qt, k0, c2);
-    }
-  }
-  cp_wait_all();
-
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const int t = k_first + m1 + gq + 8 * hh;
-    if (t >= g.T) continue;
-    const size_t row = ((size_t)(b * g.T + t) * g.H + h) * D;
-#pragma unroll
-    for (int j = 0; j < ND; ++j) {
-      const int c = c2 + 8 * j + 2 * tq;
-      const float k0 = dk_acc[j][2 * hh] * g.sm_scale,
-                  k1 = dk_acc[j][2 * hh + 1] * g.sm_scale;
-      if (partial) {
-        *reinterpret_cast<float2*>(static_cast<float*>(dk) + row + c) =
-            make_float2(k0, k1);
-        *reinterpret_cast<float2*>(static_cast<float*>(dv) + row + c) =
-            make_float2(dv_acc[j][2 * hh], dv_acc[j][2 * hh + 1]);
-      } else {
-        *reinterpret_cast<uint32_t*>(static_cast<T*>(dk) + row + c) =
-            pack2<T>(k0, k1);
-        *reinterpret_cast<uint32_t*>(static_cast<T*>(dv) + row + c) =
-            pack2<T>(dv_acc[j][2 * hh], dv_acc[j][2 * hh + 1]);
-      }
-    }
-  }
-}
-
-// dk[b, t, j] = sum over r of dk_heads[b, t, j * rep + r], r in order (and dv
-// alike), in fp32, rounded once to T; four values a thread: the
-// deterministic GQA group-sum
-template <typename T>
-__global__ void __launch_bounds__(NT)
-    dkv_sum16_kernel(const float4* __restrict__ dk_heads,
-                     const float4* __restrict__ dv_heads,
-                     uint2* __restrict__ dk, uint2* __restrict__ dv, int n,
-                     int rep, int d4) {
-  const int i = blockIdx.x * NT + threadIdx.x;
-  if (i >= n) return;
-  const size_t base = (size_t)(i / d4) * rep * d4 + i % d4;
-  float4 a = dk_heads[base], c = dv_heads[base];
-  for (int r = 1; r < rep; ++r) {
-    const float4 x = dk_heads[base + (size_t)r * d4];
-    const float4 y = dv_heads[base + (size_t)r * d4];
-    a.x += x.x; a.y += x.y; a.z += x.z; a.w += x.w;
-    c.x += y.x; c.y += y.y; c.z += y.z; c.w += y.w;
-  }
-  uint2 ka, va;
-  ka.x = pack2<T>(a.x, a.y); ka.y = pack2<T>(a.z, a.w);
-  va.x = pack2<T>(c.x, c.y); va.y = pack2<T>(c.z, c.w);
-  dk[i] = ka;
-  dv[i] = va;
 }
 
 // a . b of two pairs of 16-bit values, each product exact in fp32
@@ -685,7 +307,7 @@ __global__ void __launch_bounds__(Fwd16Cfg<D>::NTF, 1)
   const int row0 = iq * BQ;
 
   if (b >= num_valid_rows(nv_ptr, g.B)) {
-    zero_rows16<T, D>(out, b, row0, BQ, g.S, g.H, h, C::NTF);
+    zero_head_rows<T, D>(out, b, row0, BQ, g.S, g.H, h, C::NTF);
     for (int r = threadIdx.x; r < BQ; r += C::NTF)
       if (row0 + r < g.S) lse[((size_t)b * g.H + h) * g.S + row0 + r] = 0.f;
     return;
@@ -810,9 +432,621 @@ __global__ void __launch_bounds__(Fwd16Cfg<D>::NTF, 1)
 }
 #endif  // CUDA_EMU
 
+#ifndef CUDA_EMU
+// ---------------------------------------------------------------- backward
+//
+// Per visible (q tile, kv tile) pair, as in the reference's _bwd_tile:
+//   s_soft = softcap(q k^T * sm_scale)    p  = exp(s_soft - lse), masked to 0
+//   dp = dO v^T                           ds = p (dp - delta) [* (1 - (s_soft/cap)^2)]
+//   dq += ds k * sm_scale   dk += ds^T q * sm_scale   dv += p^T dO
+// An accumulator value e of a thread sits at row 16 w + g + 8 ((e >> 1) & 1)
+// of its warpgroup's 64 and column 8 (e >> 2) + 2 t + (e & 1).
+
+// 2^x on the special-function unit (subnormal results flushed to zero)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// exp(s_soft - lse) of one raw score s (lse2 = lse log2(e)); f is the
+// softcap's factor 1 - (s_soft / cap)^2 on dS (CAP), else 1
+template <bool CAP>
+__device__ __forceinline__ float bwd_p(float s, float lse2, const Geom& g,
+                                       float& f) {
+  if constexpr (CAP) {
+    const float t = tanhf(s * g.sm_scale / g.softcap);
+    f = 1.f - t * t;
+    return ex2(g.softcap * LOG2E * t - lse2);
+  } else {
+    f = 1.f;
+    return ex2(s * (g.sm_scale * LOG2E) - lse2);
+  }
+}
+
+// The products of a tile are started together and their elementwise work
+// is split in two passes, so that the first runs while the second product
+// does: p f (masked) from S alone, then dS = p f (dP - delta) once dP has
+// landed (p (dP - delta) f in the reference's order: an fp32 rounding
+// apart).  The first pass is specialized on the softcap (CAP) and on the
+// tile needing its per-pair mask (MASK: not `whole`), chosen by a branch
+// that is uniform over the block and holds no wgmma.
+
+// the dq kernel's first pass: s (S = Q K^T) becomes p f in place.  Rows are
+// the queries qrow and qrow + 8 (positions before the shift; lse2 theirs),
+// columns keys from k_first.
+template <int BK, bool CAP, bool MASK>
+__device__ __forceinline__ void dq_pf_of(float (&s)[BK / 2],
+                                         const float (&lse2)[2], int qrow,
+                                         int k_first, const Geom& g) {
+  const int tq = lane_t(), shift = g.T - g.S;
+#pragma unroll
+  for (int e = 0; e < BK / 2; ++e) {
+    const int hh = (e >> 1) & 1, c = 8 * (e >> 2) + 2 * tq + (e & 1);
+    const int r = qrow + 8 * hh;
+    float f, p = bwd_p<CAP>(s[e], lse2[hh], g, f);
+    if (MASK && !(r < g.S && pair_visible(r + shift, k_first + c, g)))
+      p = 0.f;
+    s[e] = p * f;
+  }
+}
+
+template <int BK>
+__device__ __forceinline__ void dq_pf(float (&s)[BK / 2],
+                                      const float (&lse2)[2], bool whole,
+                                      int qrow, int k_first, const Geom& g) {
+  if (g.softcap > 0.f) {
+    if (whole) dq_pf_of<BK, true, false>(s, lse2, qrow, k_first, g);
+    else dq_pf_of<BK, true, true>(s, lse2, qrow, k_first, g);
+  } else {
+    if (whole) dq_pf_of<BK, false, false>(s, lse2, qrow, k_first, g);
+    else dq_pf_of<BK, false, true>(s, lse2, qrow, k_first, g);
+  }
+}
+
+// the dk/dv kernel's first pass: P^T of s (S^T = K Q^T) into pf, in 16
+// bits as wgmma's A fragments, and, when PF, p f into s in place.  Rows are
+// the keys krow and krow + 8, columns queries from row0 (lse_s: the tile's
+// lse, one a query).
+template <typename T, int BQ, bool PF, bool CAP, bool MASK>
+__device__ __forceinline__ void dkv_p_of(float (&s)[BQ / 2],
+                                         uint32_t (&pf)[BQ / 16][4],
+                                         const float* lse_s, int krow,
+                                         int row0, const Geom& g) {
+  const int tq = lane_t(), shift = g.T - g.S;
+#pragma unroll
+  for (int m = 0; m < BQ / 4; ++m) {
+    float p[2], f[2];
+#pragma unroll
+    for (int x = 0; x < 2; ++x) {
+      const int e = 2 * m + x, hh = (e >> 1) & 1;
+      const int c = 8 * (e >> 2) + 2 * tq + x;
+      p[x] = bwd_p<CAP>(s[e], lse_s[c] * LOG2E, g, f[x]);
+      if (MASK && !(row0 + c < g.S &&
+                    pair_visible(row0 + c + shift, krow + 8 * hh, g)))
+        p[x] = 0.f;
+      if constexpr (PF) s[e] = p[x] * f[x];
+    }
+    pf[m >> 2][m & 3] = pack2<T>(p[0], p[1]);
+  }
+}
+
+template <typename T, int BQ, bool PF>
+__device__ __forceinline__ void dkv_p(float (&s)[BQ / 2],
+                                      uint32_t (&pf)[BQ / 16][4],
+                                      const float* lse_s, bool whole,
+                                      int krow, int row0, const Geom& g) {
+  if (g.softcap > 0.f) {
+    if (whole) dkv_p_of<T, BQ, PF, true, false>(s, pf, lse_s, krow, row0, g);
+    else dkv_p_of<T, BQ, PF, true, true>(s, pf, lse_s, krow, row0, g);
+  } else {
+    if (whole) dkv_p_of<T, BQ, PF, false, false>(s, pf, lse_s, krow, row0, g);
+    else dkv_p_of<T, BQ, PF, false, true>(s, pf, lse_s, krow, row0, g);
+  }
+}
+
+// the second pass: ds = (p f) (dp - delta) into `out`, delta a row's (the
+// dq kernel: dlt[hh]) or a column's (the dk/dv kernel: dlt_s[c])
+template <int N, bool ROW_DELTA>
+__device__ __forceinline__ void bwd_ds(float (&out)[N / 2],
+                                       const float (&pf)[N / 2],
+                                       const float (&dp)[N / 2],
+                                       const float* dlt) {
+  const int tq = lane_t();
+#pragma unroll
+  for (int e = 0; e < N / 2; ++e) {
+    const int hh = (e >> 1) & 1, c = 8 * (e >> 2) + 2 * tq + (e & 1);
+    out[e] = pf[e] * (dp[e] - dlt[ROW_DELTA ? hh : c]);
+  }
+}
+
+// acc (64 x D fp32: D / 32 atoms of 16 values a thread) += A B, A the K / 16
+// k steps of af (16-bit A fragments), B a [K][D] tile at b_base (N-major:
+// D / 32 atoms of 32 columns, K * 64 bytes apart): one wgmma of RS_N
+// columns (RS_N / 32 atoms) a k step and column group
+template <typename T, int D, int K, int RS_N>
+__device__ __forceinline__ void bwd_rs(float (&acc)[D / 32][16],
+                                       const uint32_t (&af)[K / 16][4],
+                                       uint32_t b_base) {
+  static_assert(D % RS_N == 0, "whole column groups");
+  if constexpr (RS_N == 32) {
+    fwd_pv<T, D, K>(acc, af, b_base);
+  } else {
+    constexpr int G = RS_N / 32;  // atoms a wgmma
+#pragma unroll
+    for (int kk = 0; kk < K / 16; ++kk)
+#pragma unroll
+      for (int c = 0; c < D / RS_N; ++c)
+        wgmma_rs<T, RS_N>(
+            *reinterpret_cast<float(*)[RS_N / 2]>(&acc[c * G][0]), af[kk],
+            wg_desc(b_base + c * G * K * 64 + kk * 16 * 64, K * 64, 512));
+  }
+}
+
+// the widest RS product a head dim takes whole: 128 columns, else 64, else 32
+template <int D>
+constexpr int rs_width() {
+  return D % 128 == 0 ? 128 : D % 64 == 0 ? 64 : 32;
+}
+
+// a warpgroup's 64 x D fp32 accumulator times `scale` into the thread's
+// rows `row` and row + 8 (those below L) of head `head` of a (B, L, NH, D)
+// tensor: fp32 when f32, else T
+template <typename T, int D>
+__device__ __forceinline__ void store_rows(void* dst,
+                                           const float (&acc)[D / 32][16],
+                                           float scale, bool f32, int b,
+                                           int row, int L, int NH, int head) {
+  const int tq = lane_t();
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = row + 8 * hh;
+    if (r >= L) continue;
+    const size_t at = ((size_t)(b * L + r) * NH + head) * D;
+#pragma unroll
+    for (int a = 0; a < D / 32; ++a)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = 32 * a + 8 * j + 2 * tq;
+        const float x0 = acc[a][4 * j + 2 * hh] * scale,
+                    x1 = acc[a][4 * j + 2 * hh + 1] * scale;
+        if (f32)
+          *reinterpret_cast<float2*>(static_cast<float*>(dst) + at + c) =
+              make_float2(x0, x1);
+        else
+          *reinterpret_cast<uint32_t*>(static_cast<T*>(dst) + at + c) =
+              pack2<T>(x0, x1);
+      }
+  }
+}
+
+template <int D>
+struct Dq16Cfg {
+  // D 128: two warpgroups (128 query rows) and 128-key tiles; else one
+  // warpgroup and 64-key tiles, two blocks an SM below D 256 (measured on
+  // the card with tools/kernel_variants.py --flash16)
+  static constexpr int NWG = D == 128 ? 2 : 1;    // consumer warpgroups
+  static constexpr int MINB = D <= 96 ? 2 : 1;    // blocks an SM
+  static constexpr int BQ = 64 * NWG;             // query rows of a block
+  static constexpr int BK = D == 128 ? 128 : 64;  // keys of a K/V tile
+  static constexpr int STAGES = 2;                // K/V tiles in the ring
+  static constexpr int RS_N = rs_width<D>();      // columns of a dQ wgmma
+  // the consumer warpgroups alone, thread 0 loading the ring as it goes
+  // (as in the dk/dv kernel: no ninth warp, so 255 registers a thread hold
+  // S and dP of 128-key tiles beside dQ at D <= 128)
+  static constexpr int NTF = 128 * NWG;
+  static constexpr int ATOMS = D / 32;            // 64-byte swizzle atoms
+  static constexpr uint32_t q_bytes = BQ * D * 2, kv_bytes = BK * D * 2;
+  // Q, dO, STAGES x (K, V), 2 STAGES + 1 barriers, 1 KB to align the tiles
+  static constexpr size_t smem = 1024 + 2 * q_bytes + 2 * STAGES * kv_bytes +
+                                 (2 * STAGES + 1) * 8;
+};
+
+template <typename T, int D>
+__global__ void __launch_bounds__(Dq16Cfg<D>::NTF, Dq16Cfg<D>::MINB)
+    dq16_kernel(const __grid_constant__ CUtensorMap tm_q,
+                const __grid_constant__ CUtensorMap tm_k,
+                const __grid_constant__ CUtensorMap tm_v,
+                const __grid_constant__ CUtensorMap tm_do,
+                const float* __restrict__ lse,
+                const float* __restrict__ delta,
+                const int* __restrict__ nv_ptr, T* __restrict__ dq, Geom g) {
+  using C = Dq16Cfg<D>;
+  constexpr int BQ = C::BQ, BK = C::BK, ST = C::STAGES, AT = C::ATOMS;
+  extern __shared__ __align__(1024) uint8_t dq_smem[];
+  uint8_t* base = dq_smem + ((1024 - (smem_u32(dq_smem) & 1023)) & 1023);
+  T* Qs = reinterpret_cast<T*>(base);  // AT atoms of BQ x 32
+  T* dOs = reinterpret_cast<T*>(base + C::q_bytes);
+  T* Ks = reinterpret_cast<T*>(base + 2 * C::q_bytes);  // ST x AT x BK x 32
+  T* Vs = reinterpret_cast<T*>(base + 2 * C::q_bytes + ST * C::kv_bytes);
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + 2 * C::q_bytes +
+                                               2 * ST * C::kv_bytes);
+  uint64_t* empty = full + ST;  // every consumer is done with the stage
+  uint64_t* q_full = empty + ST;
+
+  const int per = g.H * g.B, nq = (g.S + BQ - 1) / BQ;
+  const int iq = nq - 1 - (int)(blockIdx.x / per);  // longest rows first
+  const int h = (int)(blockIdx.x % per) % g.H, b = (int)(blockIdx.x % per) / g.H;
+  const int kvh = h / (g.H / g.Hkv);
+  const int row0 = iq * BQ;
+
+  if (b >= num_valid_rows(nv_ptr, g.B)) {
+    zero_head_rows<T, D>(dq, b, row0, BQ, g.S, g.H, h, C::NTF);
+    return;
+  }
+
+  const int2 range = visible_range<true>((g.T + BK - 1) / BK, BK, row0, BQ, g);
+  const int n = range.y - range.x + 1;  // >= 1: a query sees its own key
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], C::NTF);
+    }
+    mbar_init(q_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  // thread 0 loads: Q and dO once, K and V of kv tile i into stage i % ST
+  const bool loader = threadIdx.x == 0;
+  auto load = [&](int i) {
+    const int st = i % ST, key0 = (range.x + i) * BK;
+    mbar_expect_tx(&full[st], 2 * C::kv_bytes);
+    for (int a = 0; a < AT; ++a) {
+      tma_load_4d(Ks + (st * AT + a) * BK * 32, &tm_k, &full[st], 32 * a,
+                  kvh, key0, b);
+      tma_load_4d(Vs + (st * AT + a) * BK * 32, &tm_v, &full[st], 32 * a,
+                  kvh, key0, b);
+    }
+  };
+  if (loader) {
+    mbar_expect_tx(q_full, 2 * C::q_bytes);
+    for (int a = 0; a < AT; ++a) {
+      tma_load_4d(Qs + a * BQ * 32, &tm_q, q_full, 32 * a, h, row0, b);
+      tma_load_4d(dOs + a * BQ * 32, &tm_do, q_full, 32 * a, h, row0, b);
+    }
+    for (int i = 0; i < min(n, ST); ++i) load(i);
+  }
+  __syncwarp();
+
+  // warpgroup wg owns query rows row0 + 64 wg .. + 63, warp w of it rows
+  // 16 w .. + 15 of those (thread rows gq and gq + 8)
+  const int warp = threadIdx.x >> 5, wg = warp >> 2, w = warp & 3;
+  const int qr0 = row0 + 64 * wg, qrow = qr0 + 16 * w + lane_g();
+  const size_t at = ((size_t)b * g.H + h) * g.S;
+  float lse2[2], dlt[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = qrow + 8 * hh;
+    lse2[hh] = r < g.S ? lse[at + r] * LOG2E : 0.f;
+    dlt[hh] = r < g.S ? delta[at + r] : 0.f;
+  }
+  float acc[AT][16], s[BK / 2], dp[BK / 2];
+  uint32_t dsf[BK / 16][4];
+#pragma unroll
+  for (int a = 0; a < AT; ++a)
+#pragma unroll
+    for (int e = 0; e < 16; ++e) acc[a][e] = 0.f;
+
+  const uint32_t q_base = smem_u32(Qs) + wg * 64 * 64;
+  const uint32_t do_base = smem_u32(dOs) + wg * 64 * 64;
+  const uint32_t k0_base = smem_u32(Ks), v0_base = smem_u32(Vs);
+  // tile i's S and dP are started together; p f runs while dP does.  Before
+  // tile i, thread 0 refills the stage tile i - 1 freed with tile i - 1 + ST.
+  mbar_wait(q_full, 0);
+  for (int i = 0; i < n; ++i) {
+    if (loader && i > 0 && i - 1 + ST < n) {
+      mbar_wait(&empty[(i - 1) % ST], ((i - 1) / ST) & 1);
+      load(i - 1 + ST);
+    }
+    __syncwarp();
+    const int st = i % ST, k_first = (range.x + i) * BK;
+    const uint32_t k_base = k0_base + st * C::kv_bytes;
+    mbar_wait(&full[st], (i / ST) & 1);
+    wg_fence();
+    fwd_qk<T, D, BQ, BK>(s, q_base, k_base);
+    wg_commit();
+    fwd_qk<T, D, BQ, BK>(dp, do_base, v0_base + st * C::kv_bytes);
+    wg_commit();
+    wg_wait<1>();  // S has landed; dP may still run
+    fence_regs(s);
+    dq_pf<BK>(s, lse2, tile_whole(qr0, 64, k_first, BK, g), qrow, k_first,
+              g);
+    wg_wait<0>();
+    fence_regs(dp);
+    bwd_ds<BK, true>(s, s, dp, dlt);
+    fwd_p16<T, BK>(s, dsf);
+    wg_fence();
+    bwd_rs<T, D, BK, C::RS_N>(acc, dsf, k_base);
+    wg_commit();
+    wg_wait<0>();
+    mbar_arrive(&empty[st]);
+  }
+#pragma unroll
+  for (int a = 0; a < AT; ++a) fence_regs(acc[a]);
+  store_rows<T, D>(dq, acc, g.sm_scale, false, b, qrow, g.S, g.H, h);
+}
+
+template <int D>
+struct Dkv16Cfg {
+  // a warpgroup of 64 keys accumulates dK and dV: one a block, two blocks
+  // an SM at D 96 and 128; two a block and 128-row Q/dO tiles at D <= 64
+  // (measured on the card with tools/kernel_variants.py --flash16).  D 256
+  // (ROLES): one 64-key tile, warpgroup 0 accumulating dV and warpgroup 1 dK
+  static constexpr bool ROLES = D > 128;
+  static constexpr int NWG = ROLES || D <= 64 ? 2 : 1;  // consumer warpgroups
+  static constexpr int MINB = NWG == 1 ? 2 : 1;         // blocks an SM
+  static constexpr int BK = ROLES ? 64 : 64 * NWG;      // keys of a block
+  static constexpr int BQ = D <= 64 ? 128 : 64;  // query rows of a Q/dO tile
+  static constexpr int STAGES = NWG == 2 && !ROLES ? 3 : 2;  // ring's tiles
+  static constexpr int RS_N = rs_width<D>();    // columns of a dK, dV wgmma
+  // the consumer warpgroups alone, warp 0 loading the ring as it goes (no
+  // producer warp: dK, dV, S^T and dP^T take 192 registers a thread at D
+  // 128, over the 168 a ninth warp would leave)
+  static constexpr int NTF = 128 * NWG;
+  static constexpr int ATOMS = D / 32;          // 64-byte swizzle atoms
+  static_assert(!ROLES || NWG == 2, "the roles take two warpgroups");
+  static constexpr uint32_t kv_bytes = BK * D * 2, q_bytes = BQ * D * 2;
+  // K, V, STAGES x (Q, dO), STAGES x (lse, delta), 2 STAGES + 1
+  // barriers, 1 KB to align the tiles
+  static constexpr size_t smem = 1024 + 2 * kv_bytes +
+                                 STAGES * (2 * q_bytes + 2 * BQ * 4) +
+                                 (2 * STAGES + 1) * 8;
+};
+
+// the dk/dv kernel's ring of Q/dO tiles, filled by warp 0: item i (query
+// head h0 + i / nvis, q tile first + i % nvis) into stage i % STAGES, Q and
+// dO by TMA (lane 0), its lse and delta by the warp's lanes' cp.async (zero
+// past S); each lane's arrival on the stage's full barrier comes when its
+// copies have landed, so the warp does not wait for them
+template <typename T, int D>
+struct DkvRing {
+  const CUtensorMap* tm_q;
+  const CUtensorMap* tm_do;
+  const float* lse;
+  const float* delta;
+  T* Qs;
+  T* dOs;
+  float* rows;
+  uint64_t* full;
+  int nvis, first, h0, b;
+
+  __device__ __forceinline__ void load(int i, const Geom& g) const {
+    using C = Dkv16Cfg<D>;
+    constexpr int BQ = C::BQ, AT = C::ATOMS;
+    const int st = i % C::STAGES, lane = threadIdx.x & 31;
+    const int hq = h0 + i / nvis, r0 = (first + i % nvis) * BQ;
+    const size_t at = ((size_t)b * g.H + hq) * g.S + r0;
+    float* row_s = rows + st * 2 * BQ;
+    if (lane == 0) {
+      mbar_expect_tx_only(&full[st], 2 * C::q_bytes);
+      for (int a = 0; a < AT; ++a) {
+        tma_load_4d(Qs + (st * AT + a) * BQ * 32, tm_q, &full[st], 32 * a, hq,
+                    r0, b);
+        tma_load_4d(dOs + (st * AT + a) * BQ * 32, tm_do, &full[st], 32 * a,
+                    hq, r0, b);
+      }
+    }
+    for (int r = lane; r < BQ; r += 32) {
+      const bool in = r0 + r < g.S;
+      cp_async4(row_s + r, in ? lse + at + r : lse, in ? 4 : 0);
+      cp_async4(row_s + BQ + r, in ? delta + at + r : delta, in ? 4 : 0);
+    }
+    mbar_arrive_cp_async(&full[st]);
+  }
+};
+
+// one consumer warpgroup of the dk/dv kernel: keys key0 .. + 63 of the
+// block's K and V tiles (k_base, v_base: its rows), over the n items of
+// the ring (n / nvis heads of nvis q tiles each); accumulates dK (DK) and
+// dV (DV) and stores them into head `oh` of (B, T, out_heads, D) dk / dv,
+// fp32 when f32.  Warp 0 of the block, before item i, refills the stage
+// that item i - 1 freed with item i - 1 + STAGES.
+template <typename T, int D, bool DK, bool DV>
+__device__ __forceinline__ void dkv_consume(
+    uint32_t k_base, uint32_t v_base, uint32_t q0_base, uint32_t do0_base,
+    const DkvRing<T, D>& ring, uint64_t* kv_full, uint64_t* empty, int n,
+    int key0, void* dk, void* dv, bool f32, int out_heads, int oh,
+    const Geom& g) {
+  using C = Dkv16Cfg<D>;
+  constexpr int BQ = C::BQ, ST = C::STAGES, AT = C::ATOMS;
+  const bool loader = threadIdx.x < 32;
+  const int krow = key0 + 16 * ((threadIdx.x >> 5) & 3) + lane_g();
+  float dk_acc[AT][16], dv_acc[AT][16], s[BQ / 2], dp[BQ / 2];
+  uint32_t pf[BQ / 16][4], dsf[BQ / 16][4];
+#pragma unroll
+  for (int a = 0; a < AT; ++a)
+#pragma unroll
+    for (int e = 0; e < 16; ++e) dk_acc[a][e] = dv_acc[a][e] = 0.f;
+
+  if (n > 0) mbar_wait(kv_full, 0);
+  for (int i = 0; i < n; ++i) {
+    if (loader && i > 0 && i - 1 + ST < n) {
+      mbar_wait(&empty[(i - 1) % ST], ((i - 1) / ST) & 1);
+      ring.load(i - 1 + ST, g);
+    }
+    __syncwarp();
+    const int st = i % ST, row0 = (ring.first + i % ring.nvis) * BQ;
+    const uint32_t q_base = q0_base + st * C::q_bytes;
+    const uint32_t do_base = do0_base + st * C::q_bytes;
+    const float* lse_s = ring.rows + st * 2 * BQ;
+    mbar_wait(&ring.full[st], (i / ST) & 1);
+    const bool whole = tile_whole(row0, BQ, key0, 64, g);
+    wg_fence();
+    fwd_qk<T, D, C::BK, BQ>(s, k_base, q_base);
+    wg_commit();
+    if constexpr (DK) {
+      fwd_qk<T, D, C::BK, BQ>(dp, v_base, do_base);
+      wg_commit();
+    }
+    wg_wait<DK ? 1 : 0>();  // S^T has landed; dP^T may still run
+    fence_regs(s);
+    dkv_p<T, BQ, DK>(s, pf, lse_s, whole, krow, row0, g);
+    if constexpr (DV) {
+      wg_fence();
+      bwd_rs<T, D, BQ, C::RS_N>(dv_acc, pf, do_base);
+      wg_commit();
+    }
+    if constexpr (DK) {
+      wg_wait<DV ? 1 : 0>();  // dP^T has landed; dV += P^T dO may still run
+      fence_regs(dp);
+      bwd_ds<BQ, false>(dp, s, dp, lse_s + BQ);
+      fwd_p16<T, BQ>(dp, dsf);
+      wg_fence();
+      bwd_rs<T, D, BQ, C::RS_N>(dk_acc, dsf, q_base);
+      wg_commit();
+    }
+    wg_wait<0>();
+    mbar_arrive(&empty[st]);
+  }
+  if constexpr (DK) {
+#pragma unroll
+    for (int a = 0; a < AT; ++a) fence_regs(dk_acc[a]);
+    store_rows<T, D>(dk, dk_acc, g.sm_scale, f32, ring.b, krow, g.T,
+                     out_heads, oh);
+  }
+  if constexpr (DV) {
+#pragma unroll
+    for (int a = 0; a < AT; ++a) fence_regs(dv_acc[a]);
+    store_rows<T, D>(dv, dv_acc, 1.f, f32, ring.b, krow, g.T, out_heads, oh);
+  }
+}
+
+// one block per (k tile, kv head, batch row, split of the kv head's group of
+// query heads): dk / dv of the split's heads summed in fp32 registers,
+// stored in 16 bits into (B, T, Hkv, D) dk / dv when splits == 1, else as
+// fp32 partials into head kvh * splits + split of (B, T, Hkv splits, D)
+// ones that dkv_sum16_kernel adds
+template <typename T, int D>
+__global__ void __launch_bounds__(Dkv16Cfg<D>::NTF, Dkv16Cfg<D>::MINB)
+    dkv16_kernel(const __grid_constant__ CUtensorMap tm_q,
+                 const __grid_constant__ CUtensorMap tm_k,
+                 const __grid_constant__ CUtensorMap tm_v,
+                 const __grid_constant__ CUtensorMap tm_do,
+                 const float* __restrict__ lse,
+                 const float* __restrict__ delta,
+                 const int* __restrict__ nv_ptr, void* __restrict__ dk,
+                 void* __restrict__ dv, int splits, Geom g) {
+  using C = Dkv16Cfg<D>;
+  constexpr int BK = C::BK, BQ = C::BQ, ST = C::STAGES, AT = C::ATOMS;
+  extern __shared__ __align__(1024) uint8_t dkv_smem[];
+  uint8_t* base = dkv_smem + ((1024 - (smem_u32(dkv_smem) & 1023)) & 1023);
+  T* Ks = reinterpret_cast<T*>(base);  // AT atoms of BK x 32
+  T* Vs = reinterpret_cast<T*>(base + C::kv_bytes);
+  T* Qs = reinterpret_cast<T*>(base + 2 * C::kv_bytes);  // ST x AT x BQ x 32
+  T* dOs = reinterpret_cast<T*>(base + 2 * C::kv_bytes + ST * C::q_bytes);
+  // ST x (BQ lse, BQ delta)
+  float* rows = reinterpret_cast<float*>(base + 2 * C::kv_bytes +
+                                         2 * ST * C::q_bytes);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(rows + ST * 2 * BQ);
+  uint64_t* full = kv_full + 1;  // a stage's Q, dO, lse and delta landed
+  uint64_t* empty = full + ST;   // every consumer is done with the stage
+
+  const int per = g.Hkv * g.B * splits;
+  const int ik = (int)(blockIdx.x / per);  // causal: most q tiles first
+  const int rem = (int)(blockIdx.x % per), split = rem % splits;
+  const int kvh = (rem / splits) % g.Hkv, b = rem / (splits * g.Hkv);
+  const int hps = g.H / g.Hkv / splits;  // query heads of the split
+  const int k_first = ik * BK;
+  const bool f32 = splits > 1;
+  const int out_heads = g.Hkv * splits, oh = kvh * splits + split;
+
+  if (b >= num_valid_rows(nv_ptr, g.B)) {
+    if (f32) {
+      zero_head_rows<float, D>(static_cast<float*>(dk), b, k_first, BK, g.T,
+                               out_heads, oh, C::NTF);
+      zero_head_rows<float, D>(static_cast<float*>(dv), b, k_first, BK, g.T,
+                               out_heads, oh, C::NTF);
+    } else {
+      zero_head_rows<T, D>(static_cast<T*>(dk), b, k_first, BK, g.T,
+                           out_heads, oh, C::NTF);
+      zero_head_rows<T, D>(static_cast<T*>(dv), b, k_first, BK, g.T,
+                           out_heads, oh, C::NTF);
+    }
+    return;
+  }
+
+  const int2 range =
+      visible_range<false>((g.S + BQ - 1) / BQ, BQ, k_first, BK, g);
+  const int nvis = max(range.y - range.x + 1, 0);  // 0: no query sees these keys
+  const int n = hps * nvis;
+  const DkvRing<T, D> ring{&tm_q, &tm_do, lse, delta, Qs, dOs, rows, full,
+                           nvis, range.x, kvh * (g.H / g.Hkv) + split * hps,
+                           b};
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&full[s], 32);  // the lanes of warp 0
+      mbar_init(&empty[s], C::NTF);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  // warp 0: K and V once, then the ring's first STAGES items
+  if (threadIdx.x < 32) {
+    if (n > 0 && threadIdx.x == 0) {
+      mbar_expect_tx(kv_full, 2 * C::kv_bytes);
+      for (int a = 0; a < AT; ++a) {
+        tma_load_4d(Ks + a * BK * 32, &tm_k, kv_full, 32 * a, kvh, k_first, b);
+        tma_load_4d(Vs + a * BK * 32, &tm_v, kv_full, 32 * a, kvh, k_first, b);
+      }
+    }
+    for (int i = 0; i < min(n, ST); ++i) ring.load(i, g);
+  }
+  __syncwarp();
+
+  const int wg = threadIdx.x >> 7;
+  const uint32_t k_base = smem_u32(Ks), v_base = smem_u32(Vs);
+  const uint32_t q0 = smem_u32(Qs), do0 = smem_u32(dOs);
+  if constexpr (C::ROLES) {
+    if (wg == 0)
+      dkv_consume<T, D, false, true>(k_base, v_base, q0, do0, ring, kv_full,
+                                     empty, n, k_first, dk, dv, f32,
+                                     out_heads, oh, g);
+    else
+      dkv_consume<T, D, true, false>(k_base, v_base, q0, do0, ring, kv_full,
+                                     empty, n, k_first, dk, dv, f32,
+                                     out_heads, oh, g);
+  } else {
+    // warpgroup wg: keys k_first + 64 wg .. + 63, rows 64 wg .. of K and V
+    dkv_consume<T, D, true, true>(k_base + wg * 64 * 64, v_base + wg * 64 * 64,
+                                  q0, do0, ring, kv_full, empty, n,
+                                  k_first + 64 * wg, dk, dv, f32, out_heads,
+                                  oh, g);
+  }
+}
+
+// dk[b, t, j] = sum over r of part[b, t, j * rep + r], r in order (and dv
+// alike), in fp32, rounded once to T; four values a thread: adds the
+// fp32 partials of a kv head's splits in a fixed order
+template <typename T>
+__global__ void __launch_bounds__(NT)
+    dkv_sum16_kernel(const float4* __restrict__ dk_part,
+                     const float4* __restrict__ dv_part,
+                     uint2* __restrict__ dk, uint2* __restrict__ dv, int n,
+                     int rep, int d4) {
+  const int i = blockIdx.x * NT + threadIdx.x;
+  if (i >= n) return;
+  const size_t base = (size_t)(i / d4) * rep * d4 + i % d4;
+  float4 a = dk_part[base], c = dv_part[base];
+  for (int r = 1; r < rep; ++r) {
+    const float4 x = dk_part[base + (size_t)r * d4];
+    const float4 y = dv_part[base + (size_t)r * d4];
+    a.x += x.x; a.y += x.y; a.z += x.z; a.w += x.w;
+    c.x += y.x; c.y += y.y; c.z += y.z; c.w += y.w;
+  }
+  uint2 ka, va;
+  ka.x = pack2<T>(a.x, a.y); ka.y = pack2<T>(a.z, a.w);
+  va.x = pack2<T>(c.x, c.y); va.y = pack2<T>(c.z, c.w);
+  dk[i] = ka;
+  dv[i] = va;
+}
+#endif  // CUDA_EMU
+
 // ------------------------------------------------------------------ launch
 
 constexpr int kNoTensorMap = -3;
+constexpr int kNoDevice = -4;
 
 #ifndef CUDA_EMU
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
@@ -880,47 +1114,77 @@ int launch_fwd16(const void* q, const void* k, const void* v, const int* nv,
       mq, mk, mv, nv, static_cast<T*>(out), lse, g);
   return (int)cudaGetLastError();
 }
-#endif  // CUDA_EMU
 
 template <typename T, int D>
 int launch_dq16(const void* q, const void* k, const void* v, const void* o,
                 const float* lse, const float* delta, const int* nv, void* dq,
                 Geom g, cudaStream_t st) {
   using C = Dq16Cfg<D>;
+  CUtensorMap mq, mk, mv, mo;
+  if (int e = tensor_map<T>(&mq, q, g.B, g.S, g.H, D, C::BQ)) return e;
+  if (int e = tensor_map<T>(&mk, k, g.B, g.T, g.Hkv, D, C::BK)) return e;
+  if (int e = tensor_map<T>(&mv, v, g.B, g.T, g.Hkv, D, C::BK)) return e;
+  if (int e = tensor_map<T>(&mo, o, g.B, g.S, g.H, D, C::BQ)) return e;
   if (int e = set_smem(dq16_kernel<T, D>, C::smem)) return e;
   const int nq = (g.S + C::BQ - 1) / C::BQ;
-  dq16_kernel<T, D><<<nq * g.H * g.B, NT, C::smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(o), lse, delta, nv,
-      static_cast<T*>(dq), g);
+  dq16_kernel<T, D><<<nq * g.H * g.B, C::NTF, C::smem, st>>>(
+      mq, mk, mv, mo, lse, delta, nv, static_cast<T*>(dq), g);
   return (int)cudaGetLastError();
+}
+
+// How many splits the dk/dv kernel cuts each kv head's group of H / Hkv
+// query heads into: the fewest (a divisor of the group) for which its
+// (k tile, kv head, batch row, split) grid has a block for every SM of the
+// card (one block an SM fits; causal k tiles differ in work, and the
+// blocks with the most go first).  At llama3-8b's training shapes (B 2,
+// T 2048, Hkv 8: 16 k tiles of 128) that is 1, the whole group in a
+// block; at gemma-2b's (B 2, T 1024, Hkv 1: 16 k tiles of 64) 8.  Returns
+// kNoDevice if the card's SM count cannot be read.
+template <int D>
+int dkv16_splits(int B, int T_, int H, int Hkv) {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess)
+    return kNoDevice;
+  const int BK = Dkv16Cfg<D>::BK, rep = H / Hkv;
+  const int blocks = (T_ + BK - 1) / BK * Hkv * B;
+  int s = 1;
+  while (s < rep && (rep % s || blocks * s < sms)) ++s;
+  return s;
 }
 
 template <typename T, int D>
 int launch_dkv16(const void* q, const void* k, const void* v, const void* o,
                  const float* lse, const float* delta, const int* nv,
-                 void* dk, void* dv, float* dk_heads, float* dv_heads, Geom g,
+                 void* dk, void* dv, float* dk_part, float* dv_part, Geom g,
                  cudaStream_t st) {
   using C = Dkv16Cfg<D>;
-  const int rep = g.H / g.Hkv;
-  if (rep > 1 && !(dk_heads && dv_heads)) return kNoScratch;
+  const int splits = dkv16_splits<D>(g.B, g.T, g.H, g.Hkv);
+  if (splits < 1) return splits;
+  if (splits > 1 && !(dk_part && dv_part)) return kNoScratch;
+  CUtensorMap mq, mk, mv, mo;
+  if (int e = tensor_map<T>(&mq, q, g.B, g.S, g.H, D, C::BQ)) return e;
+  if (int e = tensor_map<T>(&mk, k, g.B, g.T, g.Hkv, D, C::BK)) return e;
+  if (int e = tensor_map<T>(&mv, v, g.B, g.T, g.Hkv, D, C::BK)) return e;
+  if (int e = tensor_map<T>(&mo, o, g.B, g.S, g.H, D, C::BQ)) return e;
   if (int e = set_smem(dkv16_kernel<T, D>, C::smem)) return e;
   const int nk = (g.T + C::BK - 1) / C::BK;
-  dkv16_kernel<T, D><<<nk * g.H * g.B, NT, C::smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(o), lse, delta, nv,
-      rep > 1 ? static_cast<void*>(dk_heads) : dk,
-      rep > 1 ? static_cast<void*>(dv_heads) : dv, rep > 1, g);
+  dkv16_kernel<T, D><<<nk * g.Hkv * g.B * splits, C::NTF, C::smem, st>>>(
+      mq, mk, mv, mo, lse, delta, nv,
+      splits > 1 ? static_cast<void*>(dk_part) : dk,
+      splits > 1 ? static_cast<void*>(dv_part) : dv, splits, g);
   if (int e = (int)cudaGetLastError()) return e;
-  if (rep > 1) {
+  if (splits > 1) {
     const int n = g.B * g.T * g.Hkv * (D / 4);
     dkv_sum16_kernel<T><<<(n + NT - 1) / NT, NT, 0, st>>>(
-        reinterpret_cast<const float4*>(dk_heads),
-        reinterpret_cast<const float4*>(dv_heads), static_cast<uint2*>(dk),
-        static_cast<uint2*>(dv), n, rep, D / 4);
+        reinterpret_cast<const float4*>(dk_part),
+        reinterpret_cast<const float4*>(dv_part), static_cast<uint2*>(dk),
+        static_cast<uint2*>(dv), n, splits, D / 4);
   }
   return (int)cudaGetLastError();
 }
+#endif  // CUDA_EMU
 
 }  // namespace
 
@@ -953,12 +1217,13 @@ int launch_dkv16(const void* q, const void* k, const void* v, const void* o,
 extern "C" {
 
 // q, k, v, dout, out, dq, dk, dv are device pointers to 16-bit values of
-// `dtype` (0 bfloat16, 1 float16), lse / delta / the dk, dv scratch fp32;
+// `dtype` (0 bfloat16, 1 float16), lse / delta / the dk, dv partials fp32;
 // all 16-byte aligned; num_valid may be null (= all B rows).  Returns 0 on
 // success, a cudaError_t code if a launch was refused, -1 for a head_dim
-// outside {32, 64, 96, 128, 256}, -2 when H > Hkv and flash_bwd_dkv_16 was
-// given no (B, T, H, D) fp32 scratch for the per-head partials, -3 when the
-// driver's TMA descriptor encoder is missing or refuses a tensor.
+// outside {32, 64, 96, 128, 256}, -2 when flash_bwd_dkv_16 splits the GQA
+// groups (flash_bwd_dkv_16_splits > 1) and was given no fp32 partials, -3
+// when cuTensorMapEncodeTiled is missing or refuses a tensor,
+// -4 when the card's SM count cannot be read.
 #ifndef CUDA_EMU
 int flash_fwd_16(int dtype, const void* q, const void* k, const void* v,
                  const int* num_valid, void* out, float* lse, int B, int S,
@@ -969,7 +1234,6 @@ int flash_fwd_16(int dtype, const void* q, const void* k, const void* v,
   DISPATCH16(dtype, D,
              (launch_fwd16<T, DD>(q, k, v, num_valid, out, lse, g, st)));
 }
-#endif  // CUDA_EMU
 
 int flash_bwd_dq_16(int dtype, const void* q, const void* k, const void* v,
                     const void* dout, const float* lse, const float* delta,
@@ -983,20 +1247,36 @@ int flash_bwd_dq_16(int dtype, const void* q, const void* k, const void* v,
                                  st)));
 }
 
-// dk_heads / dv_heads: (B, T, H, D) fp32 scratch for the per-head partials,
-// used (and required) only when H > Hkv
+// How many splits flash_bwd_dkv_16 cuts each kv head's group of query heads
+// into on the current card at these shapes (dkv16_splits), or a negative
+// code.  Past 1, it needs dk_part / dv_part: (B, T, Hkv * splits, D) fp32
+// each.
+int flash_bwd_dkv_16_splits(int B, int T_, int H, int Hkv, int D) {
+  switch (D) {
+    case 32: return dkv16_splits<32>(B, T_, H, Hkv);
+    case 64: return dkv16_splits<64>(B, T_, H, Hkv);
+    case 96: return dkv16_splits<96>(B, T_, H, Hkv);
+    case 128: return dkv16_splits<128>(B, T_, H, Hkv);
+    case 256: return dkv16_splits<256>(B, T_, H, Hkv);
+    default: return kBadHeadDim;
+  }
+}
+
+// dk_part / dv_part: (B, T, Hkv * splits, D) fp32 partials, used (and
+// required) only when flash_bwd_dkv_16_splits > 1
 int flash_bwd_dkv_16(int dtype, const void* q, const void* k, const void* v,
                      const void* dout, const float* lse, const float* delta,
                      const int* num_valid, void* dk, void* dv,
-                     float* dk_heads, float* dv_heads, int B, int S, int T_,
+                     float* dk_part, float* dv_part, int B, int S, int T_,
                      int H, int Hkv, int D, int causal, int window,
                      float softcap, float sm_scale, void* stream) {
   Geom g{B, S, T_, H, Hkv, causal, window, softcap, sm_scale};
   cudaStream_t st = (cudaStream_t)stream;
   DISPATCH16(dtype, D,
              (launch_dkv16<T, DD>(q, k, v, dout, lse, delta, num_valid, dk,
-                                  dv, dk_heads, dv_heads, g, st)));
+                                  dv, dk_part, dv_part, g, st)));
 }
+#endif  // CUDA_EMU
 
 // delta (B, H, S) fp32 = rowsum(dout * out) of two (B, S, H, D) tensors
 int flash_delta_16(int dtype, const void* dout, const void* out,

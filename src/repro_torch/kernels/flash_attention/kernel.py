@@ -7,12 +7,12 @@ kernels).  The tensor's device picks the implementation: a CPU tensor takes
 the plain version, a CUDA tensor launches a kernel or raises.  The inputs'
 dtype picks the kernel: float32 launches the fp32 entry (3xTF32 products,
 built from ``csrc/flash_attention.cu``), bfloat16 and float16 the 16-bit
-one (``csrc/flash_attention_16.cu``: a ``wgmma`` + TMA forward and
-``mma.sync`` m16n8k16 backward kernels that read the 16-bit tensors as
-they are, accumulate in fp32 and store in the inputs' dtype, as the
-reference's kernels load 16-bit blocks, widen them and store in the input
-dtype).  Each launch adds one to ``LAUNCHES[name]`` whichever entry ran,
-and a 16-bit one also to ``LAUNCHES_16[name + "_16"]``; nothing else does.
+one (``csrc/flash_attention_16.cu``: ``wgmma`` + TMA forward and
+backward kernels that read the 16-bit tensors as they are, accumulate in
+fp32 and store in the inputs' dtype, as the reference's kernels load 16-bit
+blocks, widen them and store in the input dtype).  Each launch adds one to
+``LAUNCHES[name]`` whichever entry ran, and a 16-bit one also to
+``LAUNCHES_16[name + "_16"]``; nothing else does.
 ``flash_delta`` is the backward's ``delta = rowsum(dO * O)`` on 16-bit
 inputs (a kernel of its own, so that no fp32 copy of dO or O is made).
 
@@ -24,12 +24,15 @@ right-aligned when S < T; optional sliding ``window`` and tanh
 None for all rows) marks batch rows >= num_valid as padding, whose outputs
 and gradients are exact zeros.  The backward takes the forward's lse and
 ``delta = rowsum(dO * O)`` as (B,H,S) f32, and returns dk/dv per kv head
-(summed over the query heads that share it).  Like the reference, the dk/dv
-kernel computes them per query head (``flash_bwd_dkv_heads_plain`` is that
-step's plain version) into (B,T,H,D) fp32 scratch, then sums each group in
-a fixed order.  The 16-bit kernels round P and dS to the inputs' dtype
-before the products that take them (the plain versions and the reference
-keep them fp32): a deliberate difference, ROADMAP queue 3.
+(summed over the query heads that share it).  Like the reference, the fp32
+dk/dv kernel computes them per query head (``flash_bwd_dkv_heads_plain`` is
+that step's plain version) into (B,T,H,D) fp32 scratch, then sums each
+group in a fixed order; the 16-bit one sums each group inside its blocks,
+in fp32 registers, and cuts a group into splits with fp32 partials
+(``dkv16_splits``) only where the card would otherwise idle.  The 16-bit
+kernels round P and dS to the inputs' dtype before the products that take
+them (the plain versions and the reference keep them fp32): a deliberate
+difference, ROADMAP queue 3.
 
 The kernels are built for the head dims in ``HEAD_DIMS``.  Any other head
 dim up to the largest is zero-padded (in the inputs' dtype) to the next of
@@ -223,6 +226,8 @@ SIGNATURES_16 = {
     "flash_bwd_dkv_16": [_I] + _SIGNATURES["flash_bwd_dkv"],
     # dtype, dO, O, delta, B, S, H, D, stream
     "flash_delta_16": [_I] + [_P] * 3 + [_I] * 4 + [_P],
+    # B, T, H, Hkv, D
+    "flash_bwd_dkv_16_splits": [_I] * 5,
 }
 
 
@@ -395,14 +400,28 @@ def flash_bwd_dq(q, k, v, do, lse, delta, num_valid=None, *,
     return _narrow(dq, d)
 
 
+def dkv16_splits(b: int, t: int, h: int, hkv: int, d: int) -> int:
+    """How many splits the 16-bit dk/dv kernel cuts each kv head's group of
+    query heads into at these shapes on the current card: 1 keeps a group
+    in one block (no scratch); past 1 each split stores an fp32 partial,
+    (B,T,Hkv * splits,D) for dk and for dv, that a second kernel adds."""
+    rc = _lib16().flash_bwd_dkv_16_splits(b, t, h, hkv, _padded_dim(d))
+    if rc < 1:
+        raise RuntimeError(f"flash_bwd_dkv_16_splits failed (code {rc})")
+    return rc
+
+
 def flash_bwd_dkv(q, k, v, do, lse, delta, num_valid=None, *,
                   causal: bool = True, window: Optional[int] = None,
                   softcap: Optional[float] = None):
     """(dk, dv), each (B,T,Hkv,D), group-summed over the query heads.
 
-    With H > Hkv the kernel writes per-query-head partials into (B,T,H,D)
-    scratch and a second kernel adds each group in a fixed order, so two
-    calls on the same inputs agree bit for bit."""
+    With H > Hkv the fp32 kernel writes per-query-head partials into
+    (B,T,H,D) scratch and a second kernel adds each group in a fixed order;
+    the 16-bit kernel sums a group in its blocks, and writes fp32 partials
+    of (B,T,Hkv * splits,D) only where ``dkv16_splits`` cuts the group.
+    Every sum has a fixed order, so two calls on the same inputs agree bit
+    for bit."""
     if q.device.type == "cpu":
         return flash_bwd_dkv_plain(q, k, v, do, lse, delta, num_valid,
                                    causal=causal, window=window,
@@ -413,10 +432,13 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, num_valid=None, *,
     q, k, v, do = _pad((q, k, v, do), _padded_dim(d))
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
+    b, t, h, hkv, dp = k.shape[0], k.shape[1], q.shape[2], k.shape[2], \
+        q.shape[3]
+    parts = h if q.dtype == torch.float32 else \
+        hkv * dkv16_splits(b, t, h, hkv, dp)
     heads = (None, None)
-    if q.shape[2] > k.shape[2]:
-        b, t, h, dp = k.shape[0], k.shape[1], q.shape[2], q.shape[3]
-        heads = tuple(torch.empty((b, t, h, dp), dtype=torch.float32,
+    if parts > hkv:
+        heads = tuple(torch.empty((b, t, parts, dp), dtype=torch.float32,
                                   device=q.device) for _ in range(2))
     nv, _keep = _nv_ptr(num_valid, q.device)
     _launch("flash_bwd_dkv", q.dtype,

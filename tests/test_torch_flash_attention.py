@@ -368,10 +368,15 @@ def test_cuda_kernels_take_16_bit_inputs(case, dtype, cuda_device):
         assert (a[case[9]:] == 0).all()
 
 
-# the CUDA_CASES shapes and llama3-8b's (phase 14(b)'s step), 16-bit
+# the CUDA_CASES shapes, llama3-8b's (phase 14(b)'s step), grok-1's heads
+# with its softcap 30, and the hybrid's local blocks (D 256, H 16, Hkv 1)
+# with a window that bites, 16-bit
 HALF_CUDA_CASES = CASES + CUDA_CASES + [
-    (2, 2048, 2048, 32, 8, 128, True, None, None, None)]
-HALF_CUDA_IDS = IDS + CUDA_IDS + ["llama3-8b"]
+    (2, 2048, 2048, 32, 8, 128, True, None, None, None),
+    (2, 1024, 1024, 48, 8, 128, True, None, 30.0, 1),
+    (2, 2048, 2048, 16, 1, 256, True, 1024, None, 1)]
+HALF_CUDA_IDS = IDS + CUDA_IDS + ["llama3-8b", "grok-softcap",
+                                  "hybrid-window"]
 
 
 def _peak_new_bytes(fn):
@@ -388,8 +393,8 @@ def _peak_new_bytes(fn):
 @pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
 @pytest.mark.parametrize("case", HALF_CUDA_CASES, ids=HALF_CUDA_IDS)
 def test_cuda_16_bit_kernels_match_plain_versions(case, dtype, cuda_device):
-    """The 16-bit entries (a wgmma + TMA forward, m16n8k16 backward, the
-    delta kernel) against the plain versions on the same 16-bit inputs:
+    """The 16-bit entries (wgmma + TMA forward and backward, the delta
+    kernel) against the plain versions on the same 16-bit inputs:
     within 1e-2 of each tensor's largest value (16-bit outputs; P and dS
     rounded to 16 bits before their products, ROADMAP queue 3), each row of
     out, dq, dk and dv within ``row_error``'s limit (a few units in the
@@ -397,9 +402,11 @@ def test_cuda_16_bit_kernels_match_plain_versions(case, dtype, cuda_device):
     its largest and delta within 1e-5 (fp32 sums of exact products).
     Padded rows are exact zeros; a second dq and dk/dv launch is bit-equal;
     every call launched its 16-bit entry alone (``LAUNCHES_16`` moved with
-    ``LAUNCHES``) and allocated no more than its outputs, its scratch and
-    the zero-padded copies of a head dim that is not built, plus 1 MiB, so
-    no fp32 copy of an input was made."""
+    ``LAUNCHES``) and allocated no more than its outputs, its scratch (for
+    dk/dv the fp32 partials of the splits ``dkv16_splits`` cuts each GQA
+    group into, none where a group runs in one block) and the zero-padded
+    copies of a head dim that is not built, plus 1 MiB, so no fp32 copy of
+    an input was made."""
     dt = getattr(torch, dtype)
     q, k, v, do = (torch.from_numpy(x).to(cuda_device, dt)
                    for x in _inputs(case, seed=8))
@@ -427,7 +434,8 @@ def test_cuda_16_bit_kernels_match_plain_versions(case, dtype, cuda_device):
     # 2 bytes an element: the outputs, then (d not built) the padded copies
     # of the inputs and the padded outputs that are sliced back
     padded = 0 if dp == d else 2 * dp
-    scratch = 2 * b * t * h * dp * 4 if h > hkv else 0
+    splits = FA.dkv16_splits(b, t, h, hkv, dp)
+    scratch = 2 * b * t * hkv * splits * dp * 4 if splits > 1 else 0
     slack = 1 << 20
     assert new_fwd <= (2 * qs * d + b * h * s * 4
                        + padded * (qs + 2 * ks + qs) + slack)

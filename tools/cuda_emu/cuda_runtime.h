@@ -2,11 +2,10 @@
 // that their indexing, fragment layouts, copy groups and barriers can be
 // checked with g++ on a machine without a GPU (tools/cuda_emu/run_flash.py,
 // run_ssd.py, run_rglru.py).  One block runs at a time as NT std::threads; __syncthreads
-// is a block barrier, warp shuffles, ldmatrix (and its .trans on 16-bit
-// values), mma.sync m16n8k8 (tf32, the low 13 bits of each operand ignored
-// as the tensor cores do) and m16n8k16 (bf16, fp16: operands widened
-// exactly) exchange through per-warp buffers.  bf16 and fp16 are stored as
-// their 16 bits; the conversion intrinsics round to nearest even.  Builds
+// is a block barrier, warp shuffles, ldmatrix and mma.sync m16n8k8 (tf32,
+// the low 13 bits of each operand ignored as the tensor cores do) exchange
+// through per-warp buffers.  bf16 and fp16 are stored as their 16 bits; the
+// conversion intrinsics round to nearest even.  Builds
 // define CUDA_EMU, under which sources leave out what has no emulation
 // (wgmma, TMA, mbarriers).  cp.async copies are held per thread in their
 // commit groups and land only at the cp.async.wait_group that covers them,
@@ -187,61 +186,6 @@ inline void emu_mma(float (&c)[4], const uint32_t (&a)[4],
     for (int kk = 0; kk < 8; ++kk) s += (double)A[rows[e]][kk] * B[kk][cols[e]];
     c[e] = (float)(c[e] + s);
   }
-}
-
-// d = a b + c for one warp, m16n8k16 with bf16 (or fp16) operands, two a
-// register, the lower column in the low half
-inline float emu_b16(uint32_t bits, bool half) {
-  return half ? __half2float(__half{(uint16_t)bits})
-              : __bfloat162float(__nv_bfloat16{(uint16_t)bits});
-}
-inline void emu_mma16(float (&c)[4], const uint32_t (&a)[4],
-                      const uint32_t (&b)[2], bool half) {
-  const int w = threadIdx.x >> 5, l = threadIdx.x & 31;
-  float* me = emu_warp_f[w][l];
-  for (int i = 0; i < 4; ++i) me[i] = __uint_as_float(a[i]);
-  for (int i = 0; i < 2; ++i) me[4 + i] = __uint_as_float(b[i]);
-  emu_warp_bar[w]->arrive_and_wait();
-  float A[16][16], B[16][8];
-  for (int ln = 0; ln < 32; ++ln) {
-    const int g = ln >> 2, t = ln & 3;
-    uint32_t r[6];
-    for (int i = 0; i < 6; ++i) r[i] = __float_as_uint(emu_warp_f[w][ln][i]);
-    for (int x = 0; x < 2; ++x) {
-      const int sh = 16 * x;
-      A[g][2 * t + x] = emu_b16(r[0] >> sh & 0xffffu, half);
-      A[g + 8][2 * t + x] = emu_b16(r[1] >> sh & 0xffffu, half);
-      A[g][2 * t + 8 + x] = emu_b16(r[2] >> sh & 0xffffu, half);
-      A[g + 8][2 * t + 8 + x] = emu_b16(r[3] >> sh & 0xffffu, half);
-      B[2 * t + x][g] = emu_b16(r[4] >> sh & 0xffffu, half);
-      B[2 * t + 8 + x][g] = emu_b16(r[5] >> sh & 0xffffu, half);
-    }
-  }
-  emu_warp_bar[w]->arrive_and_wait();
-  const int g = l >> 2, t = l & 3;
-  const int rows[4] = {g, g, g + 8, g + 8};
-  const int cols[4] = {2 * t, 2 * t + 1, 2 * t, 2 * t + 1};
-  for (int e = 0; e < 4; ++e) {
-    double s = 0;
-    for (int kk = 0; kk < 16; ++kk)
-      s += (double)A[rows[e]][kk] * B[kk][cols[e]];
-    c[e] = (float)(c[e] + s);
-  }
-}
-
-// ldmatrix .x2/.x4 .trans of b16 8 x 8 matrices: lane l receives column
-// l / 4, rows 2 (l % 4) and 2 (l % 4) + 1 of each
-inline void emu_ldsm_t(uint32_t* r, int n, const void* p) {
-  const int w = threadIdx.x >> 5, l = threadIdx.x & 31;
-  emu_warp_p[w][l] = (const float*)p;
-  emu_warp_bar[w]->arrive_and_wait();
-  for (int i = 0; i < n; ++i) {
-    uint16_t lo, hi;
-    memcpy(&lo, (const char*)emu_warp_p[w][8 * i + 2 * (l % 4)] + 2 * (l / 4), 2);
-    memcpy(&hi, (const char*)emu_warp_p[w][8 * i + 2 * (l % 4) + 1] + 2 * (l / 4), 2);
-    r[i] = (uint32_t)lo | ((uint32_t)hi << 16);
-  }
-  emu_warp_bar[w]->arrive_and_wait();
 }
 
 // ldmatrix .x1/.x2/.x4 of b16 8 x 8 matrices, read as 8 x 4 fp32

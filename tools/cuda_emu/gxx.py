@@ -32,13 +32,6 @@ EMULATED = {
         "cp_commit": "  emu_cp_commit();",
         "cp_wait": "  emu_cp_wait(N);",
     },
-    "mma_16.cuh": {
-        "ldsm16_x4": "  emu_ldsm(r, 4, (const float*)p);",
-        "ldsm16_x4_t": "  emu_ldsm_t(r, 4, p);",
-        "ldsm16_x2_t": "  emu_ldsm_t(r, 2, p);",
-        "cp_async16v": "  emu_cp_async(dst, src, 16, bytes);",
-        "mma16": "  emu_mma16(c, a, b, std::is_same<T, __half>::value);",
-    },
 }
 
 

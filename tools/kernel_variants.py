@@ -17,8 +17,8 @@ Needs one CUDA card and nvcc, as ``chip_smoke.py`` does.
   2048, W 4096, no h0).
 * ``rglru_fwd``: the forward ring's stages and steps (``FWD_STAGES``,
   ``FWD_STEPS``), built and timed the same way at the same shapes.
-* ``--flash16`` (alone): the 16-bit flash kernels' tile shapes
-  (``Fwd16Cfg``, ``Dq16Cfg``, ``Dkv16Cfg`` in
+* ``--flash16`` (alone): the 16-bit backward's tile shapes, ring depths
+  and GQA splits (``Dq16Cfg``, ``Dkv16Cfg`` and ``dkv16_splits`` in
   ``csrc/flash_attention_16.cu``): each variant is the source with
   ``FLASH16_VARIANTS``' text replacements, built by nvcc under
   ``build/variants/`` in parallel, held to the plain versions in bf16 at
@@ -27,8 +27,9 @@ Needs one CUDA card and nvcc, as ``chip_smoke.py`` does.
 
 Every variant is first held to the plain version (the SSD tolerance 1e-4
 abs and rel; RG-LRU bit-equality; flash 1e-2 x max) and then timed with CUDA events over 20
-launches after two warm-ups, each variant twice in turn.  Prints the card
-and one JSON object; exits 1 if a variant disagrees.
+launches after two warm-ups, each variant twice in turn (a flash variant
+that disagrees is recorded and left untimed).  Prints the card and one JSON
+object; exits 1 if a variant disagrees.
 """
 
 from __future__ import annotations
@@ -165,33 +166,44 @@ def rglru_variants() -> dict:
 
 
 # variant -> text replacements of csrc/flash_attention_16.cu ("chosen" is the
-# source as it stands)
+# source as it stands): the backward's tile shapes (dq's key tile, both
+# rings' depth) and how the dk/dv launcher splits the GQA groups
 FLASH16_VARIANTS = {
     "chosen": [],
-    "fwd ring of 2 K/V stages at D <= 128": [
-        ("static constexpr int STAGES = D == 256 ? 2 : 3;",
-         "static constexpr int STAGES = 2;")],
-    "fwd three consumer warpgroups at D <= 128": [
-        ("static constexpr int NWG = D <= 128 ? 2 : 1;",
-         "static constexpr int NWG = D <= 128 ? 3 : 1;")],
-    "fwd 128-key tiles at D 128": [
-        ("static constexpr int BK = D <= 96 ? 128 : 64;",
-         "static constexpr int BK = D <= 128 ? 128 : 64;")],
-    "fwd two consumer warpgroups at D 256": [
-        ("static constexpr int NWG = D <= 128 ? 2 : 1;",
+    "dq two warpgroups and 128-key tiles at D 96": [
+        ("static constexpr int NWG = D == 128 ? 2 : 1;    // consumer warpgroups",
+         "static constexpr int NWG = D == 128 || D == 96 ? 2 : 1;"),
+        ("static constexpr int MINB = D <= 96 ? 2 : 1;    // blocks an SM",
+         "static constexpr int MINB = D <= 64 ? 2 : 1;"),
+        ("static constexpr int BK = D == 128 ? 128 : 64;  // keys of a K/V tile",
+         "static constexpr int BK = D == 128 || D == 96 ? 128 : 64;")],
+    "dq one warpgroup, 64-key tiles, two blocks an SM at D 128": [
+        ("static constexpr int NWG = D == 128 ? 2 : 1;    // consumer warpgroups",
+         "static constexpr int NWG = 1;"),
+        ("static constexpr int MINB = D <= 96 ? 2 : 1;    // blocks an SM",
+         "static constexpr int MINB = D <= 128 ? 2 : 1;"),
+        ("static constexpr int BK = D == 128 ? 128 : 64;  // keys of a K/V tile",
+         "static constexpr int BK = 64;")],
+    "dk/dv two warpgroups a block at D 96, 128": [
+        ("static constexpr int NWG = ROLES || D <= 64 ? 2 : 1;  // consumer warpgroups",
          "static constexpr int NWG = 2;")],
-    "dq one block an SM": [
-        ("static constexpr int MINB = D <= 128 ? 2 : 1;",
-         "static constexpr int MINB = 1;")],
-    "dk/dv 32-key tiles at D 256": [
-        ("static constexpr int BK = D == 256 ? 64 : 32, BQ = 64;",
-         "static constexpr int BK = 32, BQ = 64;")],
-    "dk/dv 64-key tiles at D <= 128": [
-        ("static constexpr int BK = D == 256 ? 64 : 32, BQ = 64;",
-         "static constexpr int BK = 64, BQ = 64;")],
+    "dk/dv one warpgroup a block at D <= 64": [
+        ("static constexpr int NWG = ROLES || D <= 64 ? 2 : 1;  // consumer warpgroups",
+         "static constexpr int NWG = ROLES ? 2 : 1;")],
+    "dk/dv ring of 3 Q/dO stages at D 96, 128": [
+        ("static constexpr int STAGES = NWG == 2 && !ROLES ? 3 : 2;  // ring's tiles",
+         "static constexpr int STAGES = ROLES ? 2 : 3;")],
+    "dQ, dK, dV wgmmas of 32 columns": [
+        ("static constexpr int RS_N = rs_width<D>();      // columns of a dQ wgmma",
+         "static constexpr int RS_N = 32;"),
+        ("static constexpr int RS_N = rs_width<D>();    // columns of a dK, dV wgmma",
+         "static constexpr int RS_N = 32;")],
+    "dk/dv splits filling twice the SMs": [
+        ("while (s < rep && (rep % s || blocks * s < sms)) ++s;",
+         "while (s < rep && (rep % s || blocks * s < 2 * sms)) ++s;")],
 }
 FLASH16_SHAPES = (("gemma", 2, 1024, 8, 1, 256), ("llama3", 2, 2048, 32, 8, 128),
-                  ("phi3", 2, 1024, 32, 32, 96))
+                  ("phi3", 2, 1024, 32, 32, 96), ("d64", 2, 2048, 32, 8, 64))
 
 
 def flash16_variant_libs() -> dict:
@@ -250,14 +262,17 @@ def flash16_variants() -> dict:
                 want = {"flash_fwd": out_p,
                         "flash_bwd_dq": K.flash_bwd_dq_plain(q, k, v, do, lse,
                                                              delta),
-                        "flash_bwd_dkv": K.flash_bwd_dkv_plain(
-                            q, k, v, do, lse, delta)[0]}
+                        "flash_bwd_dkv": torch.cat([x.flatten() for x in
+                                                    K.flash_bwd_dkv_plain(
+                                                        q, k, v, do, lse,
+                                                        delta)])}
                 calls = {
                     "flash_fwd": lambda: K.flash_fwd(q, k, v)[0],
                     "flash_bwd_dq": lambda: K.flash_bwd_dq(q, k, v, do, lse,
                                                            delta),
-                    "flash_bwd_dkv": lambda: K.flash_bwd_dkv(
-                        q, k, v, do, lse, delta)[0]}
+                    "flash_bwd_dkv": lambda: torch.cat(
+                        [x.flatten() for x in K.flash_bwd_dkv(
+                            q, k, v, do, lse, delta)])}
                 for label, lib in libs.items():
                     K._lib16 = lambda lib=lib: lib
                     rec = out[label].setdefault(label_s, {})
@@ -265,11 +280,12 @@ def flash16_variants() -> dict:
                         if rnd == 0:
                             err = (fn().float() - want[name].float()).abs() \
                                 .max().item()
-                            if err > HALF_TOL * want[name].float().abs() \
-                                    .max().item():
-                                raise AssertionError(
-                                    f"{name} variant {label!r} at "
-                                    f"{label_s}: max err {err}")
+                            if not err <= HALF_TOL * want[name].float() \
+                                    .abs().max().item():
+                                # recorded and left untimed; main exits 1
+                                rec[f"{name}_disagrees"] = err
+                        if f"{name}_disagrees" in rec:
+                            continue
                         rec.setdefault(f"{name}_ms", []).append(
                             time_ms(fn, 20))
                         rec.setdefault(f"{name}_device_ms", []).append(
@@ -296,16 +312,24 @@ def main() -> int:
     if args.flash16:
         res = {"gpu": gpu_line(), "flash16": flash16_variants()}
         name = "kernel_variants_flash16.json"
+        bad = sorted(f"{label} at {shape}: {key}"
+                     for label, shapes in res["flash16"].items()
+                     for shape, rec in shapes.items()
+                     for key in rec if key.endswith("_disagrees"))
     else:
         res = {"gpu": gpu_line(), "ssd_fwd_ms": ssd_variants(),
                **rglru_variants()}
         name = "kernel_variants.json"
+        bad = []
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, name), "w") as f:
         json.dump(res, f, indent=1)
     print(res["gpu"])
     print(json.dumps(res))
-    return 0
+    if bad:
+        print("variants that disagree with the plain versions: "
+              + "; ".join(bad), file=sys.stderr)
+    return 1 if bad else 0
 
 
 if __name__ == "__main__":
