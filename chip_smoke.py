@@ -623,6 +623,10 @@ def time_kernels(peak: tuple, report: dict, shape=FLASH_TIMED[0],
         if half:
             tm["fp32_bound_ms"] = max(t_fp32, t_mem)
             tm["device_ms"] = device_ms(kern, FLASH16[f"{name}_16"])
+            if tm["device_ms"] is None:
+                raise AssertionError(
+                    f"{name}_16 at the {label} shapes: the profiler recorded "
+                    f"none of its kernels in 3 profiles: {PROFILE_MISSES}")
             if name in efficient:
                 tm["efficient_ms"] = time_ms(efficient[name], 20)
 
@@ -691,7 +695,7 @@ def check_flash_half(report: dict) -> dict:
     value, each row of out, dq, dk and dv within ``K.row_error``'s limit (a
     few units in the last place of the row's own largest value) and lse
     within ``K.LSE_TOL`` of its largest (fp32), padded rows exact zeros, a
-    second dq and dk/dv launch bit-equal,
+    second forward, dq and dk/dv launch bit-equal,
     ``flash_delta`` within DELTA_TOL of its plain version.  Each call must
     launch its 16-bit entry alone (``LAUNCHES_16`` moves with ``LAUNCHES``:
     the fp32 entry does not run) and allocate no more than its outputs and
@@ -765,10 +769,13 @@ def check_flash_half(report: dict) -> dict:
                                            rows)
             res["delta_entry_16_alone"] = counts == {"flash_delta_16": 1}
             res["delta_no_fp32_copy"] = fits
+            out2, lse2 = K.flash_fwd(q, k, v, nvt, **kw)
             dq2 = K.flash_bwd_dq(q, k, v, do, lse_p, delta_p, nvt, **kw)
             dk2, dv2 = K.flash_bwd_dkv(q, k, v, do, lse_p, delta_p, nvt,
                                        **kw)
             torch.cuda.synchronize()
+            res["fwd_repeats_bit_for_bit"] = bool(torch.equal(out, out2)
+                                                  and torch.equal(lse, lse2))
             res["dq_repeats_bit_for_bit"] = bool(torch.equal(dq, dq2))
             res["dkv_repeats_bit_for_bit"] = bool(torch.equal(dk, dk2)
                                                   and torch.equal(dv, dv2))
@@ -818,7 +825,8 @@ def check_flash_half(report: dict) -> dict:
                 + f" (new bytes fwd {res['fwd_new_bytes']}, dq "
                 f"{res['dq_new_bytes']}, dkv {res['dkv_new_bytes']}; dk/dv "
                 f"splits {splits}, partials {scratch} bytes)"
-                + f", dq / dk,dv repeat bit for bit "
+                + f", fwd / dq / dk,dv repeat bit for bit "
+                f"{res['fwd_repeats_bit_for_bit']} / "
                 f"{res['dq_repeats_bit_for_bit']} / "
                 f"{res['dkv_repeats_bit_for_bit']}")
             report.setdefault("half_cases", {})[name] = res
@@ -853,12 +861,25 @@ def device_profile(fn, iters: int = 10) -> dict:
     return ms
 
 
-def device_ms(fn, frags: tuple, iters: int = 10) -> float:
+# each profile in which ``device_ms`` found none of its kernels: the name
+# fragments it looked for and the kernels the profiler did record
+PROFILE_MISSES: list = []
+
+
+def device_ms(fn, frags: tuple, iters: int = 10, attempts: int = 3) -> float:
     """Device time a call of ``fn``: the kernels whose names hold one of
-    ``frags``; None where the profiler records no device time."""
-    ms = sum(t for name, t in device_profile(fn, iters).items()
-             if any(f in name for f in frags))
-    return ms or None
+    ``frags``, from the first of up to ``attempts`` profiles that records
+    any of them (each miss is kept in ``PROFILE_MISSES``); None where none
+    does."""
+    for _ in range(attempts):
+        prof = device_profile(fn, iters)
+        ms = sum(t for name, t in prof.items()
+                 if any(f in name for f in frags))
+        if ms:
+            return ms
+        PROFILE_MISSES.append({"frags": list(frags),
+                               "recorded": [n[:100] for n in prof]})
+    return None
 
 
 # ------------------------------------------- phase 2, the scans' shared parts
@@ -3367,6 +3388,9 @@ def check_step_programs(report: dict) -> dict:
         r["flash_share"] = sum(pr["kernels_us"].values()) \
             / pr["device_busy_us"]
         r["cast_share"] = pr["casts"]["casts_us"] / pr["device_busy_us"]
+        # the 16-bit forward's device ms in the profiled step (2 launches a
+        # layer under remat)
+        r["flash_fwd_16_ms"] = pr["kernels_us"]["flash_fwd_16"] / 1e3
     res["llama"] = r
     log(f"  (b) {arch} {cfg.num_layers} layers bf16 ({n_params / 1e9:.2f}B),"
         f" B {b} x S {s}, remat full, adafactor: losses "
@@ -3376,7 +3400,8 @@ def check_step_programs(report: dict) -> dict:
         f"{r['bf16_peak_tflops']:.0f} bf16, launches "
         f"{ {k: v for k, v in r['launches'].items() if v} }, peak "
         f"{r['max_memory_allocated'] / 2**30:.2f} GiB, flash share of busy "
-        f"time {r.get('flash_share', float('nan')):.3f}, casts "
+        f"time {r.get('flash_share', float('nan')):.3f} (the forward "
+        f"{r.get('flash_fwd_16_ms', float('nan')):.2f} ms a step), casts "
         f"{r.get('cast_share', float('nan')):.3f}")
     if pr:
         log(f"  (b) 16-bit launches {r['launches_16']}; casts in the profiled "
@@ -4294,6 +4319,9 @@ def main() -> int:
                                                    dtype="bfloat16")
                             for shape in FLASH_TIMED_16}
     torch.cuda.empty_cache()
+    if PROFILE_MISSES:
+        log(f"  profiles that recorded none of the kernels asked for (a "
+            f"later attempt did): {PROFILE_MISSES}")
     for label, tms in report["bf16_times"].items():
         for name, tm in tms.items():
             lib = ("" if tm["library_ms"] is None else
@@ -4301,10 +4329,8 @@ def main() -> int:
                    f"(memory-efficient {tm['efficient_ms']:.4f} ms"
                    + (f", SDPA's default {tm['sdpa_default_ms']:.4f} ms"
                       if "sdpa_default_ms" in tm else "") + ")")
-            dev_ms = ("not measured" if tm["device_ms"] is None
-                      else f"{tm['device_ms']:.4f} ms")
             log(f"  {name} on bf16 at the {label} shapes: kernel "
-                f"{tm['ms']:.4f} ms (device {dev_ms}), plain "
+                f"{tm['ms']:.4f} ms (device {tm['device_ms']:.4f} ms), plain "
                 f"{tm['plain_ms']:.3f} ms{lib}, bound at the bf16 "
                 f"tensor-core rate {tm['bound_ms']:.4f} ms ({tm['bound_by']});"
                 f" fp32 bound {tm['fp32_bound_ms']:.4f} ms"
@@ -4514,6 +4540,7 @@ def main() -> int:
                 for label, tms in report["bf16_times"].items()},
         })
     report["kernels"] = kernels
+    report["profile_misses"] = PROFILE_MISSES
     report["seconds"] = time.perf_counter() - t_start
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1, default=str)

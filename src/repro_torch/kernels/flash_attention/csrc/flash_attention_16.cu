@@ -30,39 +30,50 @@
 // mbarriers with transaction counts) keeps a ring of tiles filled ahead of
 // consumer warpgroups of 64 rows that run wgmma.  Every operand is a
 // [rows][D] tile of q, k, v or dO in one layout: TMA's 64-byte swizzle,
-// each row of D values D / 32 atoms of 32 columns, one TMA box per atom;
+// each row of D values D / 32 atoms of 32 columns (the forward's 128-byte
+// swizzle: D / 64 atoms of 64 where D allows), one TMA box per atom;
 // the wgmma descriptors walk atoms and 16-column k steps inside them.  Every
 // product has one of two forms: SS (both operands K-major in shared
 // memory: S = Q K^T and dP = dO V^T, and in the dk/dv kernel S^T = K Q^T
 // and dP^T = V dO^T, the same tiles in the other roles) or RS (A from
 // registers: P or dS in 16 bits, converted in the accumulator's layout,
 // which is wgmma's A-fragment layout; B a [k][n] tile, N-major: O += P V,
-// dQ += dS K, dV += P^T dO, dK += dS^T Q; the backward's take up to 128
-// columns, four atoms, a wgmma).  Computing S^T and dP^T directly puts P^T
+// dQ += dS K, dV += P^T dO, dK += dS^T Q; up to 128 columns, four atoms,
+// a wgmma).  Computing S^T and dP^T directly puts P^T
 // and dS^T where the RS products take them, so nothing is staged through
 // shared memory.  No wgmma sits under a branch that is not uniform over its
 // warpgroup (ptxas serializes them there, C7520): masked tiles differ from
-// whole ones in their elementwise code only.  A barrier wait of over 4 s
-// traps (../../csrc/mma_16.cuh), so a lost arrival is an error, not a hang.
+// whole ones in their elementwise code only.  An mbarrier wait of over 4 s
+// traps (../../csrc/mma_16.cuh), so a lost arrival is an error, not a hang
+// (the forward's named barriers have no timeout: turn_begin says why their
+// arrivals balance).
 //
-// flash_fwd_16: one producer warp fills a ring of two or three K/V stages
-// (K and V of a stage on barriers of their own, so K_{i+1} streams in once
-// S_{i-1} is done); S = Q K^T, the online softmax in fp32 registers (base
-// 2), P V.  O's fp32 accumulator stays in registers: D / 2 a thread.  At D
-// 256 that is 128, so one consumer warpgroup (64 query rows, a ring of two
-// 64-row K/V tiles: 160 KB of shared memory); at D <= 128 two warpgroups
-// (128 query rows) share a ring of three K/V tiles of 64 rows (128 at D <=
-// 96).  One block of 160 or 288 threads an SM.  Tile i's S is started
-// together with P_{i-1} V_{i-1}, and its softmax runs while that product
-// does.
+// flash_fwd_16: a block per (q tile of 128 rows, query head, batch row),
+// longest causal rows first; two consumer warpgroups of 64 query rows and
+// no producer warp (Fwd16Cfg).  Thread 0 of warpgroup 1 loads Q once and
+// a ring of two K/V stages by TMA, in band (K and V on barriers of their
+// own): K_{i+2} once both warpgroups have S_i, V_{i+2} once both have
+// P_i V_i.  Tiles are swizzled in 128-byte rows (64-column atoms) where D
+// is a multiple of 64, else 64.  Per K/V tile S = Q K^T (SS), the online
+// softmax in fp32 registers (base 2, exponentials on ex2.approx.ftz),
+// O += P V (RS, one wgmma of D columns a 16-key step).  The softmax is
+// specialized on the softcap and on the tile needing its per-pair mask,
+// chosen by branches uniform over the warpgroup.  K/V tiles are 128 keys
+// up to D 128 (O, S and P take D / 2 + 64 + 32 registers a thread) and 64
+// at D 256 (128 + 32 + 16).  Within a warpgroup S_i is issued with
+// P_{i-1} V_{i-1} and its softmax runs while that product does; between
+// the two, named barriers make them take turns to issue those rounds, so
+// one warpgroup's softmax runs under the other's products
+// (FlashAttention-3's ping-pong).  O's fp32 accumulator stays in registers
+// and is scaled and stored once.
 //
-// The backward kernels have no producer warp: a ninth warp puts three on
-// one quarter of the SM's register file and caps every thread at 168
-// registers, which their accumulators overflow (ptxas does not raise a
-// warpgroup's allocation after setmaxnreg).  A consumer refills the ring in
-// band instead, as each stage comes free, and keeps 255.  Each starts S
-// (S^T) and dP (dP^T) together and computes p f, the softcap's factor
-// folded in, while dP runs, then dS = p f (dP - delta).
+// No kernel has a producer warp: a ninth warp puts three on one quarter
+// of the SM's register file and caps every thread at 168 registers, which
+// their accumulators overflow (ptxas does not raise a warpgroup's
+// allocation after setmaxnreg).  A consumer refills the ring in band
+// instead, as each stage comes free, and keeps 255.  Each backward kernel
+// starts S (S^T) and dP (dP^T) together and computes p f, the softcap's
+// factor folded in, while dP runs, then dS = p f (dP - delta).
 //
 // flash_bwd_dq_16: a block per (q tile, query head, batch row), longest
 // causal rows first; Q and dO once, then a ring of K/V tiles loaded by
@@ -184,84 +195,127 @@ constexpr float LN2 = 0.6931471805599453f;
 
 template <int D>
 struct Fwd16Cfg {
-  static constexpr int NWG = D <= 128 ? 2 : 1;  // consumer warpgroups
-  static constexpr int BK = D <= 96 ? 128 : 64;  // keys of a K/V tile
-  static constexpr int STAGES = D == 256 ? 2 : 3;  // K/V tiles in the ring
-  static constexpr int BQ = 64 * NWG;            // query rows of a block
-  static constexpr int NTF = 128 * NWG + 32;     // + one producer warp
-  static constexpr int ATOMS = D / 32;           // 64-byte swizzle atoms
+  // a block a q tile of BQ query rows: two consumer warpgroups of 64 rows
+  // share each K/V tile and take turns to issue their products; 128-key
+  // tiles up to D 128, 64-key tiles at D 256 (O is 128 registers a thread
+  // there); P V one wgmma of RS_N columns a 16-key step (measured on the
+  // card with tools/kernel_variants.py --flash16-fwd)
+  static constexpr int BK = D <= 128 ? 128 : 64;  // keys of a K/V tile
+  static constexpr int STAGES = 2;                // K/V tiles in the ring
+  static constexpr int RS_N = D;                  // columns of a P V wgmma
+  static constexpr int BQ = 128;                  // query rows of a block
+  // the consumer warpgroups alone, one thread of the last refilling the
+  // ring as it goes (no producer warp: a ninth warp would cap every thread
+  // at 168 registers, and O, S and P take up to 176)
+  static constexpr int NTF = 2 * BQ;
+  // tiles in rows of SW bytes swizzled, atoms of SW / 2 columns: 128 where
+  // D is a multiple of 64, else 64
+  static constexpr int SW = D % 64 == 0 ? 128 : 64;
+  static constexpr int AC = SW / 2;               // columns of an atom
+  static constexpr int ATOMS = D / AC;
   static constexpr uint32_t q_bytes = BQ * D * 2, kv_bytes = BK * D * 2;
   // Q, STAGES x (K, V), 4 STAGES + 1 barriers, 1 KB to align the tiles
   static constexpr size_t smem =
       1024 + q_bytes + 2 * STAGES * kv_bytes + (4 * STAGES + 1) * 8;
 };
-
-// S = Q K^T for one warpgroup: D / 16 k steps, two a 32-column atom (the
-// descriptors step 32 bytes into an atom, then to the next atom); the
-// first overwrites s
-template <typename T, int D, int BQ, int BK>
+// S = Q K^T for one warpgroup: D / 16 k steps, SW / 32 an atom of SW / 2
+// columns (the descriptors step 32 bytes into an atom, then to the next
+// atom; rows SW bytes apart); the first overwrites s
+template <typename T, int D, int BQ, int BK, int SW = 64>
 __device__ __forceinline__ void fwd_qk(float (&s)[BK / 2], uint32_t q_base,
                                        uint32_t k_base) {
+  constexpr int KA = SW / 32;  // k steps an atom
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
-    const uint32_t off = (kk & 1) * 32;  // bytes into the atom
-    wgmma_ss<T, BK>(s, wg_desc(q_base + (kk >> 1) * BQ * 64 + off, 16, 512),
-                    wg_desc(k_base + (kk >> 1) * BK * 64 + off, 16, 512),
-                    kk > 0);
+    const uint32_t off = (kk % KA) * 32;  // bytes into the atom
+    wgmma_ss<T, BK>(
+        s, wg_desc<SW>(q_base + (kk / KA) * BQ * SW + off, 16, 8 * SW),
+        wg_desc<SW>(k_base + (kk / KA) * BK * SW + off, 16, 8 * SW), kk > 0);
   }
 }
 
-// O += P V: for each k step of 16 keys, one m64n32k16 a 32-column atom of
-// V (N-major: 8-key row groups 512 bytes apart)
-template <typename T, int D, int BK>
-__device__ __forceinline__ void fwd_pv(float (&o)[D / 32][16],
-                                       const uint32_t (&pf)[BK / 16][4],
-                                       uint32_t v_base) {
+// acc (64 x D fp32: D / 32 groups of 16 values a thread) += A B, A the K /
+// 16 k steps of af (16-bit A fragments), B a [K][D] tile at b_base
+// (N-major: atoms of SW / 2 columns, K * SW bytes apart, rows SW bytes
+// apart): one wgmma of RS_N columns a k step and column group.  O += P V in
+// the forward, dQ += dS K, dV += P^T dO and dK += dS^T Q in the backward.
+template <typename T, int D, int K, int RS_N, int SW = 64>
+__device__ __forceinline__ void rs_product(float (&acc)[D / 32][16],
+                                           const uint32_t (&af)[K / 16][4],
+                                           uint32_t b_base) {
+  constexpr int AC = SW / 2;  // columns of an atom
+  static_assert(D % RS_N == 0 && RS_N % AC == 0, "whole column groups");
+  constexpr int G = RS_N / AC;                          // atoms a wgmma
+  constexpr uint32_t lbo = G == 1 ? 8 * SW : K * SW;    // atom to atom
 #pragma unroll
-  for (int kk = 0; kk < BK / 16; ++kk)
+  for (int kk = 0; kk < K / 16; ++kk)
 #pragma unroll
-    for (int a = 0; a < D / 32; ++a)
-      wgmma_rs32<T>(o[a], pf[kk],
-                    wg_desc(v_base + a * BK * 64 + kk * 16 * 64, 512, 512));
+    for (int c = 0; c < D / RS_N; ++c)
+      wgmma_rs<T, RS_N>(
+          *reinterpret_cast<float(*)[RS_N / 2]>(&acc[c * RS_N / 32][0]),
+          af[kk],
+          wg_desc<SW>(b_base + c * G * K * SW + kk * 16 * SW, lbo, 8 * SW));
 }
 
-// the online softmax of one S tile (base 2): scale, softcap, mask (unless
-// `whole`: every pair of the warpgroup's rows and the tile's keys is
-// visible), new row maxima, p = exp2(s - m) in place, l rescaled and
+// the online softmax of one S tile (raw scores, fp32) in base 2, for a
+// softcap (CAP) or none and with the per-pair mask (MASK) or without it
+// (every pair of the warpgroup's rows and the tile's keys visible): the
+// new row maxima m (base-2 units), p = 2^(x - m) in place, l rescaled and
 // summed (this thread's columns; the quad's are added at the end); alpha
-// rescales O.  Thread rows qrow and qrow + 8 (query positions before the
-// shift), keys from k_first.
-template <int BK>
-__device__ __forceinline__ void fwd_softmax(float (&s)[BK / 2], float (&m)[2],
-                                            float (&l)[2], float (&alpha)[2],
-                                            bool whole, int qrow, int k_first,
-                                            const Geom& g) {
+// rescales O.  Without a softcap the scale is folded into the exponent's
+// fma.  Thread rows qrow and qrow + 8 (query positions before the shift),
+// keys from k_first.
+template <int BK, bool CAP, bool MASK>
+__device__ __forceinline__ void fwd_softmax_of(float (&s)[BK / 2],
+                                               float (&m)[2], float (&l)[2],
+                                               float (&alpha)[2], int qrow,
+                                               int k_first, const Geom& g) {
   const int tq = lane_t(), shift = g.T - g.S;
-  const float scale2 = g.sm_scale * LOG2E;
+  // x (below) times f is the base-2 exponent
+  const float f = CAP ? 1.f : g.sm_scale * LOG2E;
   float mx[2] = {NEG_INF, NEG_INF};
 #pragma unroll
   for (int e = 0; e < BK / 2; ++e) {
     const int hh = (e >> 1) & 1, c = 8 * (e >> 2) + 2 * tq + (e & 1);
-    float x = g.softcap > 0.f
-                  ? g.softcap * tanhf(s[e] * g.sm_scale / g.softcap) * LOG2E
-                  : s[e] * scale2;
-    if (!whole && !pair_visible(qrow + 8 * hh + shift, k_first + c, g))
+    float x = s[e];
+    if constexpr (CAP)
+      x = g.softcap * LOG2E * tanhf(x * (g.sm_scale / g.softcap));
+    if (MASK && !pair_visible(qrow + 8 * hh + shift, k_first + c, g))
       x = NEG_INF;
     s[e] = x;
     mx[hh] = fmaxf(mx[hh], x);
   }
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
-    const float m_cur = fmaxf(m[hh], quad_max(mx[hh]));
-    alpha[hh] = exp2f(m[hh] - m_cur);
+    const float m_cur = fmaxf(m[hh], quad_max(mx[hh]) * f);
+    alpha[hh] = ex2(m[hh] - m_cur);
     m[hh] = m_cur;
     l[hh] *= alpha[hh];
   }
 #pragma unroll
   for (int e = 0; e < BK / 2; ++e) {
     const int hh = (e >> 1) & 1;
-    s[e] = exp2f(s[e] - m[hh]);
+    // a masked pair is 0 also where its row has seen no visible key yet
+    // (m then holds the scaled NEG_INF, which fma does not cancel exactly)
+    const float p = ex2(fmaf(s[e], f, -m[hh]));
+    s[e] = MASK && s[e] == NEG_INF ? 0.f : p;
     l[hh] += s[e];
+  }
+}
+
+// fwd_softmax_of chosen by branches uniform over the warpgroup (`whole`
+// is the warpgroup's, the softcap the launch's), none holding a wgmma
+template <int BK>
+__device__ __forceinline__ void fwd_softmax(float (&s)[BK / 2], float (&m)[2],
+                                            float (&l)[2], float (&alpha)[2],
+                                            bool whole, int qrow, int k_first,
+                                            const Geom& g) {
+  if (g.softcap > 0.f) {
+    if (whole) fwd_softmax_of<BK, true, false>(s, m, l, alpha, qrow, k_first, g);
+    else fwd_softmax_of<BK, true, true>(s, m, l, alpha, qrow, k_first, g);
+  } else {
+    if (whole) fwd_softmax_of<BK, false, false>(s, m, l, alpha, qrow, k_first, g);
+    else fwd_softmax_of<BK, false, true>(s, m, l, alpha, qrow, k_first, g);
   }
 }
 
@@ -277,6 +331,22 @@ __device__ __forceinline__ void fwd_p16(const float (&s)[BK / 2],
       pf[kk][x] = pack2<T>(s[8 * kk + 2 * x], s[8 * kk + 2 * x + 1]);
 }
 
+// The warpgroups' turns: warpgroup wg issues a round of products (S_i with
+// P_{i-1} V_{i-1}) only after the other has issued its previous round, so
+// that one's softmax runs while the other's products do.  Named barrier
+// 1 + wg is wg's turn: it waits there with the other's 128 threads
+// arriving.  Both warpgroups walk the same n K/V tiles, n + 1 rounds each;
+// warpgroup 1 arrives once ahead (warpgroup 0 goes first) and not after its
+// last round, so every wait meets exactly one arrival.  bar.sync has no
+// timeout, so these waits are outside the 4-s barrier trap: the balance
+// holds because the round counts are equal by construction, and an edit
+// that lets them differ hangs the card instead of trapping.
+__device__ __forceinline__ void turn_begin(int wg) { named_sync(1 + wg, 256); }
+
+__device__ __forceinline__ void turn_end(int wg, bool last) {
+  if (!(wg == 1 && last)) named_arrive(2 - wg, 256);
+}
+
 template <typename T, int D>
 __global__ void __launch_bounds__(Fwd16Cfg<D>::NTF, 1)
     fwd16_kernel(const __grid_constant__ CUtensorMap tm_q,
@@ -286,13 +356,14 @@ __global__ void __launch_bounds__(Fwd16Cfg<D>::NTF, 1)
                  float* __restrict__ lse, Geom g) {
   using C = Fwd16Cfg<D>;
   constexpr int BQ = C::BQ, BK = C::BK, ST = C::STAGES, AT = C::ATOMS;
+  constexpr int SW = C::SW, AC = C::AC, OG = D / 32;  // O: OG x 16 a thread
   extern __shared__ __align__(1024) uint8_t fwd_smem[];
   uint8_t* base = fwd_smem + ((1024 - (smem_u32(fwd_smem) & 1023)) & 1023);
-  T* Qs = reinterpret_cast<T*>(base);  // AT atoms of BQ x 32
-  T* Ks = reinterpret_cast<T*>(base + C::q_bytes);  // ST x AT x BK x 32
+  T* Qs = reinterpret_cast<T*>(base);  // AT atoms of BQ x AC
+  T* Ks = reinterpret_cast<T*>(base + C::q_bytes);  // ST x AT x BK x AC
   T* Vs = reinterpret_cast<T*>(base + C::q_bytes + ST * C::kv_bytes);
   // a full and an empty barrier for each stage's K and for its V: K_i
-  // comes back to the producer once S_i is done, V_i once P_i V_i is
+  // comes back to the loader once S_i is done, V_i once P_i V_i is
   uint64_t* k_full =
       reinterpret_cast<uint64_t*>(base + C::q_bytes + 2 * ST * C::kv_bytes);
   uint64_t* v_full = k_full + ST;
@@ -302,8 +373,8 @@ __global__ void __launch_bounds__(Fwd16Cfg<D>::NTF, 1)
 
   const int per = g.H * g.B, nq = (g.S + BQ - 1) / BQ;
   const int iq = nq - 1 - (int)(blockIdx.x / per);  // longest rows first
-  const int h = (int)(blockIdx.x % per) % g.H, b = (int)(blockIdx.x % per) / g.H;
-  const int kvh = h / (g.H / g.Hkv);
+  const int h = (int)(blockIdx.x % per) % g.H;
+  const int b = (int)(blockIdx.x % per) / g.H, kvh = h / (g.H / g.Hkv);
   const int row0 = iq * BQ;
 
   if (b >= num_valid_rows(nv_ptr, g.B)) {
@@ -319,86 +390,103 @@ __global__ void __launch_bounds__(Fwd16Cfg<D>::NTF, 1)
     for (int s = 0; s < ST; ++s) {
       mbar_init(&k_full[s], 1);
       mbar_init(&v_full[s], 1);
-      mbar_init(&k_empty[s], 128 * C::NWG);
-      mbar_init(&v_empty[s], 128 * C::NWG);
+      mbar_init(&k_empty[s], C::NTF / 32);  // a warp's lane 0
+      mbar_init(&v_empty[s], C::NTF / 32);
     }
     mbar_init(q_full, 1);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
 
-  const int warp = threadIdx.x >> 5;
-  if (warp == 4 * C::NWG) {
-    // producer: Q once, then K and V of each visible kv tile into the ring
-    if ((threadIdx.x & 31) == 0) {
-      mbar_expect_tx(q_full, C::q_bytes);
-      for (int a = 0; a < AT; ++a)
-        tma_load_4d(Qs + a * BQ * 32, &tm_q, q_full, 32 * a, h, row0, b);
-      for (int i = 0; i < n; ++i) {
-        const int st = i % ST, u = i / ST, key0 = (range.x + i) * BK;
-        if (u > 0) mbar_wait(&k_empty[st], (u - 1) & 1);
-        mbar_expect_tx(&k_full[st], C::kv_bytes);
-        for (int a = 0; a < AT; ++a)
-          tma_load_4d(Ks + (st * AT + a) * BK * 32, &tm_k, &k_full[st],
-                      32 * a, kvh, key0, b);
-        if (u > 0) mbar_wait(&v_empty[st], (u - 1) & 1);
-        mbar_expect_tx(&v_full[st], C::kv_bytes);
-        for (int a = 0; a < AT; ++a)
-          tma_load_4d(Vs + (st * AT + a) * BK * 32, &tm_v, &v_full[st],
-                      32 * a, kvh, key0, b);
-      }
+  // the loader, thread 0 of the last warpgroup (the one that issues its
+  // products second, so the other is done with a stage first): Q once, the
+  // ring's first ST tiles, then K_{i+ST} once both have S_i and V_{i+ST}
+  // once both have P_i V_i
+  const int wg = threadIdx.x >> 7;
+  const bool loader = threadIdx.x == C::NTF - 128;
+  auto load = [&](const CUtensorMap* map, T* ring, uint64_t* full, int i) {
+    const int st = i % ST;
+    mbar_expect_tx(&full[st], C::kv_bytes);
+    for (int a = 0; a < AT; ++a)
+      tma_load_4d(ring + (st * AT + a) * BK * AC, map, &full[st], AC * a, kvh,
+                  (range.x + i) * BK, b);
+  };
+  if (loader) {
+    mbar_expect_tx(q_full, C::q_bytes);
+    for (int a = 0; a < AT; ++a)
+      tma_load_4d(Qs + a * BQ * AC, &tm_q, q_full, AC * a, h, row0, b);
+    for (int i = 0; i < min(n, ST); ++i) {
+      load(&tm_k, Ks, k_full, i);
+      load(&tm_v, Vs, v_full, i);
     }
-    return;
   }
+  __syncwarp();
+  // K_i back to the loader (each warp's lane 0 arrives; the loader then
+  // refills its stage with K_{i+ST}), and V_i alike
+  auto release = [&](const CUtensorMap* map, T* ring, uint64_t* full,
+                     uint64_t* empty, int i) {
+    __syncwarp();
+    if ((threadIdx.x & 31) == 0) mbar_arrive(&empty[i % ST]);
+    if (loader && i + ST < n) {
+      mbar_wait(&empty[i % ST], (i / ST) & 1);
+      load(map, ring, full, i + ST);
+    }
+    __syncwarp();
+  };
 
-  // consumers: warpgroup wg owns query rows row0 + 64 wg .. + 63; warp w of
-  // it rows 16 w .. + 15 of those (thread rows gq and gq + 8).  Tile i's
-  // S = Q K_i^T is issued with P_{i-1} V_{i-1}; its softmax runs while that
-  // product does, then O is rescaled and P_i converted.
-  const int wg = warp >> 2, w = warp & 3, gq = lane_g(), tq = lane_t();
+  // warpgroup wg owns query rows row0 + 64 wg .. + 63; warp w of it rows
+  // 16 w .. + 15 of those (thread rows gq and gq + 8).  Tile i's S = Q K_i^T
+  // is issued with P_{i-1} V_{i-1}; its softmax runs while that product
+  // (and the other warpgroup's round) does, then O is rescaled and P_i
+  // converted.  No wgmma sits under a branch (ptxas serializes wgmma in
+  // paths it cannot prove uniform).
+  const int w = (threadIdx.x >> 5) & 3, gq = lane_g(), tq = lane_t();
   const int qr0 = row0 + 64 * wg, qrow = qr0 + 16 * w + gq;
-  float o[AT][16], s[BK / 2], m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f},
+  float o[OG][16], s[BK / 2], m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f},
                               alpha[2];
   uint32_t pf[BK / 16][4];
 #pragma unroll
-  for (int a = 0; a < AT; ++a)
+  for (int a = 0; a < OG; ++a)
 #pragma unroll
     for (int e = 0; e < 16; ++e) o[a][e] = 0.f;
 
-  const uint32_t q_base = smem_u32(Qs) + wg * 64 * 64;
+  const uint32_t q_base = smem_u32(Qs) + wg * 64 * SW;
   const uint32_t k0_base = smem_u32(Ks), v0_base = smem_u32(Vs);
-  // tile 0 (every block of a valid row sees at least one: a query sees its
-  // own key), then tiles 1 .. n - 1 with no wgmma under a branch (ptxas
-  // serializes wgmma in paths it cannot prove uniform)
+  if (wg == 1) named_arrive(1, 256);  // warpgroup 0 goes first
   mbar_wait(q_full, 0);
   mbar_wait(&k_full[0], 0);
+  turn_begin(wg);
   wg_fence();
-  fwd_qk<T, D, BQ, BK>(s, q_base, k0_base);
+  fwd_qk<T, D, BQ, BK, SW>(s, q_base, k0_base);
   wg_commit();
+  turn_end(wg, false);
   wg_wait<0>();
-  mbar_arrive(&k_empty[0]);
+  release(&tm_k, Ks, k_full, k_empty, 0);
   fence_regs(s);
   fwd_softmax<BK>(s, m, l, alpha, tile_whole(qr0, 64, range.x * BK, BK, g),
                   qrow, range.x * BK, g);
   fwd_p16<T, BK>(s, pf);
   for (int i = 1; i < n; ++i) {
     const int st = i % ST, prev = (i - 1) % ST, k_first = (range.x + i) * BK;
+    const bool whole = tile_whole(qr0, 64, k_first, BK, g);
     mbar_wait(&k_full[st], (i / ST) & 1);
     mbar_wait(&v_full[prev], ((i - 1) / ST) & 1);
+    turn_begin(wg);
     wg_fence();
-    fwd_qk<T, D, BQ, BK>(s, q_base, k0_base + st * C::kv_bytes);
+    // S_i, then P_{i-1} V_{i-1}, which runs under S_i's softmax
+    fwd_qk<T, D, BQ, BK, SW>(s, q_base, k0_base + st * C::kv_bytes);
     wg_commit();
-    fwd_pv<T, D, BK>(o, pf, v0_base + prev * C::kv_bytes);
+    rs_product<T, D, BK, C::RS_N, SW>(o, pf, v0_base + prev * C::kv_bytes);
     wg_commit();
+    turn_end(wg, false);
     wg_wait<1>();  // S_i has landed; P_{i-1} V_{i-1} may still run
-    mbar_arrive(&k_empty[st]);
+    release(&tm_k, Ks, k_full, k_empty, i);
     fence_regs(s);
-    fwd_softmax<BK>(s, m, l, alpha, tile_whole(qr0, 64, k_first, BK, g),
-                    qrow, k_first, g);
+    fwd_softmax<BK>(s, m, l, alpha, whole, qrow, k_first, g);
     wg_wait<0>();
-    mbar_arrive(&v_empty[prev]);
+    release(&tm_v, Vs, v_full, v_empty, i - 1);
 #pragma unroll
-    for (int a = 0; a < AT; ++a) {
+    for (int a = 0; a < OG; ++a) {
       fence_regs(o[a]);
 #pragma unroll
       for (int e = 0; e < 16; ++e) o[a][e] *= alpha[(e >> 1) & 1];
@@ -406,12 +494,15 @@ __global__ void __launch_bounds__(Fwd16Cfg<D>::NTF, 1)
     fwd_p16<T, BK>(s, pf);
   }
   mbar_wait(&v_full[(n - 1) % ST], ((n - 1) / ST) & 1);
+  turn_begin(wg);
   wg_fence();
-  fwd_pv<T, D, BK>(o, pf, v0_base + ((n - 1) % ST) * C::kv_bytes);
+  rs_product<T, D, BK, C::RS_N, SW>(o, pf,
+                                    v0_base + ((n - 1) % ST) * C::kv_bytes);
   wg_commit();
+  turn_end(wg, true);
   wg_wait<0>();
 #pragma unroll
-  for (int a = 0; a < AT; ++a) fence_regs(o[a]);
+  for (int a = 0; a < OG; ++a) fence_regs(o[a]);
 
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
@@ -421,11 +512,12 @@ __global__ void __launch_bounds__(Fwd16Cfg<D>::NTF, 1)
     const float l_safe = fmaxf(l_row, 1e-20f), inv = 1.f / l_safe;
     T* o_row = out + ((size_t)(b * g.S + s_row) * g.H + h) * D;
 #pragma unroll
-    for (int a = 0; a < AT; ++a)
+    for (int a = 0; a < OG; ++a)
 #pragma unroll
       for (int j = 0; j < 4; ++j)
         *reinterpret_cast<uint32_t*>(o_row + 32 * a + 8 * j + 2 * tq) =
-            pack2<T>(o[a][4 * j + 2 * hh] * inv, o[a][4 * j + 2 * hh + 1] * inv);
+            pack2<T>(o[a][4 * j + 2 * hh] * inv,
+                     o[a][4 * j + 2 * hh + 1] * inv);
     if (tq == 0)
       lse[((size_t)b * g.H + h) * g.S + s_row] = (m[hh] + log2f(l_safe)) * LN2;
   }
@@ -441,13 +533,6 @@ __global__ void __launch_bounds__(Fwd16Cfg<D>::NTF, 1)
 //   dq += ds k * sm_scale   dk += ds^T q * sm_scale   dv += p^T dO
 // An accumulator value e of a thread sits at row 16 w + g + 8 ((e >> 1) & 1)
 // of its warpgroup's 64 and column 8 (e >> 2) + 2 t + (e & 1).
-
-// 2^x on the special-function unit (subnormal results flushed to zero)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
 
 // exp(s_soft - lse) of one raw score s (lse2 = lse log2(e)); f is the
 // softcap's factor 1 - (s_soft / cap)^2 on dS (CAP), else 1
@@ -557,29 +642,6 @@ __device__ __forceinline__ void bwd_ds(float (&out)[N / 2],
   for (int e = 0; e < N / 2; ++e) {
     const int hh = (e >> 1) & 1, c = 8 * (e >> 2) + 2 * tq + (e & 1);
     out[e] = pf[e] * (dp[e] - dlt[ROW_DELTA ? hh : c]);
-  }
-}
-
-// acc (64 x D fp32: D / 32 atoms of 16 values a thread) += A B, A the K / 16
-// k steps of af (16-bit A fragments), B a [K][D] tile at b_base (N-major:
-// D / 32 atoms of 32 columns, K * 64 bytes apart): one wgmma of RS_N
-// columns (RS_N / 32 atoms) a k step and column group
-template <typename T, int D, int K, int RS_N>
-__device__ __forceinline__ void bwd_rs(float (&acc)[D / 32][16],
-                                       const uint32_t (&af)[K / 16][4],
-                                       uint32_t b_base) {
-  static_assert(D % RS_N == 0, "whole column groups");
-  if constexpr (RS_N == 32) {
-    fwd_pv<T, D, K>(acc, af, b_base);
-  } else {
-    constexpr int G = RS_N / 32;  // atoms a wgmma
-#pragma unroll
-    for (int kk = 0; kk < K / 16; ++kk)
-#pragma unroll
-      for (int c = 0; c < D / RS_N; ++c)
-        wgmma_rs<T, RS_N>(
-            *reinterpret_cast<float(*)[RS_N / 2]>(&acc[c * G][0]), af[kk],
-            wg_desc(b_base + c * G * K * 64 + kk * 16 * 64, K * 64, 512));
   }
 }
 
@@ -757,7 +819,7 @@ __global__ void __launch_bounds__(Dq16Cfg<D>::NTF, Dq16Cfg<D>::MINB)
     bwd_ds<BK, true>(s, s, dp, dlt);
     fwd_p16<T, BK>(s, dsf);
     wg_fence();
-    bwd_rs<T, D, BK, C::RS_N>(acc, dsf, k_base);
+    rs_product<T, D, BK, C::RS_N>(acc, dsf, k_base);
     wg_commit();
     wg_wait<0>();
     mbar_arrive(&empty[st]);
@@ -884,7 +946,7 @@ __device__ __forceinline__ void dkv_consume(
     dkv_p<T, BQ, DK>(s, pf, lse_s, whole, krow, row0, g);
     if constexpr (DV) {
       wg_fence();
-      bwd_rs<T, D, BQ, C::RS_N>(dv_acc, pf, do_base);
+      rs_product<T, D, BQ, C::RS_N>(dv_acc, pf, do_base);
       wg_commit();
     }
     if constexpr (DK) {
@@ -893,7 +955,7 @@ __device__ __forceinline__ void dkv_consume(
       bwd_ds<BQ, false>(dp, s, dp, lse_s + BQ);
       fwd_p16<T, BQ>(dp, dsf);
       wg_fence();
-      bwd_rs<T, D, BQ, C::RS_N>(dk_acc, dsf, q_base);
+      rs_product<T, D, BQ, C::RS_N>(dk_acc, dsf, q_base);
       wg_commit();
     }
     wg_wait<0>();
@@ -1077,9 +1139,9 @@ EncodeTiled encode_tiled() {
 }
 
 // a (B, L, NH, D) 16-bit tensor as a 4-d TMA map (D innermost) whose box is
-// one 32-column atom of `rows` rows of one head, 64-byte swizzled; rows past
-// L come as zeros
-template <typename T>
+// one atom of SW / 2 columns (SW-byte swizzled rows) of `rows` rows of one
+// head; rows past L come as zeros
+template <typename T, int SW = 64>
 int tensor_map(CUtensorMap* map, const void* ptr, int B, int L, int NH,
                int D, int rows) {
   const EncodeTiled fn = encode_tiled();
@@ -1088,14 +1150,15 @@ int tensor_map(CUtensorMap* map, const void* ptr, int B, int L, int NH,
                               (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)NH * D * 2,
                                  (cuuint64_t)L * NH * D * 2};
-  const cuuint32_t box[4] = {32, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t box[4] = {SW / 2, 1, (cuuint32_t)rows, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   const CUresult r = fn(
       map,
       std::is_same<T, __half>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
                                      : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
       4, const_cast<void*>(ptr), dims, strides, box, elem,
-      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_64B,
+      CU_TENSOR_MAP_INTERLEAVE_NONE,
+      SW == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : kNoTensorMap;
 }
@@ -1105,9 +1168,11 @@ int launch_fwd16(const void* q, const void* k, const void* v, const int* nv,
                  void* out, float* lse, Geom g, cudaStream_t st) {
   using C = Fwd16Cfg<D>;
   CUtensorMap mq, mk, mv;
-  if (int e = tensor_map<T>(&mq, q, g.B, g.S, g.H, D, C::BQ)) return e;
-  if (int e = tensor_map<T>(&mk, k, g.B, g.T, g.Hkv, D, C::BK)) return e;
-  if (int e = tensor_map<T>(&mv, v, g.B, g.T, g.Hkv, D, C::BK)) return e;
+  if (int e = tensor_map<T, C::SW>(&mq, q, g.B, g.S, g.H, D, C::BQ)) return e;
+  if (int e = tensor_map<T, C::SW>(&mk, k, g.B, g.T, g.Hkv, D, C::BK))
+    return e;
+  if (int e = tensor_map<T, C::SW>(&mv, v, g.B, g.T, g.Hkv, D, C::BK))
+    return e;
   if (int e = set_smem(fwd16_kernel<T, D>, C::smem)) return e;
   const int nq = (g.S + C::BQ - 1) / C::BQ;
   fwd16_kernel<T, D><<<nq * g.H * g.B, C::NTF, C::smem, st>>>(

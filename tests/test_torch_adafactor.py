@@ -14,6 +14,7 @@ up to 2.5e-7 of the largest value), which is no relative error of the
 small result.
 """
 
+import torch_cpu_threads  # noqa: F401  (first: one torch thread a worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -8,6 +8,7 @@ paper workload (``CounterBatchSource`` cursors) and on a reduced LM
 checkpoint written by either package loads in the other.
 """
 
+import torch_cpu_threads  # noqa: F401  (first: one torch thread a worker)
 import os
 
 import jax.numpy as jnp

@@ -16,6 +16,7 @@ reference on the same inputs.
    included.
 """
 
+import torch_cpu_threads  # noqa: F401  (first: one torch thread a worker)
 import jax
 import numpy as np
 import pytest

@@ -19,6 +19,7 @@ the engine clock, ``round_charges``, ``serve_stats()`` and every finished
 token stream are ``==``; losses agree to rtol 1e-4.
 """
 
+import torch_cpu_threads  # noqa: F401  (first: one torch thread a worker)
 import jax
 import numpy as np
 import pytest

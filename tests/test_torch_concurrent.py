@@ -22,6 +22,7 @@ refused by another; a worker thread's exception reaches the caller; and a
 stress run with more workers than cores keeps the trajectory.
 """
 
+import torch_cpu_threads  # noqa: F401  (first: one torch thread a worker)
 import json
 import os
 import subprocess

@@ -23,6 +23,7 @@ runs on a GPU host that has only PyTorch:
 4. A flash kernel launched from a worker thread equals its plain version.
 """
 
+import torch_cpu_threads  # noqa: F401  (first: one torch thread a worker)
 import time
 from concurrent.futures import ThreadPoolExecutor
 

@@ -15,6 +15,7 @@ the reference's, another summation order), the caches to rtol and atol
 configuration (module-scoped).
 """
 
+import torch_cpu_threads  # noqa: F401  (first: one torch thread a worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

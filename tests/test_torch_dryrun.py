@@ -9,6 +9,7 @@ rules, against the same programs traced on one fake rank (the FLOPs of all
 devices together), and the roofline reads them.
 """
 
+import torch_cpu_threads  # noqa: F401  (first: one torch thread a worker)
 import dataclasses
 import json
 import os

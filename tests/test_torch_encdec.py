@@ -12,6 +12,7 @@ agree to atol max(1e-6, 2^-22 x the largest position): the two packages'
 1500 rad by up to ~1e-4 rad.
 """
 
+import torch_cpu_threads  # noqa: F401  (first: one torch thread a worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -21,6 +21,7 @@ bit-identical and losses at rtol 1e-4; and, in the port alone, a save /
 restore round trip of each of the three that continues bit for bit.
 """
 
+import torch_cpu_threads  # noqa: F401  (first: one torch thread a worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -16,6 +16,7 @@ on the CPU.  MoE configs run at capacity 8.0 (no drops) and at their own
 1.25, where the two devices must drop the same choices.
 """
 
+import torch_cpu_threads  # noqa: F401  (first: one torch thread a worker)
 import pytest
 import torch
 

@@ -9,6 +9,7 @@ marked ``cuda`` and skips without one; it needs no JAX, so a machine with
 the card and without JAX runs this file with ``-m cuda``.
 """
 
+import torch_cpu_threads  # noqa: F401  (first: one torch thread a worker)
 import numpy as np
 import pytest
 import torch
@@ -370,13 +371,26 @@ def test_cuda_kernels_take_16_bit_inputs(case, dtype, cuda_device):
 
 # the CUDA_CASES shapes, llama3-8b's (phase 14(b)'s step), grok-1's heads
 # with its softcap 30, and the hybrid's local blocks (D 256, H 16, Hkv 1)
-# with a window that bites, 16-bit
+# with a window that bites, 16-bit; then the forward's tile configurations
+# (128 query rows a block; 128-key tiles up to D 128, 64 at D 256) at 3 or
+# more key tiles: D 32 and 64, a softcap with a window, S < T at D 128 and
+# 256, ragged num_valid over several q tiles, and whole (unmasked) tiles
+# without causality
 HALF_CUDA_CASES = CASES + CUDA_CASES + [
     (2, 2048, 2048, 32, 8, 128, True, None, None, None),
     (2, 1024, 1024, 48, 8, 128, True, None, 30.0, 1),
-    (2, 2048, 2048, 16, 1, 256, True, 1024, None, 1)]
-HALF_CUDA_IDS = IDS + CUDA_IDS + ["llama3-8b", "grok-softcap",
-                                  "hybrid-window"]
+    (2, 2048, 2048, 16, 1, 256, True, 1024, None, 1),
+    (2, 640, 640, 4, 1, 32, True, None, None, 1),
+    (1, 512, 512, 8, 2, 64, True, None, None, None),
+    (1, 512, 512, 8, 2, 128, True, 200, 30.0, None),
+    (1, 300, 700, 4, 1, 128, True, None, None, None),
+    (1, 200, 520, 4, 2, 256, True, None, None, None),
+    (3, 400, 400, 8, 2, 128, True, None, None, 2),
+    (1, 384, 384, 4, 2, 128, False, None, None, None)]
+HALF_CUDA_IDS = IDS + CUDA_IDS + [
+    "llama3-8b", "grok-softcap", "hybrid-window", "d32-ragged-5-tiles",
+    "d64-gqa-4-tiles", "d128-window-softcap-4-tiles", "d128-s-lt-t",
+    "d256-s-lt-t", "d128-ragged-4-q-tiles", "d128-bidirectional-3-tiles"]
 
 
 def _peak_new_bytes(fn):
@@ -400,7 +414,8 @@ def test_cuda_16_bit_kernels_match_plain_versions(case, dtype, cuda_device):
     out, dq, dk and dv within ``row_error``'s limit (a few units in the
     last place of the row's own largest value), lse within ``LSE_TOL`` of
     its largest and delta within 1e-5 (fp32 sums of exact products).
-    Padded rows are exact zeros; a second dq and dk/dv launch is bit-equal;
+    Padded rows are exact zeros; a second forward, dq and dk/dv launch is
+    bit-equal;
     every call launched its 16-bit entry alone (``LAUNCHES_16`` moved with
     ``LAUNCHES``) and allocated no more than its outputs, its scratch (for
     dk/dv the fp32 partials of the splits ``dkv16_splits`` cuts each GQA
@@ -459,6 +474,8 @@ def test_cuda_16_bit_kernels_match_plain_versions(case, dtype, cuda_device):
     ref_delta = flash_delta_plain(do, out)
     assert (got_delta - ref_delta).abs().max() <= \
         1e-5 * ref_delta.abs().max()
+    again = flash_fwd(q, k, v, nvt, **kw)
+    assert torch.equal(again[0], out) and torch.equal(again[1], lse)
     again = flash_bwd_dkv(q, k, v, do, lse_p, delta, nvt, **kw)
     assert all(torch.equal(a, w) for a, w in zip(again, (dk, dv)))
     assert torch.equal(flash_bwd_dq(q, k, v, do, lse_p, delta, nvt, **kw),

@@ -2,6 +2,7 @@
 the reference's: batching plans, allocation, the P/PI/PID/gain controllers,
 the cluster simulator and the event engine, fed the same seeded inputs."""
 
+import torch_cpu_threads  # noqa: F401  (first: one torch thread a worker)
 import dataclasses
 
 import numpy as np

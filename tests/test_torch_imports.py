@@ -2,6 +2,7 @@
 ``chip_smoke.py``) imports jax or the reference package, and its entry points
 refuse to fall back to the CPU silently."""
 
+import torch_cpu_threads  # noqa: F401  (first: one torch thread a worker)
 import ast
 import pathlib
 

@@ -11,6 +11,7 @@ to rtol 1e-4.  The measured backend's runs take the fake clocks and the
 keyword ``shard_map`` of ``test_torch_mesh.py``'s ``clocks`` fixture.
 """
 
+import torch_cpu_threads  # noqa: F401  (first: one torch thread a worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

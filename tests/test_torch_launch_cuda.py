@@ -11,6 +11,7 @@ The CPU side stands in for the reference: ``tests/test_torch_launch.py``,
 reference there.
 """
 
+import torch_cpu_threads  # noqa: F401  (first: one torch thread a worker)
 import math
 
 import numpy as np

@@ -4,6 +4,7 @@ functions and ``lm_loss`` (with its gradients) agree in fp32, on a reduced
 gemma-2b whose seq 128 puts the reference on its Pallas kernel branch (in
 interpret mode)."""
 
+import torch_cpu_threads  # noqa: F401  (first: one torch thread a worker)
 import math
 
 import jax

@@ -22,6 +22,7 @@ update order and staleness) must be ``==`` the reference's; losses agree to
 rtol 1e-4.
 """
 
+import torch_cpu_threads  # noqa: F401  (first: one torch thread a worker)
 import math
 
 import jax

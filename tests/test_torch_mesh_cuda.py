@@ -17,6 +17,7 @@ runs on a GPU host that has only PyTorch:
    a padded bucket equals its gradient over the unpadded rows.
 """
 
+import torch_cpu_threads  # noqa: F401  (first: one torch thread a worker)
 import time
 
 import numpy as np

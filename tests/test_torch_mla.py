@@ -13,6 +13,7 @@ the whole model convert both ways through ``caches_from_jax`` /
 ``caches_to_jax``.
 """
 
+import torch_cpu_threads  # noqa: F401  (first: one torch thread a worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

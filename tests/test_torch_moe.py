@@ -18,6 +18,7 @@ probabilities); both packages keep the lower expert index.  Outputs and
 the aux loss agree to rtol 1e-5, gradients (``jax.grad``) to rtol 1e-4.
 """
 
+import torch_cpu_threads  # noqa: F401  (first: one torch thread a worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

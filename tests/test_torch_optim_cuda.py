@@ -12,6 +12,7 @@ card must stay within 2 ulp of it, so that its divisions by the fp32 bias
 corrections round as the reference's do.
 """
 
+import torch_cpu_threads  # noqa: F401  (first: one torch thread a worker)
 import numpy as np
 import pytest
 import torch

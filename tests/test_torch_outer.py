@@ -8,6 +8,7 @@ inputs (``tests/test_global_batch.py``), and a state dict written by either
 package must load in the other and continue identically.
 """
 
+import torch_cpu_threads  # noqa: F401  (first: one torch thread a worker)
 import json
 import math
 

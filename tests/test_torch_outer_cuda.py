@@ -17,6 +17,7 @@ runs on a GPU host that has only PyTorch:
    features absorb their last-bit differences.
 """
 
+import torch_cpu_threads  # noqa: F401  (first: one torch thread a worker)
 import numpy as np
 import pytest
 import torch

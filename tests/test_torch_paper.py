@@ -13,6 +13,7 @@ reference on injected batches, then mirrors of the reference's claims.
    ``ElasticTrainer.run_with_events`` and ``Experiment.run()``.
 """
 
+import torch_cpu_threads  # noqa: F401  (first: one torch thread a worker)
 import dataclasses
 
 import jax

@@ -22,6 +22,7 @@ below are set from what was measured on the CPU:
   are quantized to 1e-3 before they reach the head.
 """
 
+import torch_cpu_threads  # noqa: F401  (first: one torch thread a worker)
 import json
 import math
 

@@ -16,6 +16,7 @@ RG-LRU tolerance; the loss 1e-5 relative), gradients 1e-4 x max|g| per leaf
 128 are longer than the window of 8, so the local blocks mask.
 """
 
+import torch_cpu_threads  # noqa: F401  (first: one torch thread a worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

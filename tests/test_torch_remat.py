@@ -11,6 +11,7 @@ the reference's remat run the tolerances are the reference's own
 (tests/test_models.py): 1e-5 on the loss, 1e-4 on the gradients.
 """
 
+import torch_cpu_threads  # noqa: F401  (first: one torch thread a worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

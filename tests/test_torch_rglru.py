@@ -13,6 +13,7 @@ check on the card lives in ``test_torch_rglru_cuda.py``, which imports no
 JAX.
 """
 
+import torch_cpu_threads  # noqa: F401  (first: one torch thread a worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -11,6 +11,7 @@ held to the doubling scan (autograd) at 1e-5 x max|plain| (fp32, another
 summation order over up to 2048 steps).
 """
 
+import torch_cpu_threads  # noqa: F401  (first: one torch thread a worker)
 import pytest
 import torch
 

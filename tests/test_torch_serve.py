@@ -14,6 +14,7 @@ properties draw integers only and keep no example database.  Each
 reference program runs once per configuration (module-scoped).
 """
 
+import torch_cpu_threads  # noqa: F401  (first: one torch thread a worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -18,6 +18,7 @@ runs on a GPU host that has only PyTorch:
    card's lag in processing the end event after it is enqueued.
 """
 
+import torch_cpu_threads  # noqa: F401  (first: one torch thread a worker)
 import time
 
 import numpy as np

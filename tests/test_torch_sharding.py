@@ -6,6 +6,7 @@ mapping, as ``tests/test_sharding.py`` uses; ``jax.sharding.AbstractMesh``
 where the reference builds a ``NamedSharding``).  No process group is made
 in this process."""
 
+import torch_cpu_threads  # noqa: F401  (first: one torch thread a worker)
 import math
 
 import jax

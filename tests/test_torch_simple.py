@@ -7,6 +7,7 @@ port's ``loss_fn`` (autograd) equal the reference's under
 convolutions and products.  One microbatch slot is masked out.
 """
 
+import torch_cpu_threads  # noqa: F401  (first: one torch thread a worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

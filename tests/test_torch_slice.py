@@ -10,6 +10,7 @@ per-step batch split, simulated clock and adjustment flags depend only on
 the simulated clock and must be bit-identical; losses agree in fp32.
 """
 
+import torch_cpu_threads  # noqa: F401  (first: one torch thread a worker)
 import jax
 import numpy as np
 import pytest

@@ -19,6 +19,7 @@ against the reference on the same inputs.
    reference's ``use_kernel=False`` run, equal decisions.
 """
 
+import torch_cpu_threads  # noqa: F401  (first: one torch thread a worker)
 import jax
 import numpy as np
 import pytest

@@ -12,6 +12,7 @@ simulated clock and adjustment flags depend only on the simulated clock and
 must be bit-identical; losses agree at rtol 1e-4.
 """
 
+import torch_cpu_threads  # noqa: F401  (first: one torch thread a worker)
 import jax
 import numpy as np
 import pytest

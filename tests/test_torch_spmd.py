@@ -8,6 +8,7 @@ limit; it starts its four ranks, each of which makes and destroys its own
 group.  No process group is made in this process.
 """
 
+import torch_cpu_threads  # noqa: F401  (first: one torch thread a worker)
 import json
 import os
 import subprocess

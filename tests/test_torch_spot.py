@@ -11,6 +11,7 @@ to plain tuples of (type name, fields).  The chaos sessions run on
 ``SimBackend(device="cpu")``.
 """
 
+import torch_cpu_threads  # noqa: F401  (first: one torch thread a worker)
 import dataclasses
 import os
 

@@ -12,6 +12,7 @@ has no VJP).  The kernel-vs-plain check on the card lives in
 ``test_torch_ssd_cuda.py``, which imports no JAX.
 """
 
+import torch_cpu_threads  # noqa: F401  (first: one torch thread a worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -9,6 +9,7 @@ Tolerances: forward 1e-4 abs and rel, backward 1e-4 x max|plain| (fp32,
 other summation order over at most 128 terms per product).
 """
 
+import torch_cpu_threads  # noqa: F401  (first: one torch thread a worker)
 import numpy as np
 import pytest
 import torch

@@ -11,6 +11,7 @@ with (its kernel path has no VJP).  Tolerance: the reference's SSD 5e-4,
 gradients 5e-4 x max|g| per leaf.
 """
 
+import torch_cpu_threads  # noqa: F401  (first: one torch thread a worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

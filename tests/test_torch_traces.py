@@ -9,6 +9,7 @@ rounds back to ``at`` itself when Hypothesis draws a subnormal ``at``, so
 that property fails on a correct trace for some draws.
 """
 
+import torch_cpu_threads  # noqa: F401  (first: one torch thread a worker)
 import math
 
 import numpy as np

@@ -2,7 +2,10 @@
 """Time design variants of the port's CUDA kernels on the card, to pick
 their tuning constants.
 
-    python3 tools/kernel_variants.py [--flash16] [--out DIR]
+    python3 tools/kernel_variants.py [--flash16 | --flash16-fwd |
+                                      --flash16-fwd-probes |
+                                      --flash16-fwd-trees TREE ...
+                                      [--rounds N]] [--out DIR]
 
 Needs one CUDA card and nvcc, as ``chip_smoke.py`` does.
 
@@ -24,6 +27,23 @@ Needs one CUDA card and nvcc, as ``chip_smoke.py`` does.
   ``build/variants/`` in parallel, held to the plain versions in bf16 at
   the gemma-2b, llama3-8b and phi-3-vision shapes (1e-2 x max), then timed
   at those shapes by CUDA events and by torch.profiler's device time.
+* ``--flash16-fwd`` (alone): the 16-bit forward's tile shapes, ring depth,
+  P V width, warpgroup schedule, swizzle and softmax (``Fwd16Cfg`` and
+  ``fwd_softmax_of``), built the same way from ``FLASH16_FWD_VARIANTS``,
+  held to ``flash_fwd_plain`` in bf16 (1e-2 x max, each row within
+  ``row_error``'s limit, lse within ``LSE_TOL``) and timed at the
+  gemma-2b, llama3-8b, phi-3-vision (D 96) and grok-1 (softcap 30) shapes.
+* ``--flash16-fwd-probes`` (alone): the forward with parts taken out
+  (``FLASH16_FWD_PROBES``: the softmax and O's rescale, the K/V refills),
+  timed at the llama3-8b and gemma-2b shapes to show what each part costs;
+  their results are wrong by design, so they are not held to the plain
+  version (a probe that fails to build is recorded and the tool exits 1).
+* ``--flash16-fwd-trees TREE ...`` (alone): this checkout's 16-bit forward
+  against the one in each other checkout (e.g. a ``git archive`` of another
+  commit, unpacked under ``build/``), each held to ``flash_fwd_plain`` at
+  the gemma-2b, llama3-8b, phi-3-vision and grok-1 shapes, then timed
+  through ``chip_smoke.time_kernels`` in turn, ``--rounds`` times: every
+  reading of the profiler's device ms and of CUDA events kept.
 
 Every variant is first held to the plain version (the SSD tolerance 1e-4
 abs and rel; RG-LRU bit-equality; flash 1e-2 x max) and then timed with CUDA events over 20
@@ -206,10 +226,113 @@ FLASH16_SHAPES = (("gemma", 2, 1024, 8, 1, 256), ("llama3", 2, 2048, 32, 8, 128)
                   ("phi3", 2, 1024, 32, 32, 96), ("d64", 2, 2048, 32, 8, 64))
 
 
-def flash16_variant_libs() -> dict:
-    """Each ``FLASH16_VARIANTS`` entry built (in parallel) and loaded."""
-    from concurrent.futures import ThreadPoolExecutor
+# variant -> text replacements of csrc/flash_attention_16.cu for the
+# forward ("chosen" is the source as it stands): its tiles, ring, P V width,
+# warpgroup schedule, swizzle and softmax
+FWD_CFG = {
+    "bq": "static constexpr int BQ = 128;                  // query rows of a block",
+    "bk": "static constexpr int BK = D <= 128 ? 128 : 64;  // keys of a K/V tile",
+    "stages": "static constexpr int STAGES = 2;                // K/V tiles in the ring",
+    "rs": "static constexpr int RS_N = D;                  // columns of a P V wgmma",
+    "swizzle": "static constexpr int SW = D % 64 == 0 ? 128 : 64;",
+}
+# the warpgroups issue their products as they come, without turns
+_LOCKSTEP = [
+    ("void turn_begin(int wg) { named_sync(1 + wg, 256); }",
+     "void turn_begin(int wg) {}"),
+    ("  if (!(wg == 1 && last)) named_arrive(2 - wg, 256);\n", ""),
+    ("  if (wg == 1) named_arrive(1, 256);  // warpgroup 0 goes first\n", "")]
+# P_{i-1} V_{i-1} issued before S_i, both stages released before S_i's
+# softmax (which then runs under no product of its warpgroup)
+_PV_FIRST = [(
+    "    // S_i, then P_{i-1} V_{i-1}, which runs under S_i's softmax\n"
+    "    fwd_qk<T, D, BQ, BK, SW>(s, q_base, k0_base + st * C::kv_bytes);\n"
+    "    wg_commit();\n"
+    "    rs_product<T, D, BK, C::RS_N, SW>(o, pf, v0_base + prev * C::kv_bytes);\n"
+    "    wg_commit();\n"
+    "    turn_end(wg, false);\n"
+    "    wg_wait<1>();  // S_i has landed; P_{i-1} V_{i-1} may still run\n"
+    "    release(&tm_k, Ks, k_full, k_empty, i);\n"
+    "    fence_regs(s);\n"
+    "    fwd_softmax<BK>(s, m, l, alpha, whole, qrow, k_first, g);\n"
+    "    wg_wait<0>();\n"
+    "    release(&tm_v, Vs, v_full, v_empty, i - 1);\n",
+    "    rs_product<T, D, BK, C::RS_N, SW>(o, pf, v0_base + prev * C::kv_bytes);\n"
+    "    wg_commit();\n"
+    "    fwd_qk<T, D, BQ, BK, SW>(s, q_base, k0_base + st * C::kv_bytes);\n"
+    "    wg_commit();\n"
+    "    turn_end(wg, false);\n"
+    "    wg_wait<1>();\n"
+    "    release(&tm_v, Vs, v_full, v_empty, i - 1);\n"
+    "    wg_wait<0>();\n"
+    "    release(&tm_k, Ks, k_full, k_empty, i);\n"
+    "    fence_regs(s);\n"
+    "    fwd_softmax<BK>(s, m, l, alpha, whole, qrow, k_first, g);\n")]
+FLASH16_FWD_VARIANTS = {
+    "chosen": [],
+    "64-byte swizzle (32-column atoms)": [
+        (FWD_CFG["swizzle"], "static constexpr int SW = 64;")],
+    "P V first, stages released before the softmax": _PV_FIRST,
+    "warpgroups in lockstep (no turns)": _LOCKSTEP,
+    "one warpgroup, 64-row q tiles": _LOCKSTEP + [
+        (FWD_CFG["bq"], "static constexpr int BQ = 64;")],
+    "64-key tiles at D 96, 128": [
+        (FWD_CFG["bk"], "static constexpr int BK = D <= 64 ? 128 : 64;")],
+    "ring of 3 stages up to D 128": [
+        (FWD_CFG["stages"], "static constexpr int STAGES = D <= 128 ? 3 : 2;")],
+    "P V of 64 columns a wgmma": [
+        (FWD_CFG["rs"], "static constexpr int RS_N = D % 64 ? 32 : 64;")],
+    "P V of 32 columns a wgmma, 64-byte swizzle (PR 30's)": [
+        (FWD_CFG["rs"], "static constexpr int RS_N = 32;"),
+        (FWD_CFG["swizzle"], "static constexpr int SW = 64;")],
+    "P V of 128 columns at D 256": [
+        (FWD_CFG["rs"], "static constexpr int RS_N = D == 256 ? 128 : D;")],
+    "softmax tests softcap and mask per element": [
+        ("const float f = CAP ? 1.f : g.sm_scale * LOG2E;",
+         "const float f = g.softcap > 0.f ? 1.f : g.sm_scale * LOG2E;"),
+        ("    if constexpr (CAP)\n      x = g.softcap",
+         "    if (g.softcap > 0.f)\n      x = g.softcap"),
+        ("if (MASK && !pair_visible(qrow", "if (!pair_visible(qrow")],
+    "exp2f for the exponentials": [
+        ("const float p = ex2(fmaf(s[e], f, -m[hh]));",
+         "const float p = exp2f(fmaf(s[e], f, -m[hh]));"),
+        ("alpha[hh] = ex2(m[hh] - m_cur);", "alpha[hh] = exp2f(m[hh] - m_cur);")],
+}
+# (label, B, S, H, Hkv, D, softcap), causal, S = T
+FLASH16_FWD_SHAPES = (("gemma", 2, 1024, 8, 1, 256, None),
+                      ("llama3", 2, 2048, 32, 8, 128, None),
+                      ("phi3", 2, 1024, 32, 32, 96, None),
+                      ("grok-softcap", 2, 1024, 48, 8, 128, 30.0))
 
+
+# probes of the forward (``--flash16-fwd-probes``): text replacements that
+# take work out of the kernel (the softmax, the O rescale, the K/V
+# refills), so that their results are wrong by design; they are timed, not
+# held to the plain version, to show what each part of the kernel costs
+_NO_SOFTMAX = ("fwd_softmax<BK>(s, m, l, alpha, whole, qrow, k_first, g);", "")
+_NO_RESCALE = (
+    "      for (int e = 0; e < 16; ++e) o[a][e] *= alpha[(e >> 1) & 1];",
+    "      for (int e = 0; e < 16; ++e) o[a][e] += 0.f;")
+_NO_REFILLS = [  # the ring's first tiles only, read again for every tile
+    ("    mbar_wait(&k_full[st], (i / ST) & 1);\n"
+     "    mbar_wait(&v_full[prev], ((i - 1) / ST) & 1);",
+     "    if (i < ST) mbar_wait(&k_full[st], 0);\n"
+     "    if (i - 1 < ST) mbar_wait(&v_full[prev], 0);"),
+    ("  mbar_wait(&v_full[(n - 1) % ST], ((n - 1) / ST) & 1);",
+     "  if (n - 1 < ST) mbar_wait(&v_full[(n - 1) % ST], 0);"),
+    ("    if (loader && i + ST < n) {", "    if (false) {")]
+FLASH16_FWD_PROBES = {
+    "chosen": [],
+    "no softmax, no O rescale": [_NO_SOFTMAX, _NO_RESCALE],
+    "no K/V refills": _NO_REFILLS,
+    "no K/V refills, no softmax, no O rescale": _NO_REFILLS + [_NO_SOFTMAX,
+                                                               _NO_RESCALE],
+}
+
+
+def flash16_variant_libs(variants: dict, tag: str) -> dict:
+    """Each entry of ``variants`` (label -> text replacements) built (in
+    parallel, as ``build/variants/<tag>_v<i>.cu``) and loaded."""
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import kernel as K
 
@@ -218,20 +341,40 @@ def flash16_variant_libs() -> dict:
         src = src.replace(f'#include "{inc}"',
                           f'#include "{(K.SOURCE_16.parent / inc).resolve()}"')
     paths = {}
-    for i, (label, reps) in enumerate(FLASH16_VARIANTS.items()):
+    for i, (label, reps) in enumerate(variants.items()):
         text = src
         for old, new in reps:
             assert old in text, (label, old)
             text = text.replace(old, new)
-        path = build.BUILD_DIR.parent / "variants" / f"flash16_v{i}.cu"
+        path = build.BUILD_DIR.parent / "variants" / f"{tag}_v{i}.cu"
         path.parent.mkdir(parents=True, exist_ok=True)
         path.write_text(text)
         paths[label] = path
+    return build_libs16(paths)
+
+
+def build_libs16(paths: dict) -> dict:
+    """Each 16-bit flash source in ``paths`` (label -> .cu) built by nvcc in
+    parallel (as ``<stem>``) and loaded with the 16-bit entries' signatures;
+    a source that fails to build maps to the tail of its error instead."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import kernel as K
+
+    def build_one(path):
+        try:
+            return build.build(path, path.stem)
+        except RuntimeError as e:  # recorded; main exits 1
+            return str(e)[-2000:]
+
     with ThreadPoolExecutor(len(paths)) as pool:
-        built = dict(zip(paths, pool.map(lambda p: build.build(p, p.stem),
-                                         paths.values())))
+        built = dict(zip(paths, pool.map(build_one, paths.values())))
     libs = {}
     for label, path in built.items():
+        if isinstance(path, str):
+            libs[label] = path
+            continue
         lib = ctypes.CDLL(str(path))
         for name, argtypes in K.SIGNATURES_16.items():
             getattr(lib, name).argtypes = argtypes
@@ -240,13 +383,28 @@ def flash16_variant_libs() -> dict:
     return libs
 
 
+def ptxas_lines(log: str, frag: str) -> list:
+    """ptxas's registers, spills and shared memory lines for each entry
+    function whose (mangled) name holds ``frag``, from ``-Xptxas -v``."""
+    out, take = [], False
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            take = frag in line
+            if take:
+                out.append(line.split("'")[1][:80])
+        elif take and ("Used" in line or "spill" in line
+                       or "arning" in line):
+            out.append(line.split(":", 1)[-1].strip())
+    return out
+
+
 def flash16_variants() -> dict:
     import torch
     from chip_smoke import FLASH16, HALF_TOL, device_ms, time_ms
     from repro_torch.kernels.flash_attention import kernel as K
 
     dev = torch.device("cuda")
-    libs = flash16_variant_libs()
+    libs = flash16_variant_libs(FLASH16_VARIANTS, "flash16")
     chosen = K._lib16
     out = {label: {} for label in libs}
     try:
@@ -274,8 +432,11 @@ def flash16_variants() -> dict:
                         [x.flatten() for x in K.flash_bwd_dkv(
                             q, k, v, do, lse, delta)])}
                 for label, lib in libs.items():
-                    K._lib16 = lambda lib=lib: lib
                     rec = out[label].setdefault(label_s, {})
+                    if isinstance(lib, str):
+                        rec["build_disagrees"] = lib
+                        continue
+                    K._lib16 = lambda lib=lib: lib
                     for name, fn in calls.items():
                         if rnd == 0:
                             err = (fn().float() - want[name].float()).abs() \
@@ -295,11 +456,195 @@ def flash16_variants() -> dict:
     return out
 
 
+def flash16_fwd_variants() -> dict:
+    import torch
+    from chip_smoke import FLASH16, HALF_TOL, device_ms, time_ms
+    from repro_torch.kernels.flash_attention import kernel as K
+
+    dev = torch.device("cuda")
+    from repro_torch.kernels import build
+
+    libs = flash16_variant_libs(FLASH16_FWD_VARIANTS, "flash16_fwd")
+    chosen = K._lib16
+    out = {label: {"ptxas": ptxas_lines(build.BUILD_LOG.get(
+        f"flash16_fwd_v{i}", ""), "fwd16_kernel")}
+        for i, label in enumerate(libs)}
+    try:
+        for rnd in range(2):
+            for label_s, b, s, h, hkv, d, cap in FLASH16_FWD_SHAPES:
+                g = torch.Generator(device=dev).manual_seed(0)
+                q, k, v = (torch.randn(x, generator=g, device=dev)
+                           .to(torch.bfloat16)
+                           for x in ((b, s, h, d), (b, s, hkv, d),
+                                     (b, s, hkv, d)))
+                want, lse_w = K.flash_fwd_plain(q, k, v, softcap=cap)
+
+                def fn():
+                    return K.flash_fwd(q, k, v, softcap=cap)
+
+                for label, lib in libs.items():
+                    rec = out[label].setdefault(label_s, {})
+                    if isinstance(lib, str):
+                        rec["build_disagrees"] = lib
+                        continue
+                    K._lib16 = lambda lib=lib: lib
+                    if rnd == 0:
+                        got, lse = fn()
+                        err = (got.float() - want.float()).abs().max().item()
+                        lse_err = (lse - lse_w).abs().max().item()
+                        rec["max_abs_err"] = err
+                        rec["row_error"] = K.row_error(got, want)
+                        if not (err <= HALF_TOL * want.float().abs().max()
+                                .item() and rec["row_error"] <= 1
+                                and lse_err <= K.LSE_TOL
+                                * lse_w.abs().max().item()):
+                            # recorded and left untimed; main exits 1
+                            rec["flash_fwd_disagrees"] = err
+                    if "flash_fwd_disagrees" in rec:
+                        continue
+                    rec.setdefault("ms", []).append(time_ms(fn, 20))
+                    rec.setdefault("device_ms", []).append(
+                        device_ms(fn, FLASH16["flash_fwd_16"]))
+    finally:
+        K._lib16 = chosen
+    return out
+
+
+def flash16_fwd_probes() -> dict:
+    """Each ``FLASH16_FWD_PROBES`` entry's device ms at the llama3-8b and
+    gemma-2b shapes, twice in turn, and its largest error against the
+    plain version (large by design, but for "chosen")."""
+    import torch
+    from chip_smoke import FLASH16, device_ms
+    from repro_torch.kernels.flash_attention import kernel as K
+
+    dev = torch.device("cuda")
+    libs = flash16_variant_libs(FLASH16_FWD_PROBES, "flash16_probe")
+    chosen = K._lib16
+    out = {label: {} for label in libs}
+    try:
+        for rnd in range(2):
+            for label_s, b, s, h, hkv, d, cap in FLASH16_FWD_SHAPES[:2]:
+                g = torch.Generator(device=dev).manual_seed(0)
+                q, k, v = (torch.randn(x, generator=g, device=dev)
+                           .to(torch.bfloat16)
+                           for x in ((b, s, h, d), (b, s, hkv, d),
+                                     (b, s, hkv, d)))
+                want = K.flash_fwd_plain(q, k, v)[0].float() if rnd == 0 \
+                    else None
+
+                def fn():
+                    return K.flash_fwd(q, k, v)
+
+                for label, lib in libs.items():
+                    rec = out[label].setdefault(label_s, {})
+                    if isinstance(lib, str):
+                        rec["build_failed"] = lib
+                        continue
+                    K._lib16 = lambda lib=lib: lib
+                    if rnd == 0:
+                        rec["max_abs_err"] = (fn()[0].float() - want).abs() \
+                            .max().item()
+                    rec.setdefault("device_ms", []).append(
+                        device_ms(fn, FLASH16["flash_fwd_16"]))
+    finally:
+        K._lib16 = chosen
+    return out
+
+
+# (label, B, S, T, H, Hkv, D, window, softcap) of ``chip_smoke.FLASH_TIMED``
+# that ``--flash16-fwd-trees`` times: gemma's, llama3-8b's, phi-3's, grok's
+def _tree_shapes():
+    from chip_smoke import FLASH_TIMED, FLASH_TIMED_16
+
+    return [FLASH_TIMED_16[0], FLASH_TIMED_16[1], FLASH_TIMED[2],
+            FLASH_TIMED[3]]
+
+
+def flash16_fwd_trees(trees: list, rounds: int) -> dict:
+    """The 16-bit forward of this checkout ("this tree") against the same
+    entry built from each other tree (a checkout's root, its own
+    ``src/repro_torch/kernels``), in turn ``rounds`` times (the trees'
+    order reversed every other round) through ``chip_smoke.time_kernels``
+    in bf16 at ``_tree_shapes()``: every reading of ``flash_fwd_16``'s
+    device ms (the profiler's) and events ms, SDPA's default call's device
+    ms beside them, and each tree's largest error, row error and lse error
+    against ``flash_fwd_plain`` (a tree that disagrees is recorded and
+    left untimed)."""
+    import torch
+    from chip_smoke import HALF_TOL, peaks, time_kernels
+    from repro_torch.kernels.flash_attention import kernel as K
+
+    rel = K.SOURCE_16.relative_to(ROOT)
+    paths = {"this tree": K.SOURCE_16}
+    for i, tree in enumerate(trees):
+        src = Path(tree).resolve() / rel
+        # a copy named apart, beside the tree's own headers
+        path = src.with_name(f"flash16_tree{i}.cu")
+        path.write_text(src.read_text())
+        paths[str(tree)] = path
+    libs = build_libs16(paths)
+    peak = peaks(torch.cuda.get_device_name(0))[1]
+    chosen = K._lib16
+    out = {label: {} for label in libs}
+    dev = torch.device("cuda")
+    try:
+        for shape in _tree_shapes():  # each tree held to the plain version
+            label_s, b, s, t, h, hkv, d, window, cap = shape
+            g = torch.Generator(device=dev).manual_seed(0)
+            q, k, v = (torch.randn(x, generator=g, device=dev)
+                       .to(torch.bfloat16)
+                       for x in ((b, s, h, d), (b, t, hkv, d), (b, t, hkv, d)))
+            want, lse_w = K.flash_fwd_plain(q, k, v, softcap=cap)
+            for label, lib in libs.items():
+                rec = out[label].setdefault(label_s, {})
+                if isinstance(lib, str):
+                    rec["build_failed"] = lib
+                    continue
+                K._lib16 = lambda lib=lib: lib
+                got, lse = K.flash_fwd(q, k, v, softcap=cap)
+                err = (got.float() - want.float()).abs().max().item()
+                rec["max_abs_err"] = err
+                rec["row_error"] = K.row_error(got, want)
+                rec["lse_err"] = (lse - lse_w).abs().max().item()
+                if not (err <= HALF_TOL * want.float().abs().max().item()
+                        and rec["row_error"] <= 1
+                        and rec["lse_err"] <= K.LSE_TOL
+                        * lse_w.abs().max().item()):
+                    rec["flash_fwd_disagrees"] = err  # main exits 1
+        for rnd in range(rounds):
+            order = list(libs) if rnd % 2 == 0 else list(libs)[::-1]
+            for shape in _tree_shapes():
+                for label in order:
+                    rec = out[label][shape[0]]
+                    if "build_failed" in rec or "flash_fwd_disagrees" in rec:
+                        continue
+                    K._lib16 = lambda lib=libs[label]: lib
+                    tm = time_kernels(peak, {}, shape,
+                                      dtype="bfloat16")["flash_fwd_16"]
+                    for key in ("device_ms", "ms", "sdpa_default_device_ms"):
+                        rec.setdefault(key, []).append(tm[key])
+                    rec["bound_ms"] = tm["bound_ms"]
+    finally:
+        K._lib16 = chosen
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=str(ROOT / "chiprun_out"))
-    ap.add_argument("--flash16", action="store_true",
-                    help="time the 16-bit flash kernels' variants alone")
+    what = ap.add_mutually_exclusive_group()
+    what.add_argument("--flash16", action="store_true",
+                      help="time the 16-bit flash backward's variants alone")
+    what.add_argument("--flash16-fwd", action="store_true",
+                      help="time the 16-bit flash forward's variants alone")
+    what.add_argument("--flash16-fwd-probes", action="store_true",
+                      help="time the 16-bit forward with parts taken out")
+    what.add_argument("--flash16-fwd-trees", nargs="+", metavar="TREE",
+                      help="time the 16-bit forward against other "
+                           "checkouts' (their roots), in turn")
+    ap.add_argument("--rounds", type=int, default=3,
+                    help="turns of --flash16-fwd-trees")
     args = ap.parse_args()
     import torch
 
@@ -309,13 +654,30 @@ def main() -> int:
     from chip_smoke import gpu_line
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    if args.flash16:
-        res = {"gpu": gpu_line(), "flash16": flash16_variants()}
-        name = "kernel_variants_flash16.json"
-        bad = sorted(f"{label} at {shape}: {key}"
-                     for label, shapes in res["flash16"].items()
+    if args.flash16_fwd_trees:
+        res = {"gpu": gpu_line(), "flash16_fwd_trees": flash16_fwd_trees(
+            args.flash16_fwd_trees, args.rounds)}
+        name = "kernel_variants_flash16_fwd_trees.json"
+        bad = sorted(f"{label} at {shape}: {k}"
+                     for label, shapes in res["flash16_fwd_trees"].items()
                      for shape, rec in shapes.items()
-                     for key in rec if key.endswith("_disagrees"))
+                     for k in rec if k in ("build_failed",
+                                           "flash_fwd_disagrees"))
+    elif args.flash16_fwd_probes:
+        res = {"gpu": gpu_line(), "flash16_fwd_probes": flash16_fwd_probes()}
+        name = "kernel_variants_flash16_fwd_probes.json"
+        bad = sorted(f"{label}: {rec['build_failed'][-300:]}"
+                     for label, shapes in res["flash16_fwd_probes"].items()
+                     for rec in shapes.values() if "build_failed" in rec)
+    elif args.flash16 or args.flash16_fwd:
+        key = "flash16" if args.flash16 else "flash16_fwd"
+        sweep = flash16_variants if args.flash16 else flash16_fwd_variants
+        res = {"gpu": gpu_line(), key: sweep()}
+        name = f"kernel_variants_{key}.json"
+        bad = sorted(f"{label} at {shape}: {k}"
+                     for label, shapes in res[key].items()
+                     for shape, rec in shapes.items() if shape != "ptxas"
+                     for k in rec if k.endswith("_disagrees"))
     else:
         res = {"gpu": gpu_line(), "ssd_fwd_ms": ssd_variants(),
                **rglru_variants()}
